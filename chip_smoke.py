@@ -13,16 +13,30 @@ Phases, each failing the run with a non-zero exit:
 3. K3 (hash insert) against its plain version on the card: multiset of
    groups exact, a forced overflow escapes, join-build duplicates counted
    exactly, and the hash-join probe equal;
-4. the main path: ``Session()`` on cuda over ``tpch.sf1`` runs TPC-H q1,
-   q6 and q3 (one cold run, three steady), each result checked against a
-   numpy oracle computed here from the generated arrays; the kernels'
-   launch counters are reset just before and read just after, and K1 and
-   K3 must both have launched;
-5. timing of each kernel on the inputs of its largest launch in the main
-   path: kernel ms (CUDA events, median of 10), the plain version's ms,
+4. K4 (multiway star probe) against its plain version on a synthetic star
+   (4M fact rows, 4 dimensions at 65,536 slots, hits, misses, NULL keys,
+   dead rows and a chain longer than MAX_PROBES), `found` and `miss`
+   bit-exact;
+5. K5 (grouped sums) against its plain version and `index_add_` (6M rows,
+   16 groups, 17 planes of values up to +-2^58), bit-exact;
+6. the main paths, each with every launch counter set to 0 just before
+   and read just after: ``Session()`` on cuda over ``tpch.sf1`` runs
+   TPC-H q1, q6 and q3 (one cold run, three steady; K1 and K3 must
+   launch); over ``tpcds.sf1`` the star queries q3, q7, q19 and q96 (one
+   cold, three steady; every run through a fused `multiway[k>=2]` with K4
+   launches; q3, q7, q96 against a numpy oracle; one EXPLAIN ANALYZE of
+   q7; after the counts are read, all four against the same query on the
+   pairwise ladder); and TPC-H q12 at ``tpch.sf1`` under
+   ``mxu_agg = 'true'`` (K5 launches, rows equal the oracle and the
+   `false` run; under `auto` K5 must not launch);
+7. timing of each kernel on the inputs of its largest launch in the main
+   paths: kernel ms (CUDA events, median of 10), the plain version's ms,
    one library call's ms where one computes the same function, and the
-   least time the card could take (bound);
-6. a `kernels` JSON line, the card line, and last the result line
+   least time the card could take (bound); beside K5, the two arms of a
+   direct aggregate (K5's `mxu` arm and the masked-sum `direct` arm) on
+   q12's batch, with its key redrawn over 2 to 16 groups, to place the
+   crossover that `mxu_agg = auto` models;
+8. a `kernels` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -42,6 +56,9 @@ import time
 # the H100's data-sheet memory rate (SXM part), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 TPCH_SCHEMA = "sf1"
+TPCDS_SCHEMA = "sf1"
+STAR_QUERIES = (3, 7, 19, 96)
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 Q1 = """
 SELECT l_returnflag, l_linestatus,
@@ -184,6 +201,128 @@ def oracle_q3(cust, orders, li):
     return [(int(keys[i]), _dec(int(sums[i]), 4),
              (epoch + datetime.timedelta(days=int(odate[i]))).isoformat(),
              int(oprio[i])) for i in order]
+
+
+def oracle_q12(orders, li):
+    import numpy as np
+    mode_pool = li.schema.field("l_shipmode").dictionary
+    prio_pool = orders.schema.field("o_orderpriority").dictionary
+    okey = _col(orders, "o_orderkey")
+    prio = np.full(int(okey.max()) + 1, -1, np.int64)
+    prio[okey] = _col(orders, "o_orderpriority")
+    mode = _col(li, "l_shipmode")
+    commit, receipt = _col(li, "l_commitdate"), _col(li, "l_receiptdate")
+    m = np.isin(mode, [mode_pool.index("MAIL"), mode_pool.index("SHIP")]) \
+        & (commit < receipt) & (_col(li, "l_shipdate") < commit) & \
+        (receipt >= _days("1994-01-01")) & (receipt < _days("1995-01-01"))
+    high = np.isin(prio[_col(li, "l_orderkey")[m]],
+                   [prio_pool.index("1-URGENT"), prio_pool.index("2-HIGH")])
+    out = []
+    for code in sorted(set(mode[m].tolist()), key=lambda c: mode_pool[c]):
+        g = mode[m] == code
+        out.append((mode_pool[code], int((g & high).sum()),
+                    int((g & ~high).sum())))
+    return out
+
+
+def _valid(table, name):
+    import numpy as np
+    i = table.schema.index_of(name)
+    v = None if table.valids is None else table.valids[i]
+    return np.ones(table.num_rows, np.bool_) if v is None else \
+        np.asarray(v)
+
+
+def _row_of(table, name, keys):
+    """Row index of each key in `table`'s unique key column `name`."""
+    import numpy as np
+    k = _col(table, name)
+    lut = np.full(int(k.max()) + 1, -1, np.int64)
+    lut[k] = np.arange(len(k))
+    return lut[np.clip(keys, 0, len(lut) - 1)]
+
+
+def _code(table, name, value):
+    return table.schema.field(name).dictionary.index(value)
+
+
+def oracle_ds_q3(t):
+    import numpy as np
+    ss, dd, it = t["store_sales"], t["date_dim"], t["item"]
+    drow = _row_of(dd, "d_date_sk", _col(ss, "ss_sold_date_sk"))
+    irow = _row_of(it, "i_item_sk", _col(ss, "ss_item_sk"))
+    m = _valid(ss, "ss_sold_date_sk") & \
+        (_col(dd, "d_moy")[drow] == 11) & \
+        (_col(it, "i_manufact_id")[irow] == 128)
+    year = _col(dd, "d_year")[drow[m]].astype(np.int64)
+    bid = _col(it, "i_brand_id")[irow[m]]
+    bcode = _col(it, "i_brand")[irow[m]].astype(np.int64)
+    price = _col(ss, "ss_ext_sales_price")[m]
+    keys, inv = np.unique(np.stack([year, bid, bcode], 1), axis=0,
+                          return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv.ravel(), price)
+    pool = it.schema.field("i_brand").dictionary
+    rows = [(int(y), int(b), pool[int(c)], int(v))
+            for (y, b, c), v in zip(keys, sums)]
+    rows.sort(key=lambda r: (r[0], -r[3], r[1]))
+    return [(y, b, c, _dec(v, 2)) for y, b, c, v in rows[:100]]
+
+
+def oracle_ds_q7(t):
+    import numpy as np
+    ss, cd, dd = t["store_sales"], t["customer_demographics"], \
+        t["date_dim"]
+    it, pr = t["item"], t["promotion"]
+    crow = _row_of(cd, "cd_demo_sk", _col(ss, "ss_cdemo_sk"))
+    drow = _row_of(dd, "d_date_sk", _col(ss, "ss_sold_date_sk"))
+    prow = _row_of(pr, "p_promo_sk", _col(ss, "ss_promo_sk"))
+    irow = _row_of(it, "i_item_sk", _col(ss, "ss_item_sk"))
+    m = _valid(ss, "ss_cdemo_sk") & _valid(ss, "ss_sold_date_sk") & \
+        _valid(ss, "ss_promo_sk") & \
+        (_col(cd, "cd_gender")[crow] == _code(cd, "cd_gender", "M")) & \
+        (_col(cd, "cd_marital_status")[crow] ==
+         _code(cd, "cd_marital_status", "S")) & \
+        (_col(cd, "cd_education_status")[crow] ==
+         _code(cd, "cd_education_status", "College")) & \
+        ((_col(pr, "p_channel_email")[prow] ==
+          _code(pr, "p_channel_email", "N")) |
+         (_col(pr, "p_channel_event")[prow] ==
+          _code(pr, "p_channel_event", "N"))) & \
+        (_col(dd, "d_year")[drow] == 2000)
+    ids = _col(it, "i_item_id")[irow[m]].astype(np.int64)
+    pool = it.schema.field("i_item_id").dictionary
+    keys, inv = np.unique(ids, return_inverse=True)
+    n = np.bincount(inv, minlength=len(keys))
+    sums = []
+    for name in ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+                 "ss_sales_price"):
+        acc = np.zeros(len(keys), np.int64)
+        np.add.at(acc, inv, _col(ss, name)[m])
+        sums.append(acc)
+    rows = []
+    for j, code in enumerate(keys):
+        c = int(n[j])
+        rows.append((pool[int(code)], int(sums[0][j]) / c,
+                     *[_dec(_avg_half_up(int(a[j]), c), 2)
+                       for a in sums[1:]]))
+    rows.sort(key=lambda r: r[0])
+    return rows[:100]
+
+
+def oracle_ds_q96(t):
+    ss, hd, td, st = t["store_sales"], t["household_demographics"], \
+        t["time_dim"], t["store"]
+    trow = _row_of(td, "t_time_sk", _col(ss, "ss_sold_time_sk"))
+    hrow = _row_of(hd, "hd_demo_sk", _col(ss, "ss_hdemo_sk"))
+    srow = _row_of(st, "s_store_sk", _col(ss, "ss_store_sk"))
+    m = _valid(ss, "ss_sold_time_sk") & _valid(ss, "ss_hdemo_sk") & \
+        _valid(ss, "ss_store_sk") & (_col(td, "t_hour")[trow] == 20) & \
+        (_col(td, "t_minute")[trow] >= 30) & \
+        (_col(hd, "hd_dep_count")[hrow] == 7) & \
+        (_col(st, "s_store_name")[srow] ==
+         _code(st, "s_store_name", "ese"))
+    return [(int(m.sum()),)]
 
 
 # --------------------------------------------------------------------------
@@ -361,14 +500,131 @@ def phase_k3(dev):
         f"{int(fesc)} rows, join dup_rows={int(dup)} exact, probe equal")
 
 
+def _star_probe_inputs(dev, g):
+    """A synthetic star for K4: n = 4M fact rows, k = 4 dimension tables
+    built by K3 at one shared T = 65,536, then a crafted run of 17 keys of
+    one home slot h written into dimension 0 at h..h+16 (a probe for the
+    last one exhausts MAX_PROBES and misses). Fact keys: ~85% hits, the
+    rest misses; 2% NULL keys (slot -1); 3% dead rows (slot -2)."""
+    import torch
+    from trino_tpu_torch.batch import Batch, Column
+    from trino_tpu_torch.ops import hashtable as ht
+    n, T = 4_000_000, 1 << 16
+    sizes = (36_000, 24_000, 12_000, 6_000)
+    tkeys, srcs, slots, keys = [], [], [], []
+    dead = torch.rand(n, generator=g) < 0.03
+    for d, m in enumerate(sizes):
+        dim_keys = (torch.randperm(1 << 22, generator=g)[:m] * 7 + d).to(dev)
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        build = Batch((Column(dim_keys, ones),), ones)
+        tkey, src, _dup, _esc = ht.build_join_table(build, (0,), T)
+        if d == 0:
+            h = int(ht.hash_slot(dim_keys[:1], T)[0])
+            cands = torch.arange(1 << 40, (1 << 40) + (1 << 24),
+                                 device=dev)
+            crafted = cands[ht.hash_slot(cands, T) == h][:17]
+            pos = (h + torch.arange(17, device=dev)) % T
+            tkey[pos] = crafted
+            src[pos] = 4_000_000 + torch.arange(17, device=dev)
+        hit = torch.rand(n, generator=g) < 0.85
+        fk = torch.where(
+            hit.to(dev), dim_keys[torch.randint(0, m, (n,), generator=g)
+                                  .to(dev)],
+            torch.randint(1 << 30, 1 << 40, (n,), generator=g).to(dev))
+        if d == 0:
+            fk[:4096:2] = crafted[16]          # exhausts its chain
+            fk[1:4096:2] = crafted[15]         # hits on the 16th probe
+        null = (torch.rand(n, generator=g) < 0.02).to(dev)
+        slot = torch.where(null, -1, ht.hash_slot(fk, T))
+        slot = torch.where(dead.to(dev), -2, slot)
+        slots.append(slot)
+        keys.append(torch.where(slot >= 0, fk, 0))
+        tkeys.append(tkey)
+        srcs.append(src)
+    return (torch.stack(slots), torch.stack(keys), torch.stack(tkeys),
+            torch.stack(srcs))
+
+
+def phase_k4(dev):
+    import torch
+    from trino_tpu_torch.ops import hashtable as ht
+    g = torch.Generator().manual_seed(4)
+    slot, key, tkey, src = _star_probe_inputs(dev, g)
+    found, miss = ht.multiway_probe_slots(slot, key, tkey, src)
+    found2, miss2 = ht.multiway_probe_plain(slot, key, tkey, src)
+    torch.cuda.synchronize()
+    require(torch.equal(found, found2), "K4 found differs from plain")
+    require(torch.equal(miss, miss2), "K4 miss differs from plain")
+    require(bool((found[0, :4096:2] == -1).all()),
+            "K4: the exhausted chain did not miss")
+    deep = slot[0, 1:4096:2] >= 0
+    require(bool((found[0, 1:4096:2][deep] == 4_000_015).all()),
+            "K4: the 16th probe did not hit")
+    log(f"K4 check: found and miss bit-exact on n={slot.shape[1]} k="
+        f"{slot.shape[0]} T={tkey.shape[1]}; misses per dim "
+        f"{miss.tolist()}; fused hits "
+        f"{int((found[-1] >= 0).sum())}; exhausted chain missed")
+
+
+def phase_k5(dev):
+    import torch
+    from trino_tpu_torch.ops import direct_agg as k5
+    g = torch.Generator().manual_seed(5)
+    n, G, A = 6_000_000, 16, 17
+    gid = torch.randint(0, G + 1, (n,), generator=g).to(torch.int32)
+    gid[torch.rand(n, generator=g) < 0.05] = G           # dead rows
+    planes = torch.randint(-(1 << 58), 1 << 58, (A, n), generator=g)
+    planes[torch.rand(A, n, generator=g) < 0.1] = 0      # NULL values
+    gid, planes = gid.to(dev), planes.to(dev)
+    got = k5.group_sums(gid, planes, G)
+    want = k5.group_sums_plain(gid, planes, G)
+    lib = torch.zeros((G + 1, A), dtype=torch.int64, device=dev)
+    lib.index_add_(0, gid.long(), planes.T)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "K5 differs from plain")
+    require(torch.equal(got, lib[:G]), "K5 differs from index_add_")
+    log(f"K5 check: bit-exact with plain and index_add_ on n={n} G={G} "
+        f"A={A} (values up to 2^58, sums wrap)")
+
+
 def _strategy_lines(session, sql):
     rows = session.execute("EXPLAIN " + sql).rows
     return [r[0] for r in rows if r[0].startswith(("agg strategy",
                                                    "join strategy"))]
 
 
-def phase_main_path(recorder):
+def _counters():
+    from trino_tpu_torch.ops import direct_agg as k5
+    from trino_tpu_torch.ops import gather as k1
+    from trino_tpu_torch.ops import hashtable as ht
+    return {"K1": k1.gather_columns, "K3": ht.hash_insert,
+            "K4": ht.multiway_probe, "K5": k5.group_sums}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _timed_runs(session, sql, runs):
     import torch
+    walls, rows = [], None
+    for _ in range(runs):
+        t = time.monotonic()
+        res = session.execute(sql)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t)
+        require(rows is None or res.rows == rows,
+                "a rerun returned other rows")
+        rows = res.rows
+    return rows, walls
+
+
+def phase_tpch_path(recorder):
     from trino_tpu_torch.exec.session import Session
     from trino_tpu_torch.ops import gather as k1
     from trino_tpu_torch.ops import hashtable as ht
@@ -384,28 +640,22 @@ def phase_main_path(recorder):
                 "q6": oracle_q6(tables["lineitem"]),
                 "q3": oracle_q3(tables["customer"], tables["orders"],
                                 tables["lineitem"])}
-    k1.gather_columns.launches = 0
-    ht.hash_insert.launches = 0
+    reset_counts()
     recorder.active = True
     per_query = {}
     for name, sql in (("q1", Q1), ("q6", Q6), ("q3", Q3)):
         before = (k1.gather_columns.launches, ht.hash_insert.launches)
-        walls = []
-        for run in range(4):
-            t = time.monotonic()
-            res = session.execute(sql)
-            torch.cuda.synchronize()
-            walls.append(time.monotonic() - t)
-            require(list(res.rows) == expected[name],
-                    f"{name} run {run} differs from the numpy oracle:\n"
-                    f"{res.rows[:3]}\nvs\n{expected[name][:3]}")
+        rows, walls = _timed_runs(session, sql, 4)
+        require(rows == expected[name],
+                f"{name} differs from the numpy oracle:\n{rows[:3]}\nvs\n"
+                f"{expected[name][:3]}")
         per_query[name] = {
             "cold_s": walls[0], "steady_median_s": statistics.median(
                 walls[1:]),
             "k1_launches": k1.gather_columns.launches - before[0],
             "k3_launches": ht.hash_insert.launches - before[1],
             "strategy": dict(session.executor.strategy_decisions)}
-        log(f"{name}: {len(res.rows)} rows match the oracle; cold "
+        log(f"{name}: {len(rows)} rows match the oracle; cold "
             f"{walls[0]:.4f} s, steady median "
             f"{per_query[name]['steady_median_s']:.4f} s (runs "
             f"{[round(w, 4) for w in walls]}); launches K1 "
@@ -417,29 +667,167 @@ def phase_main_path(recorder):
     for row in session.execute("EXPLAIN ANALYZE " + Q3).rows:
         log("q3 EXPLAIN ANALYZE | " + row[0])
     recorder.active = False
-    launches = {"K1": k1.gather_columns.launches,
-                "K3": ht.hash_insert.launches}
+    launches = read_counts()
     require(per_query["q3"]["k1_launches"] > 0, "q3 did not launch K1")
     require(per_query["q3"]["k3_launches"] > 0, "q3 did not launch K3")
-    log("main path: " + json.dumps({"queries": per_query,
+    log("tpch path: " + json.dumps({"queries": per_query,
                                      "launches": launches}))
+    return session, tables, launches
+
+
+def phase_tpcds_path(recorder):
+    """TPC-DS star queries at sf1 through the fused multiway probe."""
+    from tpcds_queries import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.ops import hashtable as ht
+    t0 = time.monotonic()
+    session = Session(default_cat="tpcds", default_schema=TPCDS_SCHEMA)
+    conn = session.catalog.connector("tpcds")
+    names = ("store_sales", "date_dim", "item", "customer_demographics",
+             "promotion", "household_demographics", "time_dim", "store")
+    tables = {t: conn.get_table(TPCDS_SCHEMA, t) for t in names}
+    log(f"tpcds.{TPCDS_SCHEMA} ready in {time.monotonic() - t0:.1f} s "
+        f"(store_sales {tables['store_sales'].num_rows} rows, item "
+        f"{tables['item'].num_rows}, customer "
+        f"{conn.get_table(TPCDS_SCHEMA, 'customer').num_rows})")
+    expected = {3: oracle_ds_q3(tables), 7: oracle_ds_q7(tables),
+                96: oracle_ds_q96(tables)}
+    reset_counts()
+    recorder.active = True
+    per_query, fused_rows = {}, {}
+    for q in STAR_QUERIES:
+        sql = QUERIES[q]
+        before = ht.multiway_probe.launches
+        fused_before = session.executor.stats.multijoin_fused_probes
+        degrades_before = dict(
+            session.executor.stats.multijoin_degrade_reasons)
+        rows, walls = _timed_runs(session, sql, 4)
+        ran = dict(session.executor.strategy_decisions)
+        k4 = ht.multiway_probe.launches - before
+        require(ran.get("MultiJoinNode", "").startswith("multiway[k="),
+                f"ds q{q} did not run a fused multiway join: {ran}")
+        require(session.executor.stats.multijoin_fused_probes -
+                fused_before == 4 and k4 == 4,
+                f"ds q{q}: {k4} K4 launches in 4 runs")
+        if q in expected:
+            require(rows == expected[q],
+                    f"ds q{q} differs from the numpy oracle:\n{rows[:3]}"
+                    f"\nvs\n{expected[q][:3]}")
+        fused_rows[q] = rows
+        per_query[f"ds_q{q}"] = {
+            "rows": len(rows), "cold_s": walls[0],
+            "steady_median_s": statistics.median(walls[1:]),
+            "k4_launches": k4, "strategy": ran,
+            "degrades": {
+                r: c - degrades_before.get(r, 0) for r, c in
+                session.executor.stats.multijoin_degrade_reasons.items()
+                if c != degrades_before.get(r, 0)}}
+        log(f"ds q{q}: {len(rows)} rows"
+            f"{' equal the numpy oracle' if q in expected else ''}; cold "
+            f"{walls[0]:.4f} s, steady median "
+            f"{per_query[f'ds_q{q}']['steady_median_s']:.4f} s (runs "
+            f"{[round(w, 4) for w in walls]}); K4 launches {k4}; ran "
+            f"{ran}; degrades {per_query[f'ds_q{q}']['degrades']}")
+        log(f"ds q{q} EXPLAIN: {_strategy_lines(session, sql)}")
+    for row in session.execute("EXPLAIN ANALYZE " + QUERIES[7]).rows:
+        log("ds q7 EXPLAIN ANALYZE | " + row[0])
+    recorder.active = False
+    launches = read_counts()
+    require(launches["K4"] > 0, "the star path did not launch K4")
+    log("tpcds path: " + json.dumps({"queries": per_query,
+                                      "launches": launches,
+                                      "degrades": dict(
+        session.executor.stats.multijoin_degrade_reasons)}))
+    # the pairwise ladder on the card, run after the counts were read so
+    # that its K1/K3 launches are not counted as the star path's
+    session.execute("SET SESSION enable_multiway_join = 'false'")
+    for q in STAR_QUERIES:
+        require(session.execute(QUERIES[q]).rows == fused_rows[q],
+                f"ds q{q} fused differs from the ladder")
+    session.execute("SET SESSION enable_multiway_join = 'auto'")
+    log(f"tpcds ladder: q{', q'.join(map(str, STAR_QUERIES))} fused rows "
+        f"equal the pairwise ladder (enable_multiway_join = 'false')")
+    return launches
+
+
+def phase_q12_path(recorder, session, tables):
+    """TPC-H q12 at sf1 through the direct-aggregation arm's K5."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.ops import direct_agg as k5
+    orders = session.catalog.connector("tpch").get_table(TPCH_SCHEMA,
+                                                         "orders")
+    expected = oracle_q12(orders, tables["lineitem"])
+    sql = QUERIES[12]
+    session.execute("SET SESSION mxu_agg = 'false'")
+    plain_rows = session.execute(sql).rows
+    session.execute("SET SESSION mxu_agg = 'auto'")
+    before = k5.group_sums.launches
+    auto_rows = session.execute(sql).rows
+    require(k5.group_sums.launches == before and
+            session.executor.strategy_decisions["AggregateNode"] ==
+            "direct", "q12 took K5 under mxu_agg = auto (7 groups)")
+    session.execute("SET SESSION mxu_agg = 'true'")
+    reset_counts()
+    recorder.active = True
+    rows, walls = _timed_runs(session, sql, 4)
+    recorder.active = False
+    launches = read_counts()
+    session.execute("SET SESSION mxu_agg = 'auto'")
+    require(rows == expected, f"q12 differs from the numpy oracle:\n"
+            f"{rows}\nvs\n{expected}")
+    require(rows == plain_rows == auto_rows,
+            "q12 under mxu_agg = true differs from false/auto")
+    require(launches["K5"] == 4, f"q12 launched K5 {launches['K5']} "
+            f"times in 4 runs")
+    log(f"q12 (mxu_agg = true): {len(rows)} rows match the oracle and the "
+        f"false/auto runs; cold {walls[0]:.4f} s, steady median "
+        f"{statistics.median(walls[1:]):.4f} s (runs "
+        f"{[round(w, 4) for w in walls]}); launches {launches}")
     return launches
 
 
 class LaunchRecorder:
-    """Keeps the inputs of the largest K1 and K3 launch of the main path
-    (by rows) so that phase 5 times the kernels on them. Wraps the launch
-    functions without touching the wrappers' counters."""
+    """Keeps the inputs of the largest launch of each kernel in the main
+    paths (by rows) so that the timing phase times the kernels on them.
+    Wraps the launch functions without touching the wrappers' counters."""
 
     def __init__(self):
         self.active = False
         self.k1 = None
         self.k3 = None
+        self.k4 = None
+        self.k5 = None
+        self.k5_batch = None      # the direct aggregate's input to K5's arm
 
     def install(self):
+        from trino_tpu_torch.ops import direct_agg as k5
         from trino_tpu_torch.ops import gather as k1
         from trino_tpu_torch.ops import hashtable as ht
         real_k1, real_k3 = k1._launch, ht._launch
+        real_k4, real_k5 = ht._launch_multiprobe, k5._launch
+
+        def k4_launch(slot, key, tkey, src):
+            if self.active and (self.k4 is None or
+                                slot.numel() > self.k4[0].numel()):
+                self.k4 = (slot, key, tkey, src)
+            return real_k4(slot, key, tkey, src)
+
+        def k5_launch(gid, planes, n_groups):
+            if self.active and (self.k5 is None or
+                                gid.shape[0] > self.k5[0].shape[0]):
+                self.k5 = (gid, planes, n_groups)
+            return real_k5(gid, planes, n_groups)
+
+        ht._launch_multiprobe = k4_launch
+        k5._launch = k5_launch
+        real_mxu = k5.direct_group_aggregate_mxu
+
+        def mxu_arm(batch, key_indices, domains, aggs):
+            if self.active and (self.k5_batch is None or batch.capacity >
+                                self.k5_batch[0].capacity):
+                self.k5_batch = (batch, key_indices, domains, aggs)
+            return real_mxu(batch, key_indices, domains, aggs)
+        k5.direct_group_aggregate_mxu = mxu_arm
 
         def k1_launch(tables, idx, fills):
             if self.active and (self.k1 is None or
@@ -461,8 +849,9 @@ def phase_timing(recorder, launches):
     import torch
     from trino_tpu_torch.ops import gather as k1
     from trino_tpu_torch.ops import hashtable as ht
-    require(recorder.k1 is not None and recorder.k3 is not None,
-            "no K1/K3 launch recorded on the main path")
+    require(None not in (recorder.k1, recorder.k3, recorder.k4,
+                         recorder.k5),
+            "a kernel's launch was not recorded on the main paths")
     out = []
     # K1 on the largest main-path launch
     tables, idx, fills = recorder.k1
@@ -524,7 +913,132 @@ def phase_timing(recorder, launches):
                 "launches": launches["K3"], "max_abs_err": float(err),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes", "library_ms": None})
+    out.append(_time_k4(recorder, launches))
+    out.append(_time_k5(recorder, launches))
     return out
+
+
+def _time_k4(recorder, launches):
+    from trino_tpu_torch.ops import hashtable as ht
+    slot, key, tkey, src = recorder.k4
+    k, n = slot.shape
+    T = tkey.shape[1]
+    found, miss = ht.multiway_probe_slots(slot, key, tkey, src)
+    found2, miss2 = ht.multiway_probe_plain(slot, key, tkey, src)
+    require(_bits_equal(found, found2) and _bits_equal(miss, miss2),
+            "K4 differs from plain on the main-path inputs")
+    ms = time_cuda(lambda: ht.multiway_probe_slots(slot, key, tkey, src))
+    plain_ms = time_cuda(lambda: ht.multiway_probe_plain(slot, key, tkey,
+                                                         src))
+    # slot and found fit 4 bytes (T <= 2^17, build rows < 2^31), the key
+    # needs 8; each table slot holds a key and a row id (16 bytes). What
+    # this run's data needs: every row's dimension-0 slot; slot and key
+    # of dimension d only for the rows still alive entering it; found for
+    # every row and dimension; each table once
+    alive = int((slot[0] != -2).sum())
+    need = 4 * n + 8 * alive + 4 * k * n + 16 * k * T
+    for d in range(1, k):
+        alive -= int(miss[d - 1])
+        need += 12 * alive
+    bound_ms = need / HBM_BYTES_PER_S * 1e3
+    dense_ms = (k * n * (4 + 8 + 4) + k * T * 16) / HBM_BYTES_PER_S * 1e3
+    log(f"timing K4: k={k} n={n} T={T} misses {miss.tolist()} kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+        f"{bound_ms:.4f} ms (bytes this data needs: dimension d's slot and "
+        f"key only for rows alive entering it, found for all, tables "
+        f"once; {dense_ms:.4f} ms if every row read every dimension)")
+    return {"name": "K4 multiway_probe", "route": "cuda",
+            "source": "trino_tpu_torch/csrc/multiprobe.cu",
+            "replaces": "trino_tpu/ops/pallas_hash.py:568",
+            "launches": launches["K4"],
+            "max_abs_err": _max_abs_err([(found, found2), (miss, miss2)]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def _time_k5(recorder, launches):
+    import torch
+    from trino_tpu_torch.ops import direct_agg as k5
+    gid, planes, G = recorder.k5
+    a, n = planes.shape
+    got = k5.group_sums(gid, planes, G)
+    want = k5.group_sums_plain(gid, planes, G)
+    require(_bits_equal(got, want),
+            "K5 differs from plain on the main-path inputs")
+    ms = time_cuda(lambda: k5.group_sums(gid, planes, G))
+    plain_ms = time_cuda(lambda: k5.group_sums_plain(gid, planes, G))
+    gl = gid.long()
+    pt = planes.T
+
+    def library():
+        lib = torch.zeros((G + 1, a), dtype=torch.int64, device=gid.device)
+        lib.index_add_(0, gl, pt)
+        return lib
+    require(_bits_equal(library()[:G], got), "K5 differs from index_add_")
+    lib_ms = time_cuda(library)
+    bound_ms = n * (4 + 8 * a) / HBM_BYTES_PER_S * 1e3
+    log(f"timing K5: n={n} G={G} A={a} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (index_add_ into [G+1, A]) "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: group id and "
+        f"planes read once)")
+    _time_direct_arms(recorder)
+    return {"name": "K5 group_sums", "route": "cuda",
+            "source": "trino_tpu_torch/csrc/direct_agg.cu",
+            "replaces": "trino_tpu/ops/pallas_agg.py:73",
+            "launches": launches["K5"],
+            "max_abs_err": _max_abs_err([(got, want)]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def _same_groups(x, y) -> bool:
+    import torch
+    if not torch.equal(x.live, y.live) or len(x.columns) != len(y.columns):
+        return False
+    return all(torch.equal(a.valid, b.valid) and
+               torch.equal(a.data[a.valid], b.data[b.valid])
+               for a, b in zip(x.columns, y.columns))
+
+
+def _time_direct_arms(recorder):
+    """Both arms of a direct aggregate on q12's batch: K5's `mxu` arm and
+    the masked-sum `direct` arm, at q12's own domain and with its first
+    key redrawn uniformly over G groups, so that the log shows where, on
+    this card, K5's arm starts to beat the one it replaces."""
+    import torch
+    from trino_tpu_torch.batch import Batch, Column
+    from trino_tpu_torch.ops import direct_agg as k5
+    from trino_tpu_torch.ops.aggregate import direct_group_aggregate
+    require(recorder.k5_batch is not None,
+            "q12's direct aggregate was not recorded")
+    batch, keys, domains, aggs = recorder.k5_batch
+    g = torch.Generator(device=batch.device).manual_seed(12)
+    cases = [("q12", batch, keys, domains)]
+    key = batch.columns[keys[0]]
+    for n_groups in (2, 4, 8, 12, 16):
+        redrawn = torch.randint(0, n_groups, key.data.shape, generator=g,
+                                device=batch.device).to(key.data.dtype)
+        cols = list(batch.columns)
+        cols[keys[0]] = Column(data=redrawn, valid=key.valid)
+        cases.append((f"G={n_groups}", Batch(columns=tuple(cols),
+                                              live=batch.live),
+                      keys[:1], (n_groups,)))
+    arms = []
+    for name, b, ks, ds in cases:
+        require(_same_groups(k5.direct_group_aggregate_mxu(b, ks, ds, aggs),
+                             direct_group_aggregate(b, ks, ds, aggs)),
+                f"the mxu and direct arms differ on {name}")
+        mxu_ms = time_cuda(lambda: k5.direct_group_aggregate_mxu(
+            b, ks, ds, aggs))
+        direct_ms = time_cuda(lambda: direct_group_aggregate(b, ks, ds,
+                                                             aggs))
+        arms.append({"case": name, "groups": int(torch.tensor(ds).prod()),
+                     "mxu_ms": mxu_ms, "direct_ms": direct_ms})
+    wins = [a["groups"] for a in arms[1:] if a["mxu_ms"] < a["direct_ms"]]
+    log(f"direct-aggregate arms on q12's batch ({batch.capacity} rows, "
+        f"{len(aggs)} aggregates; K5's arm vs the masked-sum arm, median "
+        f"ms): " + json.dumps({"arms": arms, "mxu_wins_from_groups":
+                               min(wins) if wins else None}))
 
 
 def main() -> int:
@@ -532,14 +1046,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))    # the query texts
     dev = torch.device("cuda")
     smi = phase_card()
     phase_k1(dev)
     phase_k3(dev)
+    phase_k4(dev)
+    phase_k5(dev)
     recorder = LaunchRecorder()
     recorder.install()
-    launches = phase_main_path(recorder)
+    session, tables, launches = phase_tpch_path(recorder)
+    for path in (phase_tpcds_path(recorder),
+                 phase_q12_path(recorder, session, tables)):
+        for name, count in path.items():
+            launches[name] += count
+    log("main paths, launches in all: " + json.dumps(launches))
     kernels = phase_timing(recorder, launches)
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "trino_tpu."))

@@ -8,8 +8,8 @@ the GPU machine it runs without them:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: bit-exact (K1 bytes, K3 group states as multisets, query rows
-equal)."""
+Tolerance: bit-exact (K1 bytes, K3 group states as multisets, K4 found
+and miss, K5 sums, query rows equal)."""
 
 import os
 import sys
@@ -136,3 +136,98 @@ def test_tpch_on_card_equals_cpu(sessions, qnum):
     gpu, cpu = sessions
     sql = _tpch_queries()[qnum]
     assert gpu.execute(sql).rows == cpu.execute(sql).rows
+
+
+def _star_slots(rng, dev, k=3, n=300_000, slots=1 << 14):
+    """k tables built by K3 at one T, fact slots/keys with hits, misses,
+    NULL keys (slot -1) and dead rows (slot -2)."""
+    from trino_tpu_torch.batch import Batch, Column
+    dead = torch.from_numpy(rng.random(n) < 0.03).to(dev)
+    tkeys, srcs, slot_rows, key_rows = [], [], [], []
+    for d in range(k):
+        m = 4000 + 2000 * d
+        keys = torch.from_numpy(rng.choice(1 << 24, m, replace=False)).to(dev)
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        tkey, src, _dup, _esc = ht.build_join_table(
+            Batch((Column(keys, ones),), ones), (0,), slots)
+        fk = torch.where(
+            torch.from_numpy(rng.random(n) < 0.8).to(dev),
+            keys[torch.from_numpy(rng.integers(0, m, n)).to(dev)],
+            torch.from_numpy(rng.integers(1 << 25, 1 << 30, n)).to(dev))
+        null = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+        slot = torch.where(null, -1, ht.hash_slot(fk, slots))
+        slot = torch.where(dead, -2, slot)
+        tkeys.append(tkey)
+        srcs.append(src)
+        slot_rows.append(slot)
+        key_rows.append(torch.where(slot >= 0, fk, 0))
+    return (torch.stack(slot_rows), torch.stack(key_rows),
+            torch.stack(tkeys), torch.stack(srcs))
+
+
+def test_k4_matches_plain_on_card():
+    dev = _card()
+    rng = np.random.default_rng(13)
+    slot, key, tkey, src = _star_slots(rng, dev)
+    before = ht.multiway_probe.launches
+    found, miss = ht.multiway_probe_slots(slot, key, tkey, src)
+    found2, miss2 = ht.multiway_probe_plain(slot, key, tkey, src)
+    torch.cuda.synchronize()
+    assert ht.multiway_probe.launches == before + 1
+    assert torch.equal(found, found2) and torch.equal(miss, miss2)
+    assert int(miss[0]) > 0 and int((found[-1] >= 0).sum()) > 0
+
+
+def test_k5_matches_plain_on_card():
+    from trino_tpu_torch.ops import direct_agg as k5
+    dev = _card()
+    rng = np.random.default_rng(17)
+    n, g, a = 500_000, 16, 17
+    gid = torch.from_numpy(rng.integers(0, g + 1, n).astype(np.int32))
+    planes = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (a, n)))
+    gid, planes = gid.to(dev), planes.to(dev)
+    before = k5.group_sums.launches
+    got = k5.group_sums(gid, planes, g)
+    want = k5.group_sums_plain(gid, planes, g)
+    lib = torch.zeros((g + 1, a), dtype=torch.int64, device=dev)
+    lib.index_add_(0, gid.long(), planes.T)
+    torch.cuda.synchronize()
+    assert k5.group_sums.launches == before + 1
+    assert torch.equal(got, want) and torch.equal(got, lib[:g])
+
+
+@pytest.fixture(scope="module")
+def ds_sessions():
+    from trino_tpu_torch.exec.session import Session
+    _card()
+    return tuple(Session(default_cat="tpcds", default_schema="tiny",
+                         device=d) for d in ("cuda", "cpu"))
+
+
+@pytest.mark.parametrize("qid", [3, 7, 19, 26, 42, 52, 55, 96])
+def test_tpcds_star_on_card_equals_cpu(ds_sessions, qid):
+    """The TPC-DS star queries at tpcds.tiny: the card's rows (K4 fused)
+    equal the CPU's (K4's plain version)."""
+    from tpcds_queries import QUERIES
+    gpu, cpu = ds_sessions
+    before = ht.multiway_probe.launches
+    got = gpu.execute(QUERIES[qid]).rows
+    assert ht.multiway_probe.launches == before + 1
+    assert got == cpu.execute(QUERIES[qid]).rows
+    assert gpu.executor.strategy_decisions == \
+        cpu.executor.strategy_decisions
+
+
+def test_q12_mxu_on_card_equals_cpu(sessions):
+    from tpch_full import QUERIES
+    from trino_tpu_torch.ops import direct_agg as k5
+    gpu, cpu = sessions
+    rows = []
+    for s in (gpu, cpu):
+        s.execute("SET SESSION mxu_agg = 'true'")
+        before = k5.group_sums.launches
+        rows.append(s.execute(QUERIES[12]).rows)
+        s.execute("SET SESSION mxu_agg = 'auto'")
+        assert s.executor.strategy_decisions["AggregateNode"] == "mxu"
+    assert k5.group_sums.launches == before   # the CPU run: plain
+    assert rows[0] == rows[1] and len(rows[0]) == 2

@@ -16,6 +16,10 @@ from trino_tpu.ops import pallas_gather as pg
 from trino_tpu_torch.ops import gather as k1
 
 
+# pytest-xdist runs one process per core: one torch thread each keeps
+# the CPU tests from oversubscribing the cores
+torch.set_num_threads(1)
+
 def _tables(rng, w):
     return [rng.integers(-(1 << 62), 1 << 62, w),
             rng.integers(-100, 100, w).astype(np.int8),

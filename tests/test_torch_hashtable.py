@@ -25,6 +25,10 @@ from trino_tpu_torch.ops import hashtable as ht
 from trino_tpu_torch.ops.aggregate import AggSpec, key_pack_plan
 
 
+# pytest-xdist runs one process per core: one torch thread each keeps
+# the CPU tests from oversubscribing the cores
+torch.set_num_threads(1)
+
 def rows_of(batch):
     live = np.asarray(batch.live)
     out = []

@@ -34,6 +34,10 @@ from trino_tpu_torch.ops import join as tjoin
 from trino_tpu_torch.ops import project as tproj
 from trino_tpu_torch.ops import sort as tsort
 
+# pytest-xdist runs one process per core: one torch thread each keeps
+# the CPU tests from oversubscribing the cores
+torch.set_num_threads(1)
+
 N = 37      # rows in the expression batch (deliberately not aligned)
 
 D2 = [12345, -12345, 5, -5, 15, -15, 25, 0, 999999, -999999, 150, -150]

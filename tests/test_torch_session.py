@@ -12,6 +12,7 @@ import torch
 
 from oracle import assert_rows_match, load_oracle, oracle_query
 from test_tpch_queries import Q1, Q3, Q6, TPCH_TABLES
+from tpch_full import QUERIES as H_QUERIES
 from trino_tpu.catalog import Catalog as JaxCatalog
 from trino_tpu.connectors.tpch import datagen as jax_datagen
 from trino_tpu.connectors.tpch.connector import TpchConnector
@@ -19,6 +20,10 @@ from trino_tpu.exec.session import Session as JaxSession
 from trino_tpu_torch.catalog import catalog_from_tables
 from trino_tpu_torch.connectors.tpch import datagen as torch_datagen
 from trino_tpu_torch.exec.session import Session
+
+# pytest-xdist runs one process per core: one torch thread each keeps
+# the CPU tests from oversubscribing the cores
+torch.set_num_threads(1)
 
 QUERIES = {"q1": Q1, "q6": Q6, "q3": Q3}
 KERNELS_ON = (("enable_pallas_gather", "true"),
@@ -158,10 +163,25 @@ def test_unported_options_raise(tables, prop, value):
         ts.execute(Q6)
 
 
-def test_multiway_join_resolves_off(tables):
-    """K4 is not ported: even `enable_multiway_join = true` plans the
-    pairwise ladder (and the query still runs)."""
-    _, ts = _sessions(tables, (("enable_multiway_join", "true"),))
-    plan = "\n".join(r[0] for r in ts.execute("EXPLAIN " + Q3).rows)
-    assert "MultiJoin" not in plan
-    assert len(ts.execute(Q3).rows) == 10
+@pytest.mark.parametrize("qnum,k", [(3, None), (5, 2)])
+def test_multiway_join_plans_as_reference(tables, qnum, k):
+    """`enable_multiway_join = 'true'` plans what the reference plans —
+    q3's spine is a chain, so neither side fuses it; q5 fuses a k=2
+    star — with plan texts equal apart from the reference's routing line,
+    and the query runs to the reference's rows (q5 through K4's plain
+    version here, the interpreted TPU kernel there)."""
+    js, ts = _sessions(tables, (("enable_multiway_join", "true"),))
+    sql = H_QUERIES[qnum]
+
+    def plan(s):
+        return [r[0] for r in s.execute("EXPLAIN " + sql).rows
+                if not r[0].startswith("routing:")]
+    got = plan(ts)
+    assert got == plan(js)
+    assert any("MultiJoin[" in ln for ln in got) == (k is not None)
+    rows = ts.execute(sql).rows
+    assert rows == js.execute(sql).rows and rows
+    if k is not None:
+        assert ts.executor.strategy_decisions["MultiJoinNode"] == \
+            js.executor.strategy_decisions["MultiJoinNode"] == \
+            f"multiway[k={k}]"

@@ -6,12 +6,17 @@ tests/test_tpch_all.py makes of the reference, with its tolerance
 which are not ported yet, and must say so."""
 
 import pytest
+import torch
 
 from oracle import assert_rows_match, load_oracle, oracle_query
 from tpch_full import QUERIES
 from trino_tpu.connectors.tpch.connector import TpchConnector
 from trino_tpu_torch.catalog import catalog_from_tables
 from trino_tpu_torch.exec.session import Session
+
+# pytest-xdist runs one process per core: one torch thread each keeps
+# the CPU tests from oversubscribing the cores
+torch.set_num_threads(1)
 
 NEEDS_SEMI_ANTI = (4, 21, 22)
 TPCH_TABLES = ["region", "nation", "supplier", "customer", "part",

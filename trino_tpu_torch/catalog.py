@@ -1,5 +1,6 @@
-"""Port copy of ``trino_tpu/catalog.py`` (default_catalog registers tpch only;
-catalog_from_tables added).
+"""Port copy of ``trino_tpu/catalog.py`` (default_catalog registers tpch and
+tpcds, not the memory connector; port_table and catalog_from_tables
+added).
 
 Catalog registry — maps catalog names to connectors.
 
@@ -16,6 +17,7 @@ from typing import Dict
 
 import numpy as np
 
+from .connectors.tpcds.connector import TpcdsConnector
 from .connectors.tpch.connector import TpchConnector
 
 
@@ -141,9 +143,11 @@ def _strings_table(name: str, cols):
 
 
 def default_catalog() -> Catalog:
-    # port: only the tpch connector is ported in this slice
+    # port: the generator connectors only (the memory connector comes
+    # with DDL and DML)
     cat = Catalog()
     cat.register("tpch", TpchConnector())
+    cat.register("tpcds", TpcdsConnector())
     return cat
 
 
@@ -154,23 +158,29 @@ def _port_type(dt):
                     None if dt.element is None else _port_type(dt.element))
 
 
-def catalog_from_tables(tables, schema: str = "tiny") -> Catalog:
-    """A catalog whose `tpch.<schema>` tables are `tables` (name ->
-    generated table, from this package's datagen or the reference
-    package's): the host arrays are shared as they are, only the schema
-    objects are rebuilt, so both engines can run on the very same data."""
+def port_table(t):
+    """A generated table (from this package's datagen or the reference
+    package's) with its schema objects rebuilt as this package's; the
+    host arrays are shared as they are."""
     from .batch import Field, Schema
     from .connectors.tpch.datagen import TableData
-    conn = TpchConnector()
-    scale = conn.scale_for_schema(schema)
-    cache = conn._cache.setdefault(scale, {})
-    for name, t in tables.items():
-        fields = tuple(Field(f.name, _port_type(f.dtype), f.dictionary)
-                       for f in t.schema.fields)
-        cache[name] = TableData(t.name, Schema(fields),
-                                [np.asarray(c) for c in t.columns],
-                                tuple(t.primary_key),
-                                None if t.valids is None else list(t.valids))
+    fields = tuple(Field(f.name, _port_type(f.dtype), f.dictionary)
+                   for f in t.schema.fields)
+    return TableData(t.name, Schema(fields),
+                     [np.asarray(c) for c in t.columns],
+                     tuple(t.primary_key),
+                     None if t.valids is None else list(t.valids))
+
+
+def catalog_from_tables(tables, schema: str = "tiny",
+                        catalog: str = "tpch") -> Catalog:
+    """A catalog whose `<catalog>.<schema>` tables (catalog `tpch` or
+    `tpcds`) are `tables` (name -> generated table, from either package;
+    see port_table), so both engines can run on the very same data. The
+    connector's other tables still generate on demand."""
+    conn = TpchConnector() if catalog == "tpch" else TpcdsConnector()
+    conn._cache.setdefault(conn.scale_for_schema(schema), {}).update(
+        {name: port_table(t) for name, t in tables.items()})
     cat = Catalog()
-    cat.register("tpch", conn)
+    cat.register(catalog, conn)
     return cat

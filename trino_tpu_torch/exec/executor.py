@@ -6,15 +6,21 @@ fixed-capacity batches on one device; the names, decision rules and
 `_note_strategy` verdicts are the reference's, so the same plan takes the
 same strategies and any difference in results is a fault here.
 
-What this slice runs: scans (with the scan cache and zone-map pruning),
+What the port runs: scans (with the scan cache and zone-map pruning),
 filter/project, global/direct/sort/packed-sort/hash aggregation (K3 via
-``ops/hashtable.py``), inner/left unique-build and expansion joins
+``ops/hashtable.py``; the direct arm's `mxu` variant is K5 via
+``ops/direct_agg.py``), inner/left unique-build and expansion joins
 (dense-LUT, sort-merge, sorted, hybrid hash — K1 via ``ops/gather.py``),
-sort/TopN/limit, values and uncorrelated scalar subqueries. Nodes and
-options outside the slice raise NotImplementedError naming the ROADMAP
-item that ports them: window, unnest, set operations, multiway joins,
-mark/semi/anti joins, the chunked executor (`spill_chunk_rows`), streaming
-builds and the host-spill tier.
+fused multiway star joins (K4 via ``ops/hashtable.multiway_probe``, with
+the reference's degrades back to the pairwise ladder), sort/TopN/limit,
+values and uncorrelated scalar subqueries. Nodes and options outside the
+port raise NotImplementedError naming the ROADMAP item that ports them:
+window, unnest, set operations, mark/semi/anti joins, the chunked executor
+(`spill_chunk_rows`), streaming builds and the host-spill tier.
+
+The kernel gates (`auto` for K1, K3, K4 and K5) model the TPU's decision
+on every device, so the port takes the same strategies on the CPU as the
+reference does on a TPU.
 
 The decision cache (runtime decision values keyed by plan structure) is
 in memory only. `fetch_ints` is the one host sync point: one
@@ -23,11 +29,12 @@ in memory only. `fetch_ints` is the one host sync point: one
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -68,6 +75,13 @@ class ExecStats:
     hash_join_escapes: int = 0       # builds that overflowed the table
     scan_zones_pruned: int = 0       # zone-map row ranges skipped at scan
     scan_rows_pruned: int = 0        # rows those zones would have held
+    mxu_agg_calls: int = 0           # direct aggregates run through K5
+    multijoin_fused_probes: int = 0  # fused multiway star passes run (K4)
+    multijoin_degrades: int = 0      # star dimensions degraded back to
+                                     # the pairwise ladder
+    # per degrade reason (kernel_off/vmem/dup/escape/dtype): the
+    # reference's trino_tpu_multijoin_degrades_total{reason} family
+    multijoin_degrade_reasons: Dict[str, int] = field(default_factory=dict)
 
 
 class QueryDeadlineError(RuntimeError):
@@ -108,12 +122,26 @@ class Executor:
         self._node_bytes: Dict[int, int] = {}
         # bounded-memory chunked executor (not ported: must stay None)
         self.spill_chunk_rows: Optional[int] = None
-        # session-resolved kernel settings (auto/true/false); K4 and K5
-        # are not ported, so multiway joins and mxu_agg resolve off
+        # session-resolved kernel settings (auto/true/false)
         self.enable_pallas_gather = "auto"
         self.enable_pallas_hash = "auto"
         self.hash_table_slots = 0      # 0 = size from stats; tests pin
+        # K5 (ops/direct_agg.py): "auto" takes it for direct aggregates
+        # of at least MXU_AGG_MIN_GROUPS groups; "true"/"false" force
+        self.enable_mxu_agg = "auto"
+        # K4 (ops/hashtable.multiway_probe): the planner consults its own
+        # copy of the property when it fuses a star; this one gates the
+        # executor's kernel-vs-ladder choice
         self.enable_multiway_join = "auto"
+        self.multiway_max_dims = 5
+        # the fused pass's table budget in KiB, in the reference's bytes
+        # (dims are shed largest-first to the pairwise path until the
+        # stack fits)
+        self.multiway_vmem_kb = 8192
+        self._no_decisions = 0         # >0: bypass the decision cache
+        # substitutions: id(plan node) -> precomputed Batch (the children a
+        # star already ran, handed to its reconstructed ladder)
+        self._subst: Dict[int, Batch] = {}
         self.strategy_decisions: Dict[str, str] = {}
         self.enable_dynamic_filtering = True
         self.enable_merge_join = True
@@ -137,6 +165,17 @@ class Executor:
         if self.deadline is not None and time.monotonic() > self.deadline:
             raise QueryDeadlineError("query exceeded query_max_run_time_s")
 
+    @contextlib.contextmanager
+    def no_decisions(self):
+        """Bypass the cross-run decision cache inside the block: a star's
+        degraded hop runs a synthesized join over batches its structure
+        key does not describe, so cached counts would poison replay."""
+        self._no_decisions += 1
+        try:
+            yield
+        finally:
+            self._no_decisions -= 1
+
     def _scan_key(self, node) -> tuple:
         pruning = node.predicate is not None and self.enable_zone_map_pruning
         return (node.catalog, node.schema_name, node.table,
@@ -150,6 +189,7 @@ class Executor:
         for b in self._node_bytes.values():
             self.pool.free(b)
         self._node_bytes.clear()
+        self._subst.clear()
         self._skey_memo.clear()
         if self.spill_chunk_rows:
             raise _not_ported("the chunked executor (spill_chunk_rows > 0)",
@@ -157,6 +197,9 @@ class Executor:
         return self.run(root.child)
 
     def run(self, node: L.PlanNode) -> Batch:
+        sub = self._subst.get(id(node))
+        if sub is not None:
+            return sub
         self.check_cancel()
         from .memory import batch_bytes
         out = self._dispatch_timed(node)
@@ -167,6 +210,8 @@ class Executor:
         self.pool.reserve(b)
         self._node_bytes[id(node)] = b
         for c in L.children(node):
+            if id(c) in self._subst:
+                continue
             self.pool.free(self._node_bytes.pop(id(c), 0))
         return out
 
@@ -197,14 +242,16 @@ class Executor:
         """Session knobs that change runtime decision values for the same
         plan structure."""
         return (self.enable_dynamic_filtering, self.enable_merge_join,
-                self.hash_mode() != "off", self.hash_table_slots)
+                str(self.enable_mxu_agg), self.hash_mode() != "off",
+                self.hash_table_slots, self.multiway_mode() != "off",
+                self.multiway_vmem_kb)
 
     def fetch_ints(self, node, tag: str, *vals) -> tuple:
         """Fetch small device integers as host ints — through the decision
         cache when `node`'s subtree is deterministic. The sync point: one
         stack + tolist per call."""
         key = None
-        if node is not None:
+        if node is not None and not self._no_decisions:
             skey = self.memo_structure_key(node)
             if skey is not None:
                 key = (tag, skey, self._decision_salt())
@@ -273,7 +320,7 @@ class Executor:
         if isinstance(node, L.ValuesNode):
             return self.run_values(node)
         if isinstance(node, L.MultiJoinNode):
-            raise _not_ported("MultiJoinNode", "K4 with multiway joins")
+            return self.run_multijoin(node)
         if isinstance(node, L.WindowNode):
             raise _not_ported("WindowNode", "window functions")
         if isinstance(node, L.UnnestNode):
@@ -401,13 +448,52 @@ class Executor:
         return resolve_mode(self.enable_pallas_hash)
 
     def multiway_mode(self) -> str:
-        """K4 is not ported: always 'off'."""
+        """Resolved K4 mode: 'on' | 'off'
+        (ops/hashtable.resolve_multiway_mode)."""
         from ..ops.hashtable import resolve_multiway_mode
         return resolve_multiway_mode(self.enable_multiway_join)
+
+    def _note_multijoin_degrade(self, reason: str,
+                                count: int = 1) -> None:
+        """Count star dimensions degraded back to the pairwise ladder,
+        per reason (kernel_off/vmem/dup/escape/dtype)."""
+        self.stats.multijoin_degrades += count
+        reasons = self.stats.multijoin_degrade_reasons
+        reasons[reason] = reasons.get(reason, 0) + count
 
     def _note_strategy(self, op: str, strategy: str, kind: str) -> None:
         """Record the strategy an operator actually ran with."""
         self.strategy_decisions[op] = strategy
+
+    # the reference's auto gate for K5: direct aggregates of at least this
+    # many groups (its crossover was measured on a TPU; the port keeps
+    # the rule so both take the same strategy, not for the number)
+    MXU_AGG_MIN_GROUPS = 12
+
+    def use_mxu_agg(self, child: Batch, aggs, domains) -> bool:
+        """K5 (ops/direct_agg.py) for a direct aggregate: sum/count over
+        integer columns on a small dense domain. `mxu_agg` = auto takes it
+        for G >= MXU_AGG_MIN_GROUPS, true whenever it applies, false
+        never. The reference also requires a TPU backend; the port models
+        the TPU's decision on every device."""
+        setting = str(self.enable_mxu_agg).lower()
+        if setting in ("false", "0"):
+            return False
+        from ..ops.direct_agg import supports
+        if not supports(aggs, domains):
+            return False
+        for a in aggs:
+            if a.arg_index is None:
+                continue
+            dt = child.columns[a.arg_index].data.dtype
+            if not _is_integer(dt) or dt == torch.bool:
+                return False
+        if setting in ("true", "1"):
+            return True
+        g = 1
+        for d in domains:
+            g *= d
+        return g >= self.MXU_AGG_MIN_GROUPS
 
     def _known_groups(self, node: L.AggregateNode) -> Optional[int]:
         """The group count a previous run of this aggregate measured
@@ -431,6 +517,12 @@ class Executor:
             self._note_strategy("AggregateNode", "global", "agg")
             return global_aggregate(child, aggs)
         if node.strategy == "direct":
+            if self.use_mxu_agg(child, aggs, node.key_domains):
+                from ..ops.direct_agg import direct_group_aggregate_mxu
+                self.stats.mxu_agg_calls += 1
+                self._note_strategy("AggregateNode", "mxu", "agg")
+                return direct_group_aggregate_mxu(
+                    child, node.group_keys, node.key_domains, aggs)
             self._note_strategy("AggregateNode", "direct", "agg")
             return direct_group_aggregate(child, node.group_keys,
                                           node.key_domains, aggs)
@@ -979,6 +1071,164 @@ class Executor:
                 self.stats.dynamic_filter_compactions += 1
                 probe = compact_batch(probe, new_cap)
         return probe
+
+    # ------------------------------------------------------------------
+    # fused multiway star join (MultiJoinNode, K4)
+    # ------------------------------------------------------------------
+
+    def run_multijoin(self, node: L.MultiJoinNode) -> Batch:
+        """Lower a MultiJoinNode to the fused single-pass probe
+        (ops/hashtable.multiway_probe), degrading DIMENSION-BY-DIMENSION
+        to the pairwise path whenever a dim's table overflows the
+        `multiway_vmem_kb` budget, its build keys turn out duplicated, or
+        its insert escaped — and wholesale to the reconstructed ladder
+        when the kernel is off or fewer than two dims survive. Every
+        output is bit-exact vs `multijoin_to_ladder`'s pairwise ladder:
+        fused dims ride the same payload-gather machinery the dense/hash
+        joins use, and column order is restored to ladder order at the
+        end. The fact side is authoritative (never flipped to build).
+
+        The reference's chunk-mode caches come with the chunked driver,
+        which is not ported: this is its path with chunk mode off."""
+        from ..ops import hashtable as ht
+        if self.multiway_mode() == "off":
+            self._note_multijoin_degrade("kernel_off", len(node.dims))
+            return self._run_multijoin_ladder(node)
+        fact = self.run(node.fact)
+        dims = [self.run(d) for d in node.dims]
+        k = len(dims)
+        degraded: Dict[int, str] = {}
+        sized = []
+        for d in range(k):
+            ok_dtype = all(
+                _is_integer(side.columns[ki].data.dtype)
+                for side, keys in ((fact, node.fact_keys[d]),
+                                   (dims[d], node.dim_keys[d]))
+                for ki in keys)
+            if not ok_dtype:
+                degraded[d] = "dtype"
+                continue
+            slots, fits = ht.join_table_slots(dims[d].capacity)
+            if self.hash_table_slots:
+                t = ht.MIN_TABLE_SLOTS
+                while t * 2 <= min(self.hash_table_slots,
+                                   ht.MAX_TABLE_SLOTS):
+                    t *= 2
+                slots = t
+                fits = t * ht.LOAD_NUM // ht.LOAD_DEN >= dims[d].capacity
+            if not fits:
+                degraded[d] = "vmem"
+                continue
+            sized.append((d, slots))
+        # all tables share ONE slot count (a rectangular stack); shed the
+        # largest dims until the stack fits the budget
+        budget = self.multiway_vmem_kb << 10
+        while sized and ht.multiway_table_bytes(
+                len(sized), max(s for _, s in sized)) > budget:
+            drop = max(sized, key=lambda x: x[1])
+            sized.remove(drop)
+            degraded[drop[0]] = "vmem"
+        fused = []
+        if len(sized) >= 2:
+            table_slots = max(s for _, s in sized)
+            builds, checks = [], []
+            for d, _s in sized:
+                tkey, src, dup, esc = ht.build_join_table(
+                    dims[d], node.dim_keys[d], table_slots)
+                builds.append((d, tkey, src))
+                checks.extend((dup, esc))
+            # ONE fused validation fetch for all k builds
+            vals = self.fetch_ints(node, f"mjbuild{table_slots}", *checks)
+            for i, b in enumerate(builds):
+                if vals[2 * i] > 0:
+                    degraded[b[0]] = "dup"
+                elif vals[2 * i + 1] > 0:
+                    degraded[b[0]] = "escape"
+                else:
+                    fused.append(b)
+        for _d, reason in sorted(degraded.items()):
+            self._note_multijoin_degrade(reason)
+        degraded_dims = sorted(degraded)
+        if len(fused) < 2:
+            # nothing left worth a fused pass: run the whole ladder over
+            # the already-materialised children
+            return self._run_multijoin_ladder(node, fact, dims)
+        found, _miss = ht.multiway_probe(
+            fact, torch.stack([b[1] for b in fused]),
+            torch.stack([b[2] for b in fused]),
+            tuple(node.fact_keys[b[0]] for b in fused))
+        self.stats.multijoin_fused_probes += 1
+        self.strategy_decisions["MultiJoinNode"] = \
+            f"multiway[k={len(fused)}]"
+        # payload assembly: fused dims first (their found rows align to
+        # fact rows), then each degraded dim through the pairwise path;
+        # unique-build hops are commutative live-mask ANDs and dup
+        # expansions keep their relative order, so the row sequence
+        # matches the ladder's
+        from ..ops.join import _combined_key, _gather_build_payload
+        gm = self.gather_mode()
+        acc = fact
+        acc_out = list(node.fact.output)
+        col_ranges: Dict[int, tuple] = {}
+        pos = len(fact.columns)
+        for i, (d, _tk, _src) in enumerate(fused):
+            matched = found[i] >= 0
+            pk, _pk_valid = _combined_key(fact, node.fact_keys[d])
+            src_c = found[i].clamp(0, dims[d].capacity - 1)
+            acc = _gather_build_payload(acc, dims[d], src_c, matched, pk,
+                                        node.dim_keys[d], "inner", gm)
+            col_ranges[d] = (pos, len(dims[d].columns))
+            acc_out.extend(node.dims[d].output)
+            pos += len(dims[d].columns)
+        for d in degraded_dims:
+            j = L.JoinNode(
+                "inner", node.fact, node.dims[d], node.fact_keys[d],
+                node.dim_keys[d], None, True,
+                tuple(acc_out) + tuple(node.dims[d].output),
+                distribution=node.distribution,
+                build_key_domain=node.dim_domains[d])
+            # the accumulated batch differs from what the structure key
+            # describes (fused columns ride along): no cached decisions
+            with self.no_decisions():
+                acc = self._run_join_inner(j, acc, dims[d])
+            col_ranges[d] = (pos, len(dims[d].columns))
+            acc_out.extend(node.dims[d].output)
+            pos += len(dims[d].columns)
+        perm = list(range(len(fact.columns)))
+        for d in range(k):
+            start, ln = col_ranges[d]
+            perm.extend(range(start, start + ln))
+        if perm != list(range(len(acc.columns))):
+            acc = Batch(tuple(acc.columns[i] for i in perm), acc.live)
+        if not degraded_dims:
+            acc = self.maybe_compact(acc, node=node)
+        return acc
+
+    def _run_multijoin_ladder(self, node: L.MultiJoinNode,
+                              fact: Optional[Batch] = None,
+                              dims: Optional[list] = None) -> Batch:
+        """Full degrade: execute the exact pairwise ladder the star
+        fused. Already-run children are substituted in so they are not
+        recomputed."""
+        self.strategy_decisions["MultiJoinNode"] = "ladder"
+        ladder = L.multijoin_to_ladder(node)
+        temp = []
+        try:
+            if fact is not None:
+                for child, batch in zip((node.fact,) + node.dims,
+                                        [fact] + list(dims)):
+                    if id(child) not in self._subst:
+                        self._subst[id(child)] = batch
+                        temp.append(id(child))
+            out = self.run(ladder)
+        finally:
+            for i in temp:
+                self._subst.pop(i, None)
+        # the outer run() re-reserves this result under the
+        # MultiJoinNode's own id; drop the ladder-top ledger entry so the
+        # bytes are not double-counted
+        self.pool.free(self._node_bytes.pop(id(ladder), 0))
+        return out
 
     def result_to_host(self, root: L.OutputNode, batch: Batch):
         """Compact + return (names, columns, valids) on the host."""

@@ -10,13 +10,16 @@ both packages build the same plan for the same SQL.
 unless the caller passes ``device="cpu"`` (the CPU tests do). There is no
 silent CPU path.
 
-Kernel settings in this slice: ``enable_pallas_gather`` (K1) and
-``enable_pallas_hash`` (K3) resolve ``auto`` to on, as on the TPU, and
-``false`` takes each call site's non-kernel path. ``enable_multiway_join``
-(K4) and ``mxu_agg`` (K5) resolve to off whatever their setting: those
-kernels are not ported yet (ROADMAP). ``spill_chunk_rows`` must stay 0,
-``distributed`` false, and DDL/DML are not ported: each raises
-NotImplementedError naming its ROADMAP item.
+Kernel settings follow the TPU's rules on every device:
+``enable_pallas_gather`` (K1), ``enable_pallas_hash`` (K3) and
+``enable_multiway_join`` (K4: the planner fuses star joins, the executor
+probes them in one pass) resolve ``auto`` to on, and ``false`` takes each
+call site's non-kernel path; ``mxu_agg`` (K5) takes direct aggregates of
+at least 12 groups under ``auto``, every supported one under ``true``,
+none under ``false``. So on the CPU the port's plans under ``auto`` are
+the reference's TPU plans, not its CPU plans. ``spill_chunk_rows`` and
+``stream_build_min_kb`` must stay 0, ``distributed`` false, and DDL/DML
+are not ported: each raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -283,6 +286,8 @@ class Session:
         ex.hash_table_slots = self.properties["hash_table_slots"]
         ex.enable_multiway_join = self.properties["enable_multiway_join"]
         ex.multiway_max_dims = max(2, self.properties["multiway_max_dims"])
+        ex.multiway_vmem_kb = max(1, self.properties["multiway_vmem_kb"])
+        ex.enable_mxu_agg = self.properties["mxu_agg"]
         ex.profile = self.properties["enable_profiling"]
         if ex.profile:
             ex.node_stats = {}

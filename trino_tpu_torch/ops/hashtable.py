@@ -31,6 +31,11 @@ kernel or raise.
 Hash joins: the build side is a hash aggregation of row ids by key
 (min(row_id) plus a count); duplicates show as inserted > occupied. The
 probe walks each chain with MAX_PROBES rounds of K1 gathers.
+
+K4, the fused multiway star probe (the reference's ``_multiprobe_kernel``
+launched by ``multiway_probe``), probes up to MAX_MULTI_DIMS such tables,
+all built at one shared slot count, in one pass over the fact rows
+(``csrc/multiprobe.cu``; plain version ``multiway_probe_plain``).
 """
 
 from __future__ import annotations
@@ -69,9 +74,10 @@ def resolve_mode(setting) -> str:
 
 
 def resolve_multiway_mode(setting) -> str:
-    """The fused multiway star probe (K4) is not ported yet, so
-    `enable_multiway_join` resolves off for every setting (ROADMAP)."""
-    return "off"
+    """`enable_multiway_join` -> 'on' | 'off' for the fused star probe
+    (K4): the same contract as resolve_mode (`auto` = on, as on the
+    TPU)."""
+    return resolve_mode(setting)
 
 
 def _signed(c: int) -> int:
@@ -439,3 +445,116 @@ def hash_join_probe(probe: Batch, build: Batch, tkey, src,
     src_c = found.clamp(0, build.capacity - 1)
     return _gather_build_payload(probe, build, src_c, matched, pk,
                                  build_keys, kind, gather_mode)
+
+
+# --------------------------------------------------------------------------
+# K4: fused multiway star probe over k dimension tables, one pass
+# --------------------------------------------------------------------------
+
+MAX_MULTI_DIMS = 5           # q5-class stars top out here; the planner cap
+
+
+def multiway_table_bytes(k: int, table_slots: int) -> int:
+    """The reference's resident footprint of k fused dimension tables (3
+    int32 planes per slot: key lo, key hi, row id), kept so the
+    executor's `multiway_vmem_kb` budget sheds the same dimensions."""
+    return 3 * 4 * k * table_slots
+
+
+def multiway_probe(probe: Batch, tkey: torch.Tensor, src: torch.Tensor,
+                   probe_keys: tuple):
+    """Fused star probe: k dup/escape-validated dimension tables
+    (`build_join_table` outputs stacked to tkey/src [k, T], all built at
+    one shared T) probed in one pass over the fact batch. `probe_keys`
+    holds the fact-side key index tuple of each dimension. Returns
+    (found [k, n] int64 build row ids, -1 = miss at or before that
+    dimension; miss [k] int64, the rows alive entering dimension d that
+    failed there). Payload gathers stay with the caller."""
+    from .join import _combined_key
+    T = tkey.shape[1]
+    slots, keys = [], []
+    for pk_idx in probe_keys:
+        pk, pk_valid = _combined_key(probe, pk_idx)
+        ok = probe.live & pk_valid & (pk != EMPTY_KEY)
+        slots.append(torch.where(ok, hash_slot(pk, T),
+                                 torch.where(probe.live, -1, -2)))
+        keys.append(torch.where(ok, pk.to(torch.int64), 0))
+    return multiway_probe_slots(torch.stack(slots), torch.stack(keys),
+                                tkey, src)
+
+
+multiway_probe.launches = 0
+
+
+def multiway_probe_plain(slot, key, tkey, src):
+    """Vectorised plain version: per dimension up to MAX_PROBES rounds of
+    gathers over the unresolved rows; the short-circuit is a live-mask
+    AND carried from one dimension to the next."""
+    k, n = slot.shape
+    T = tkey.shape[1]
+    dev = slot.device
+    found = torch.full((k, n), -1, dtype=torch.int64, device=dev)
+    miss = torch.zeros(k, dtype=torch.int64, device=dev)
+    alive = slot[0] != -2
+    for d in range(k):
+        ok = alive & (slot[d] >= 0)
+        pos = torch.where(ok, slot[d], 0)
+        unresolved = ok
+        hit = torch.zeros_like(ok)
+        for _ in range(MAX_PROBES):
+            if not bool(unresolved.any()):
+                break
+            at = tkey[d][pos]
+            empty = at == EMPTY_KEY
+            m = unresolved & ~empty & (at == key[d])
+            found[d] = torch.where(m, src[d][pos], found[d])
+            hit = hit | m
+            unresolved = unresolved & ~empty & ~m
+            pos = torch.where(pos + 1 >= T, 0, pos + 1)
+        miss[d] = (alive & ~hit).sum()
+        alive = hit
+    return found, miss
+
+
+def multiway_probe_slots(slot, key, tkey, src):
+    """Run K4 on encoded inputs: slot/key [k, n] int64 (slot -2 = dead
+    row, -1 = live row with a NULL or sentinel key, else the home slot),
+    tkey/src [k, T] int64. Returns (found [k, n], miss [k]) int64."""
+    for t in (slot, key, tkey, src):
+        if t.device != slot.device:
+            raise ValueError("multiway_probe: inputs must share a device")
+        if t.dtype != torch.int64 or t.dim() != 2:
+            raise ValueError("multiway_probe: inputs must be 2-D int64")
+    k, n = slot.shape
+    T = tkey.shape[1]
+    if key.shape != (k, n) or tkey.shape != (k, T) or src.shape != (k, T):
+        raise ValueError("multiway_probe: shape mismatch")
+    if not 1 <= k <= MAX_MULTI_DIMS or T <= 0:
+        raise ValueError(f"multiway_probe: bad k={k} or T={T}")
+    dev = slot.device
+    if dev.type == "cpu":
+        return multiway_probe_plain(slot, key, tkey, src)
+    if dev.type != "cuda":
+        raise RuntimeError(f"multiway_probe: no kernel for {dev}")
+    return _launch_multiprobe(slot, key, tkey, src)
+
+
+def _launch_multiprobe(slot, key, tkey, src):
+    from .cuda_build import check, library
+    fn = library("multiprobe").k4_multiprobe
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int64] +
+                   [ctypes.c_void_p] * 3)
+    slot, key, tkey, src = (t.contiguous() for t in (slot, key, tkey, src))
+    k, n = slot.shape
+    T = tkey.shape[1]
+    found = torch.empty((k, n), dtype=torch.int64, device=slot.device)
+    miss = torch.empty(k, dtype=torch.int64, device=slot.device)
+    stream = torch.cuda.current_stream(slot.device).cuda_stream
+    status = fn(slot.data_ptr(), key.data_ptr(), tkey.data_ptr(),
+                src.data_ptr(), n, k, T, found.data_ptr(), miss.data_ptr(),
+                stream)
+    check(status, "K4 multiway probe launch")
+    multiway_probe.launches += 1
+    return found, miss

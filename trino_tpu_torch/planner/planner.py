@@ -435,8 +435,8 @@ class Planner:
         fact-to-dims prefix into a MultiJoinNode when the session allows
         it.  The rewrite is plan-shape only — the executor owns every
         runtime degrade back to the pairwise path."""
-        # port: K4 (the fused multiway probe) is not ported yet, so this
-        # resolves off for every setting (ROADMAP queue B)
+        # port: the K4 gate lives beside the port's hash kernels; `auto`
+        # resolves on, as on the TPU, whatever the device
         from ..ops.hashtable import resolve_multiway_mode as resolve_mode
         setting = self.properties.get("enable_multiway_join", "auto")
         if resolve_mode(setting) == "off":
