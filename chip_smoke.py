@@ -10,6 +10,11 @@ Phases, each failing the run with a non-zero exit:
    versions, and the build of every kernel from ``trino_tpu_torch/csrc``
    (one nvcc per source, all started together);
 2. K1 (gather) against its plain torch version on the card, bit-exact;
+   K2 (windowed gather) against its plain version, words and escape
+   totals bit-exact: q12's shape (1,048,576 near-sorted indices into an
+   8,388,609-entry int8 LUT, no escapes), random indices (escapes), each
+   word dtype, misses and out-of-range indices, a LUT shorter than two
+   windows;
 3. K3 (hash insert) against its plain version on the card: multiset of
    groups exact, a forced overflow escapes, join-build duplicates counted
    exactly, and the hash-join probe equal;
@@ -28,12 +33,22 @@ Phases, each failing the run with a non-zero exit:
    q7; after the counts are read, all four against the same query on the
    pairwise ladder); and TPC-H q12 at ``tpch.sf1`` under
    ``mxu_agg = 'true'`` (K5 launches, rows equal the oracle and the
-   `false` run; under `auto` K5 must not launch);
+   `false` run; under `auto` K5 must not launch); and the chunked driver
+   under ``SET SESSION spill_chunk_rows = 1048576``: TPC-H q1, q6, q12 and
+   q3 at ``tpch.sf1`` (lineitem in 6 chunks, four runs each: the first
+   plain and recording, the later ones adapted — q12's packed orders join
+   through K2 once per chunk, fused, from the fact cache, with no window
+   rerun; q3 through K3), TPC-DS q7 at ``tpcds.sf1`` (store_sales in 12
+   chunks, K4 once per chunk), each beside its unchunked wall, and one
+   join whose Scan build streams (``stream_build_min_kb = 1``); after the
+   counts are read, one more steady run of chunked q12 and q3 each under
+   cProfile (where their host time goes);
 7. timing of each kernel on the inputs of its largest launch in the main
    paths: kernel ms (CUDA events, median of 10), the plain version's ms,
-   one library call's ms where one computes the same function, and the
-   least time the card could take (bound); beside K5, the two arms of a
-   direct aggregate (K5's `mxu` arm and the masked-sum `direct` arm) on
+   one library call's ms where one computes the same function (for K2,
+   ``index_select`` of the same words, a gather without the window
+   semantics), and the least time the card could take (bound); beside
+   K5, the two arms of a direct aggregate (K5's `mxu` arm and the masked-sum `direct` arm) on
    q12's batch, with its key redrawn over 2 to 16 groups, to place the
    crossover that `mxu_agg = auto` models;
 8. a `kernels` JSON line, the card line, and last the result line
@@ -58,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12
 TPCH_SCHEMA = "sf1"
 TPCDS_SCHEMA = "sf1"
 STAR_QUERIES = (3, 7, 19, 96)
+CHUNK_ROWS = 1_048_576
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 Q1 = """
@@ -201,6 +217,28 @@ def oracle_q3(cust, orders, li):
     return [(int(keys[i]), _dec(int(sums[i]), 4),
              (epoch + datetime.timedelta(days=int(odate[i]))).isoformat(),
              int(oprio[i])) for i in order]
+
+
+def oracle_stream(orders, cust):
+    """The streaming-build query (STREAM_SQL): orders before 1993 joined to
+    their customer, first 200 by order key."""
+    import numpy as np
+    m = _col(orders, "o_orderdate") < _days("1993-01-01")
+    okey = _col(orders, "o_orderkey")[m]
+    order = np.argsort(okey, kind="stable")[:200]
+    crow = _row_of(cust, "c_custkey", _col(orders, "o_custkey")[m][order])
+    names = cust.schema.field("c_name").dictionary
+    return [(int(okey[i]),
+             _dec(int(_col(orders, "o_totalprice")[m][i]), 2),
+             names[int(_col(cust, "c_name")[c])],
+             _dec(int(_col(cust, "c_acctbal")[c]), 2))
+            for i, c in zip(order, crow)]
+
+
+STREAM_SQL = ("SELECT o_orderkey, o_totalprice, c_name, c_acctbal"
+              " FROM orders o JOIN customer c ON o.o_custkey = c.c_custkey"
+              " WHERE o_orderdate < DATE '1993-01-01'"
+              " ORDER BY o_orderkey LIMIT 200")
 
 
 def oracle_q12(orders, li):
@@ -419,6 +457,62 @@ def phase_k1(dev):
         f"and wild indices) and the {D + 1}-entry LUT")
 
 
+def phase_k2(dev):
+    import torch
+    from trino_tpu_torch.ops import gather as k2
+    g = torch.Generator().manual_seed(21)
+    cases = []
+    # (a) q12's shape: an 8,388,609-entry int8 LUT, 1,048,576 near-sorted
+    # indices over a span of ~1.05M keys
+    D = 8_388_609
+    lut = torch.randint(-128, 128, (D,), generator=g).to(torch.int8)
+    lo = 3_000_000
+    near = torch.sort(torch.randint(lo, lo + 1_050_000, (1 << 20,),
+                                    generator=g)).values
+    cases.append(("q12 shape", lut, near, "int8", False))
+    # (b) random indices into the same LUT: escapes
+    cases.append(("random", lut, torch.randint(0, D, (1 << 20,),
+                                               generator=g), "int8", True))
+    # (c) each word dtype, near-sorted with jitter and (d) misses and
+    # out-of-range indices
+    for word, tdt in (("int8", torch.int8), ("int16", torch.int16),
+                      ("int32", torch.int32), ("int64", torch.int64)):
+        info = torch.iinfo(tdt)
+        w = 2_000_003
+        t = torch.randint(info.min, info.max, (w,), generator=g,
+                          dtype=torch.int64).to(tdt)
+        idx = torch.sort(torch.randint(0, w, (500_000,),
+                                       generator=g)).values
+        idx = (idx + torch.randint(-3, 4, idx.shape, generator=g)).clamp(
+            0, w - 1)
+        idx[::9] = -1
+        idx[5::17] = -(1 << 40)
+        idx[7::23] = 1 << 40
+        idx[11::29] = w + 70_000
+        cases.append((f"{word} with misses", t, idx, word, None))
+    # (d) a LUT shorter than two windows
+    short = torch.randint(-(1 << 60), 1 << 60, (9000,), generator=g)
+    cases.append(("short LUT", short, torch.randint(-5, 9005, (70_000,),
+                                                    generator=g),
+                  "int64", None))
+    summary = []
+    for name, t, idx, word, escapes in cases:
+        planes = k2.prepare_word_planes(t.to(dev))
+        ic = idx.to(dev)
+        got_w, got_e = k2.gather_word_windowed(planes, ic, word)
+        want_w, want_e = k2.gather_word_windowed_plain(planes, ic, word)
+        torch.cuda.synchronize()
+        require(_bits_equal(got_w, want_w), f"K2 words differ on {name}")
+        require(int(got_e) == int(want_e), f"K2 escapes differ on {name}: "
+                f"{int(got_e)} vs {int(want_e)}")
+        if escapes is not None:
+            require((int(got_e) > 0) == escapes,
+                    f"K2 on {name}: {int(got_e)} escapes")
+        summary.append(f"{name} ({int(got_e)} escapes)")
+    log("K2 check: words and escape totals bit-exact with plain on "
+        + ", ".join(summary))
+
+
 def _agg_specs(*funcs):
     from trino_tpu_torch.ops.aggregate import AggSpec
     return tuple(AggSpec(f, None if f == "count_star" else 0)
@@ -597,8 +691,9 @@ def _counters():
     from trino_tpu_torch.ops import direct_agg as k5
     from trino_tpu_torch.ops import gather as k1
     from trino_tpu_torch.ops import hashtable as ht
-    return {"K1": k1.gather_columns, "K3": ht.hash_insert,
-            "K4": ht.multiway_probe, "K5": k5.group_sums}
+    return {"K1": k1.gather_columns, "K2": k1.gather_word_windowed,
+            "K3": ht.hash_insert, "K4": ht.multiway_probe,
+            "K5": k5.group_sums}
 
 
 def reset_counts():
@@ -622,6 +717,27 @@ def _timed_runs(session, sql, runs):
                 "a rerun returned other rows")
         rows = res.rows
     return rows, walls
+
+
+def _host_profile(session, sql, top=15):
+    """One more run of `sql` under cProfile (uncounted; the profiler slows
+    Python-heavy code more than torch calls): its wall and the `top`
+    functions by cumulative host seconds, as [file:function, s, calls]."""
+    import cProfile
+    import pstats
+    import torch
+    pr = cProfile.Profile()
+    t = time.monotonic()
+    pr.enable()
+    session.execute(sql)
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.monotonic() - t
+    stats = pstats.Stats(pr).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][3])[:top]
+    return {"wall_s": wall, "top": [
+        [f"{os.path.basename(f)}:{fn}", round(ct, 4), nc]
+        for (f, _line, fn), (_cc, nc, _tt, ct, _callers) in rows]}
 
 
 def phase_tpch_path(recorder):
@@ -747,7 +863,7 @@ def phase_tpcds_path(recorder):
     session.execute("SET SESSION enable_multiway_join = 'auto'")
     log(f"tpcds ladder: q{', q'.join(map(str, STAR_QUERIES))} fused rows "
         f"equal the pairwise ladder (enable_multiway_join = 'false')")
-    return launches
+    return launches, session, tables, expected, per_query
 
 
 def phase_q12_path(recorder, session, tables):
@@ -786,6 +902,155 @@ def phase_q12_path(recorder, session, tables):
     return launches
 
 
+def _chunk_counters(ex):
+    st = ex.stats
+    return {k: getattr(st, k) for k in (
+        "fused_chunk_pipelines", "fact_cache_chunks", "agg_spill_chunks",
+        "escaped_window_reruns", "chunk_lut_joins", "streamed_build_joins")}
+
+
+def phase_chunked_path(recorder, session, tables):
+    """TPC-H q1, q6, q12 and q3 at sf1 through the chunked driver
+    (lineitem in 6 chunks of CHUNK_ROWS), four runs each in one session:
+    the first plain and recording, the later ones adapted. Each query's
+    unchunked wall is measured first, outside the counted run."""
+    import torch
+    from tpch_full import QUERIES
+    from trino_tpu_torch.ops import gather as k1
+    from trino_tpu_torch.ops import hashtable as ht
+    orders = session.catalog.connector("tpch").get_table(TPCH_SCHEMA,
+                                                         "orders")
+    li = tables["lineitem"]
+    chunks = -(-li.num_rows // CHUNK_ROWS)
+    queries = (("q1", Q1, oracle_q1(li)), ("q6", Q6, oracle_q6(li)),
+               ("q12", QUERIES[12], oracle_q12(orders, li)),
+               ("q3", Q3, oracle_q3(tables["customer"], orders, li)))
+    unchunked = {}
+    for name, sql, _ in queries:
+        rows, walls = _timed_runs(session, sql, 2)
+        unchunked[name] = walls
+    session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+    ex = session.executor
+    reset_counts()
+    recorder.active = True
+    per_query = {}
+    for name, sql, expected in queries:
+        before_c = _chunk_counters(ex)
+        k2_runs, k3_before = [], ht.hash_insert.launches
+        walls, rows = [], None
+        for run in range(4):
+            k2_before = k1.gather_word_windowed.launches
+            t = time.monotonic()
+            res = session.execute(sql)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t)
+            k2_runs.append(k1.gather_word_windowed.launches - k2_before)
+            require(res.rows == expected, f"chunked {name} run {run} "
+                    f"differs from the numpy oracle:\n{res.rows[:3]}\nvs"
+                    f"\n{expected[:3]}")
+            rows = res.rows
+        c = {k: v - before_c[k] for k, v in _chunk_counters(ex).items()}
+        require(c["agg_spill_chunks"] == 4 * chunks,
+                f"chunked {name}: {c['agg_spill_chunks']} chunks in 4 runs")
+        require(c["escaped_window_reruns"] == 0,
+                f"chunked {name}: a window rerun fired")
+        if name == "q12":
+            require(c["fused_chunk_pipelines"] > 0 and
+                    c["fact_cache_chunks"] > 0,
+                    f"chunked q12 did not run fused from the fact cache: {c}")
+            require(k2_runs == [0] + [chunks] * 3,
+                    f"chunked q12: K2 launches per run {k2_runs}, want 0 "
+                    f"then {chunks} per adapted run")
+        if name == "q3":
+            require(ht.hash_insert.launches > k3_before,
+                    "chunked q3 did not launch K3")
+        per_query[name] = {
+            "rows": len(rows), "cold_s": walls[0],
+            "steady_median_s": statistics.median(walls[1:]),
+            "unchunked_cold_s": unchunked[name][0],
+            "unchunked_steady_s": unchunked[name][1],
+            "k2_launches_per_run": k2_runs, "counters": c,
+            "last_run_chunk_spans": dict(ex.chunk_spans),
+            "strategy": dict(ex.strategy_decisions)}
+        log(f"chunked {name}: {len(rows)} rows match the oracle on all 4 "
+            f"runs; cold {walls[0]:.4f} s, steady median "
+            f"{per_query[name]['steady_median_s']:.4f} s (runs "
+            f"{[round(w, 4) for w in walls]}); unchunked "
+            f"{unchunked[name][0]:.4f} / {unchunked[name][1]:.4f} s; K2 per "
+            f"run {k2_runs}; {c}")
+    recorder.active = False
+    launches = read_counts()
+    # where a steady chunked run's host time goes, for q12 (fused, K2) and
+    # q3 (the per-node loop), run after the counts are read
+    for name, sql, _ in queries:
+        if name in ("q12", "q3"):
+            log(f"chunked {name} host profile: "
+                + json.dumps(_host_profile(session, sql)))
+    session.execute("SET SESSION spill_chunk_rows = 0")
+    adapt = {str(v) for k, v in ex._decision_cache.items()
+             if k[0] == "fusedadapt"}
+    log("chunked tpch path: " + json.dumps({
+        "chunk_rows": CHUNK_ROWS, "chunks": chunks, "queries": per_query,
+        "fusedadapt_records": sorted(adapt), "launches": launches}))
+    return launches
+
+
+def phase_ds_chunked(recorder, session, tables, expected, unchunked):
+    """TPC-DS q7 at sf1 through the chunked driver: store_sales in 12
+    chunks, the star re-probed per chunk through K4 with the dimension
+    tables pinned by the chunk-mode caches."""
+    from tpcds_queries import QUERIES
+    ss = tables["store_sales"].num_rows
+    chunks = -(-ss // CHUNK_ROWS)
+    session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+    reset_counts()
+    recorder.active = True
+    rows, walls = _timed_runs(session, QUERIES[7], 2)
+    recorder.active = False
+    launches = read_counts()
+    ran = dict(session.executor.strategy_decisions)
+    session.execute("SET SESSION spill_chunk_rows = 0")
+    require(rows == expected[7], "chunked ds q7 differs from the oracle")
+    require(launches["K4"] == 2 * chunks,
+            f"chunked ds q7: {launches['K4']} K4 launches in 2 runs of "
+            f"{chunks} chunks")
+    log(f"chunked ds q7: {len(rows)} rows equal the numpy oracle; "
+        f"{chunks} chunks; cold {walls[0]:.4f} s, steady {walls[1]:.4f} s "
+        f"(unchunked {unchunked['ds_q7']['cold_s']:.4f} / "
+        f"{unchunked['ds_q7']['steady_median_s']:.4f} s); ran {ran}; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_stream_build(recorder, session):
+    """One join whose build side (a Scan of customer) streams through the
+    dense LUT in 65,536-row chunks (`stream_build_min_kb = 1`); its TopN
+    keeps the chunked driver out of the plan."""
+    conn = session.catalog.connector("tpch")
+    expected = oracle_stream(conn.get_table(TPCH_SCHEMA, "orders"),
+                             conn.get_table(TPCH_SCHEMA, "customer"))
+    plan = [r[0] for r in session.execute("EXPLAIN " + STREAM_SQL).rows]
+    session.execute("SET SESSION stream_build_min_kb = 1")
+    session.execute("SET SESSION spill_chunk_rows = 65536")
+    before = session.executor.stats.streamed_build_joins
+    reset_counts()
+    recorder.active = True
+    rows, walls = _timed_runs(session, STREAM_SQL, 2)
+    recorder.active = False
+    launches = read_counts()
+    streamed = session.executor.stats.streamed_build_joins - before
+    session.execute("SET SESSION stream_build_min_kb = 0")
+    session.execute("SET SESSION spill_chunk_rows = 0")
+    require(rows == expected, "the streaming-build query differs from the "
+            f"oracle:\n{rows[:3]}\nvs\n{expected[:3]}")
+    require(streamed == 2, f"streaming_build_join ran {streamed} times in "
+            "2 runs")
+    log(f"streaming build: {len(rows)} rows equal the numpy oracle; "
+        f"streamed {streamed} builds; walls {[round(w, 4) for w in walls]}"
+        f"; plan {[ln.strip()[:60] for ln in plan if 'Join' in ln or 'Scan' in ln]}")
+    return launches
+
+
 class LaunchRecorder:
     """Keeps the inputs of the largest launch of each kernel in the main
     paths (by rows) so that the timing phase times the kernels on them.
@@ -798,6 +1063,7 @@ class LaunchRecorder:
         self.k4 = None
         self.k5 = None
         self.k5_batch = None      # the direct aggregate's input to K5's arm
+        self.k2 = None
 
     def install(self):
         from trino_tpu_torch.ops import direct_agg as k5
@@ -805,6 +1071,14 @@ class LaunchRecorder:
         from trino_tpu_torch.ops import hashtable as ht
         real_k1, real_k3 = k1._launch, ht._launch
         real_k4, real_k5 = ht._launch_multiprobe, k5._launch
+        real_k2 = k1._launch_window
+
+        def k2_launch(planes, idx):
+            if self.active and (self.k2 is None or
+                                idx.shape[0] > self.k2[1].shape[0]):
+                self.k2 = (planes, idx)
+            return real_k2(planes, idx)
+        k1._launch_window = k2_launch
 
         def k4_launch(slot, key, tkey, src):
             if self.active and (self.k4 is None or
@@ -849,8 +1123,8 @@ def phase_timing(recorder, launches):
     import torch
     from trino_tpu_torch.ops import gather as k1
     from trino_tpu_torch.ops import hashtable as ht
-    require(None not in (recorder.k1, recorder.k3, recorder.k4,
-                         recorder.k5),
+    require(None not in (recorder.k1, recorder.k2, recorder.k3,
+                         recorder.k4, recorder.k5),
             "a kernel's launch was not recorded on the main paths")
     out = []
     # K1 on the largest main-path launch
@@ -884,6 +1158,7 @@ def phase_timing(recorder, launches):
                 "max_abs_err": _max_abs_err(zip(got, want)),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes", "library_ms": lib_ms})
+    out.append(_time_k2(recorder, launches))
     # K3 on the largest main-path launch
     slot, key, vbits, vals, layout, nstates, T = recorder.k3
     n = key.shape[0]
@@ -916,6 +1191,43 @@ def phase_timing(recorder, launches):
     out.append(_time_k4(recorder, launches))
     out.append(_time_k5(recorder, launches))
     return out
+
+
+def _time_k2(recorder, launches):
+    import torch
+    from trino_tpu_torch.ops import gather as k2
+    planes, idx = recorder.k2
+    n = idx.shape[0]
+    word = str(planes.dtype).replace("torch.", "")
+    got_w, got_e = k2.gather_word_windowed(planes, idx, word)
+    want_w, want_e = k2.gather_word_windowed_plain(planes, idx, word)
+    require(_bits_equal(got_w, want_w) and int(got_e) == int(want_e),
+            "K2 differs from plain on the main-path inputs")
+    ms = time_cuda(lambda: k2.gather_word_windowed(planes, idx, word))
+    plain_ms = time_cuda(lambda: k2.gather_word_windowed_plain(planes, idx,
+                                                               word))
+    ok = (idx >= 0) & (idx < planes.shape[0])
+    idx_c = torch.where(ok, idx, 0)
+    lib_ms = time_cuda(lambda: torch.index_select(planes, 0, idx_c))
+    # bytes this run's data needs: the int64 index read once, the int64
+    # word written once, and the LUT bytes the in-range key span touches
+    live = idx[ok]
+    span = int(live.max() - live.min() + 1) if live.numel() else 0
+    need = 8 * n + 8 * n + span * planes.element_size()
+    bound_ms = need / HBM_BYTES_PER_S * 1e3
+    log(f"timing K2: n={n} LUT={planes.shape[0]} {word} words, key span "
+        f"{span}, escapes {int(got_e)}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_select of the same words (a gather "
+        f"without the window semantics) {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes: index read and word written once, the "
+        f"span's LUT bytes once)")
+    return {"name": "K2 gather_word_windowed", "route": "cuda",
+            "source": "trino_tpu_torch/csrc/window_gather.cu",
+            "replaces": "trino_tpu/ops/pallas_gather.py:206",
+            "launches": launches["K2"],
+            "max_abs_err": _max_abs_err([(got_w, want_w)]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": lib_ms}
 
 
 def _time_k4(recorder, launches):
@@ -1051,14 +1363,21 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_card()
     phase_k1(dev)
+    phase_k2(dev)
     phase_k3(dev)
     phase_k4(dev)
     phase_k5(dev)
     recorder = LaunchRecorder()
     recorder.install()
     session, tables, launches = phase_tpch_path(recorder)
-    for path in (phase_tpcds_path(recorder),
-                 phase_q12_path(recorder, session, tables)):
+    ds_launches, ds_session, ds_tables, ds_expected, ds_walls = \
+        phase_tpcds_path(recorder)
+    paths = [ds_launches, phase_q12_path(recorder, session, tables),
+             phase_chunked_path(recorder, session, tables),
+             phase_ds_chunked(recorder, ds_session, ds_tables, ds_expected,
+                              ds_walls),
+             phase_stream_build(recorder, session)]
+    for path in paths:
         for name, count in path.items():
             launches[name] += count
     log("main paths, launches in all: " + json.dumps(launches))

@@ -8,8 +8,8 @@ the GPU machine it runs without them:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: bit-exact (K1 bytes, K3 group states as multisets, K4 found
-and miss, K5 sums, query rows equal)."""
+Tolerance: bit-exact (K1 bytes, K2 words and escape totals, K3 group
+states as multisets, K4 found and miss, K5 sums, query rows equal)."""
 
 import os
 import sys
@@ -231,3 +231,87 @@ def test_q12_mxu_on_card_equals_cpu(sessions):
         assert s.executor.strategy_decisions["AggregateNode"] == "mxu"
     assert k5.group_sums.launches == before   # the CPU run: plain
     assert rows[0] == rows[1] and len(rows[0]) == 2
+
+
+@pytest.mark.parametrize("word", ["int8", "int16", "int32", "int64"])
+def test_k2_matches_plain_on_card(word):
+    """K2 against its plain version, words and escape totals bit-exact:
+    near-sorted indices (no escapes), random ones (escapes), misses and
+    out-of-range indices, and a LUT shorter than two windows."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    info = np.iinfo(word)
+    for w, n in ((300_000, 200_000), (5000, 3000)):
+        lut = torch.from_numpy(rng.integers(info.min, info.max, w,
+                                            dtype=np.int64).astype(word))
+        planes = k1.prepare_word_planes(lut.to(dev))
+        near = np.clip(np.sort(rng.integers(0, w, n)) +
+                       rng.integers(-3, 4, n), 0, w - 1)
+        wild = rng.integers(0, w, n)
+        wild[::7] = -1
+        wild[3::11] = -(1 << 40)
+        wild[5::13] = planes.shape[0] + 9
+        for idx in (near, wild):
+            ic = torch.from_numpy(idx).to(dev)
+            before = k1.gather_word_windowed.launches
+            got_w, got_e = k1.gather_word_windowed(planes, ic, word)
+            want_w, want_e = k1.gather_word_windowed_plain(planes, ic, word)
+            torch.cuda.synchronize()
+            assert k1.gather_word_windowed.launches == before + 1
+            assert torch.equal(got_w, want_w)
+            assert int(got_e) == int(want_e)
+            if idx is near:
+                assert int(got_e) == 0
+
+
+def test_chunked_q12_on_card_equals_cpu():
+    """TPC-H q12 through the chunked driver at tpch.tiny: the adapted
+    second run probes orders through K2 once per chunk on the card, and
+    every run's rows equal the CPU's."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    _card()
+    rows = {}
+    for device in ("cuda", "cpu"):
+        s = Session(device=device)
+        s.execute("SET SESSION spill_chunk_rows = 8192")
+        before = k1.gather_word_windowed.launches
+        rows[device] = [s.execute(QUERIES[12]).rows for _ in range(2)]
+        launched = k1.gather_word_windowed.launches - before
+        assert launched == (8 if device == "cuda" else 0)
+        assert s.executor.stats.escaped_window_reruns == 0
+        assert s.executor.stats.fused_chunk_pipelines == 2
+    assert rows["cuda"] == rows["cpu"]
+
+
+@pytest.mark.parametrize("qnum", [1, 12])
+def test_chunked_prefetch_pipeline_on_card(qnum):
+    """The prefetch pipeline on the card (fact cache off, so every chunk
+    is decoded on the host and staged on the worker's stream): depth 2
+    equals the serial depth 0 and the CPU on every run, every chunk is
+    served from staging, and no staged bytes stay reserved. q12's second
+    run at each depth probes the staged chunks through K2."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    _card()
+    sql = QUERIES[qnum]
+    cpu = Session(device="cpu")
+    cpu.execute("SET SESSION spill_chunk_rows = 8192")
+    want = [cpu.execute(sql).rows for _ in range(2)]
+    s = Session(device="cuda")
+    s.executor.enable_fact_cache = False
+    s.execute("SET SESSION spill_chunk_rows = 8192")
+    stats = s.executor.stats
+    for depth in (0, 2):
+        s.execute(f"SET SESSION prefetch_depth = {depth}")
+        before = stats.scan_prefetched_chunks
+        got = [s.execute(sql).rows for _ in range(2)]
+        assert got == want, depth
+        spans = s.executor.chunk_spans
+        assert spans["chunks"] == 8
+        assert spans["prefetched"] == (8 if depth else 0)
+        assert stats.scan_prefetched_chunks - before == (16 if depth else 0)
+        assert stats.fact_cache_chunks == 0
+        assert stats.escaped_window_reruns == 0
+        assert s.executor.pool.snapshot()["revocable_holders"].get(
+            "scan-prefetch", 0) == 0

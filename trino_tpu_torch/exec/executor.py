@@ -13,18 +13,21 @@ filter/project, global/direct/sort/packed-sort/hash aggregation (K3 via
 (dense-LUT, sort-merge, sorted, hybrid hash — K1 via ``ops/gather.py``),
 fused multiway star joins (K4 via ``ops/hashtable.multiway_probe``, with
 the reference's degrades back to the pairwise ladder), sort/TopN/limit,
-values and uncorrelated scalar subqueries. Nodes and options outside the
-port raise NotImplementedError naming the ROADMAP item that ports them:
-window, unnest, set operations, mark/semi/anti joins, the chunked executor
-(`spill_chunk_rows`), streaming builds and the host-spill tier.
+values and uncorrelated scalar subqueries; the chunked driver
+(`spill_chunk_rows`, ``exec/chunked.py``: fused per-chunk programs whose
+adapted windowed probes are K2, the fact-column cache, the chunk-mode LUT
+caches here) and streaming builds (`stream_build_min_kb`). Nodes and
+options outside the port raise NotImplementedError naming the ROADMAP
+item that ports them: window, unnest, set operations, mark/semi/anti
+joins and the host-spill tier.
 
 The kernel gates (`auto` for K1, K3, K4 and K5) model the TPU's decision
 on every device, so the port takes the same strategies on the CPU as the
 reference does on a TPU.
 
 The decision cache (runtime decision values keyed by plan structure) is
-in memory only. `fetch_ints` is the one host sync point: one
-``torch.stack(...).tolist()`` per call.
+in memory only. `fetch_ints` is the host sync point: one
+``torch.stack(...).tolist()`` per call, none in chunk mode's loop.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from ..ops.join import (join_expand, join_unique_build,
 from ..ops.project import apply_filter, filter_project, filter_project_fused
 from ..ops.sort import limit_batch, sort_batch
 from ..planner import logical as L
+from ..planner.fragmenter import _subtree_nodes
 
 # the reference's sort-shape gates, kept so strategy choices match
 MAX_SORT_OPERANDS = 12
@@ -82,6 +86,20 @@ class ExecStats:
     # per degrade reason (kernel_off/vmem/dup/escape/dtype): the
     # reference's trino_tpu_multijoin_degrades_total{reason} family
     multijoin_degrade_reasons: Dict[str, int] = field(default_factory=dict)
+    # the chunked driver (exec/chunked.py)
+    agg_spill_chunks: int = 0        # chunks streamed (driver and builds)
+    fact_cache_chunks: int = 0       # chunks sliced from the fact cache
+    chunk_lut_joins: int = 0         # sync-free reused-LUT probes
+    fused_chunk_pipelines: int = 0   # whole-chunk-path fused programs
+    escaped_window_reruns: int = 0   # adapted fused runs whose window or
+                                     # compaction guess failed (plain rerun)
+    compaction_overflows: int = 0    # in-program compaction capacity hit
+    spilled_aggregations: int = 0    # partial states moved to host pages
+    scan_chunks_skipped: int = 0     # chunks skipped whole by zone maps
+    scan_prefetched_chunks: int = 0  # chunks served from the prefetch
+                                     # pipeline's staging
+    scan_prefetch_stalls: int = 0    # consumer waits on an unstaged chunk
+    streamed_build_joins: int = 0    # joins whose build streamed (LUT)
 
 
 class QueryDeadlineError(RuntimeError):
@@ -120,8 +138,41 @@ class Executor:
         self.pool = MemoryPool(parse_bytes(env_limit) if env_limit
                                else (64 << 30))
         self._node_bytes: Dict[int, int] = {}
-        # bounded-memory chunked executor (not ported: must stay None)
+        # bounded-memory chunked executor (exec/chunked.py); None = off
         self.spill_chunk_rows: Optional[int] = None
+        self.spill_partitions = 8
+        # chunked-driver prefetch pipeline depth: how many decoded chunks
+        # may sit ahead of the device (0 = the serial loop)
+        self.prefetch_depth = 2
+        self.prewarm_chunks = False
+        # the fused chunk program's in-program compaction from a previous
+        # run's measurements: off, as in the reference (windowed packed
+        # probes, K2, always adapt)
+        self.enable_adapt_compact = False
+        # a seeded fault injector for executor-side worker threads (the
+        # prefetch worker calls maybe_fail("SCAN_PREFETCH", ...)); None
+        # outside tests
+        self.failure_injector = None
+        # chunked-mode build results keyed by structural plan hash; they
+        # persist across queries for deterministic sources and hold
+        # REVOCABLE "build-cache" reservations until evicted
+        self._build_cache: Dict[str, Batch] = {}
+        self._build_cache_bytes: Dict[str, int] = {}
+        # chunk mode: inside the chunked loop joins build and validate
+        # their LUT once per pinned build and then probe sync-free;
+        # compaction (which needs a row count) is skipped
+        self.chunk_mode = False
+        self._chunk_lut_cache: Dict[tuple, object] = {}
+        # cross-run caches of the fused chunk pipeline: per-chunk programs
+        # keyed by plan structure, validated LUTs by (build, domain)
+        self._fused_cache: Dict[object, object] = {}
+        self._lut_cache: Dict[tuple, object] = {}
+        # device-resident narrowed fact columns (exec/device_cache.py)
+        from .device_cache import FactTableCache
+        self.fact_cache = FactTableCache()
+        self.enable_fact_cache = True
+        self._revocation_handle = self.pool.register_revocation(
+            self._revoke_caches, tag="executor-caches")
         # session-resolved kernel settings (auto/true/false)
         self.enable_pallas_gather = "auto"
         self.enable_pallas_hash = "auto"
@@ -140,8 +191,13 @@ class Executor:
         self.multiway_vmem_kb = 8192
         self._no_decisions = 0         # >0: bypass the decision cache
         # substitutions: id(plan node) -> precomputed Batch (the children a
-        # star already ran, handed to its reconstructed ladder)
+        # star already ran, the chunked driver's pinned builds, chunks and
+        # merged partials)
         self._subst: Dict[int, Batch] = {}
+        # ids of substitutions whose data the structure key does not
+        # describe (a streamed chunk): decisions under them never cache
+        self._subst_opaque: set = set()
+        self.chunk_spans: Dict[str, object] = {}
         self.strategy_decisions: Dict[str, str] = {}
         self.enable_dynamic_filtering = True
         self.enable_merge_join = True
@@ -160,8 +216,22 @@ class Executor:
 
     # ------------------------------------------------------------------
 
+    def _revoke_caches(self, target_bytes: int) -> int:
+        """Revocation callback: evict cached build batches (revocable
+        reservations) until the target is met. Evicted builds re-run on
+        next use — correctness never depends on the cache."""
+        freed = 0
+        for key in list(self._build_cache):
+            if freed >= target_bytes:
+                break
+            self._build_cache.pop(key, None)
+            b = self._build_cache_bytes.pop(key, 0)
+            self.pool.free_revocable(b, tag="build-cache")
+            freed += b
+        return freed
+
     def check_cancel(self) -> None:
-        """Deadline check between plan nodes."""
+        """Deadline check between plan nodes and between driver chunks."""
         if self.deadline is not None and time.monotonic() > self.deadline:
             raise QueryDeadlineError("query exceeded query_max_run_time_s")
 
@@ -190,10 +260,13 @@ class Executor:
             self.pool.free(b)
         self._node_bytes.clear()
         self._subst.clear()
+        self._subst_opaque.clear()
         self._skey_memo.clear()
         if self.spill_chunk_rows:
-            raise _not_ported("the chunked executor (spill_chunk_rows > 0)",
-                              "K2 with the chunked executor")
+            from .chunked import execute_chunked
+            out = execute_chunked(self, root)
+            if out is not None:
+                return out
         return self.run(root.child)
 
     def run(self, node: L.PlanNode) -> Batch:
@@ -242,16 +315,31 @@ class Executor:
         """Session knobs that change runtime decision values for the same
         plan structure."""
         return (self.enable_dynamic_filtering, self.enable_merge_join,
-                str(self.enable_mxu_agg), self.hash_mode() != "off",
+                str(self.enable_mxu_agg), bool(self.stream_build_bytes),
+                self.spill_chunk_rows, self.hash_mode() != "off",
                 self.hash_table_slots, self.multiway_mode() != "off",
                 self.multiway_vmem_kb)
+
+    def decisions_cacheable(self, node) -> bool:
+        """May `node`'s runtime decision values go through the decision
+        cache? Chunk mode bypasses (the driver chunk differs per
+        iteration), and so does an opaque substitution anywhere in the
+        subtree (a streamed chunk carries data the structure key does not
+        describe). Structure-faithful substitutions (pinned deterministic
+        builds, merged partials) do not bypass."""
+        if self.chunk_mode or self._no_decisions:
+            return False
+        if not self._subst_opaque:
+            return True
+        return not any(id(n) in self._subst_opaque
+                       for n in _subtree_nodes(node))
 
     def fetch_ints(self, node, tag: str, *vals) -> tuple:
         """Fetch small device integers as host ints — through the decision
         cache when `node`'s subtree is deterministic. The sync point: one
         stack + tolist per call."""
         key = None
-        if node is not None and not self._no_decisions:
+        if node is not None and self.decisions_cacheable(node):
             skey = self.memo_structure_key(node)
             if skey is not None:
                 key = (tag, skey, self._decision_salt())
@@ -266,6 +354,53 @@ class Executor:
                 self._decision_cache.clear()
             self._decision_cache[key] = out
         return out
+
+    def run_cached_build(self, node: L.PlanNode) -> Batch:
+        """Execute a chunked-mode build subtree with a cross-run cache
+        keyed by the subtree's wire-form hash, so a re-planned but
+        structurally identical build reuses the pinned device batch. Only
+        deterministic generator catalogs take part."""
+        key = self.build_structure_key(node)
+        if key is None:
+            return self.run(node)
+        hit = self._build_cache.get(key)
+        if hit is not None:
+            return hit
+        out = self.run(node)
+        if len(self._build_cache) >= 8:      # bounded: drop eldest
+            old = next(iter(self._build_cache))
+            self._build_cache.pop(old)
+            self.pool.free_revocable(
+                self._build_cache_bytes.pop(old, 0), tag="build-cache")
+        # move the reservation run() made from the per-query ledger to the
+        # cache's REVOCABLE ledger: the batch outlives the query, so the
+        # pool keeps counting it until eviction, as spillable bytes
+        from .memory import batch_bytes
+        b = self._node_bytes.pop(id(node), None)
+        if b is not None:
+            self.pool.free(b)
+        else:
+            b = batch_bytes(out)
+        self.pool.reserve_revocable(b, tag="build-cache")
+        self._build_cache[key] = out
+        self._build_cache_bytes[key] = b
+        return out
+
+    def release_path_reservations(self, node: L.PlanNode, keep) -> None:
+        """Free the reservations of `node`'s subtree (chunked mode: the
+        per-chunk path recomputes these nodes next iteration). Nodes in
+        `keep` (pinned substitutions) stay reserved."""
+        if id(node) not in keep:
+            self.pool.free(self._node_bytes.pop(id(node), 0))
+            for c in L.children(node):
+                self.release_path_reservations(c, keep)
+
+    def enter_chunk_mode(self) -> None:
+        self.chunk_mode = True
+
+    def exit_chunk_mode(self) -> None:
+        self.chunk_mode = False
+        self._chunk_lut_cache.clear()
 
     def memo_structure_key(self, node: L.PlanNode) -> Optional[str]:
         """build_structure_key with a per-execution memo (the node is held
@@ -452,6 +587,22 @@ class Executor:
         (ops/hashtable.resolve_multiway_mode)."""
         from ..ops.hashtable import resolve_multiway_mode
         return resolve_multiway_mode(self.enable_multiway_join)
+
+    def merge_group_aggregate(self, node: L.AggregateNode, merged: Batch,
+                              merge_aggs, capacity: int) -> Batch:
+        """FINAL merge of grouped partial states (keys at 0..n_keys-1,
+        mergeable states after): the hash-partial merge when the
+        operator's gate picked hash and the batch qualifies, the sort
+        merge otherwise — shared by the chunked driver's PartialState and
+        the partial pages."""
+        n_keys = len(node.group_keys)
+        if node.strategy == "hash":
+            out = self.try_hash_group_agg(merged, tuple(range(n_keys)),
+                                          merge_aggs, capacity)
+            if out is not None:
+                return out
+        return sort_group_aggregate(merged, tuple(range(n_keys)),
+                                    merge_aggs, capacity, self.gather_mode())
 
     def _note_multijoin_degrade(self, reason: str,
                                 count: int = 1) -> None:
@@ -760,6 +911,8 @@ class Executor:
         if live is None:
             if batch.capacity < (1 << 16):
                 return batch          # too small for compaction to pay
+            if self.chunk_mode:
+                return batch          # the chunked loop stays sync-free
             live = self.fetch_ints(node, "complive", batch.live.sum())[0]
         new_cap = bucket_capacity(live)
         if new_cap * self.COMPACT_SHRINK <= batch.capacity:
@@ -769,9 +922,16 @@ class Executor:
 
     def run_join(self, node: L.JoinNode) -> Batch:
         probe = self.run(node.left)
+        # oversized build sides stream chunk-wise into the dense LUT
+        # instead of materializing on the device (the decision must
+        # precede running the build child)
         if self.stream_build_bytes:
-            raise _not_ported("streaming builds (stream_build_min_kb)",
-                              "K2 with the chunked executor")
+            est = self._estimate_build_bytes(node.right)
+            if est is not None and est > self.stream_build_bytes:
+                from .chunked import streaming_build_join
+                out = streaming_build_join(self, node, probe)
+                if out is not None:
+                    return out
         build = self.run(node.right)
         packed = self.pack_join_keys(probe, build, node.left_keys,
                                      node.right_keys, node=node)
@@ -793,6 +953,19 @@ class Executor:
             return _strip_packed_columns(out, node, len(probe.columns),
                                          len(build.columns))
         return self._run_join_inner(node, probe, build)
+
+    def _estimate_build_bytes(self, node: L.PlanNode) -> Optional[int]:
+        """Size of a Scan/Filter(Scan) build side, for the streaming
+        decision (the shape streaming_build_join supports)."""
+        scan = node.child if isinstance(node, L.FilterNode) else node
+        if not isinstance(scan, L.ScanNode):
+            return None
+        try:
+            rows = self.catalog.get_table(scan.catalog, scan.schema_name,
+                                          scan.table).num_rows
+        except Exception:        # noqa: BLE001 — stats probe only
+            return None
+        return rows * max(1, len(scan.column_indices)) * 8
 
     def pack_join_keys(self, probe: Batch, build: Batch, pkeys, bkeys,
                        node=None):
@@ -884,6 +1057,13 @@ class Executor:
                         build: Batch, domain) -> Optional[Batch]:
         """Unique-build fast paths (sort-merge at small shapes, dense LUT,
         hybrid hash, sorted). None = the build had duplicate keys."""
+        # chunk mode: build and validate the dense LUT once per pinned
+        # build, then probe every chunk sync-free (_chunk_lut_join)
+        if self.chunk_mode and domain is not None and \
+                node.kind in ("inner", "left"):
+            out = self._chunk_lut_join(node, probe, build, domain)
+            if out is not None:
+                return out
         gm = self.gather_mode()
         if gm != "off":
             self.stats.pallas_gather_calls += 1
@@ -978,10 +1158,20 @@ class Executor:
             fits = t * ht.LOAD_NUM // ht.LOAD_DEN >= build.capacity
         self.stats.hash_join_calls += 1
         if fits:
-            tkey, src, dup, esc = ht.build_join_table(
-                build, node.right_keys, slots)
-            dup_h, esc_h = self.fetch_ints(node, f"hashbuild{slots}",
-                                           dup, esc)
+            # chunk mode: build and validate once per pinned build, probe
+            # every chunk sync-free (the dense LUT's caching policy)
+            ckey = (id(node), "hash", slots)
+            rec = self._chunk_lut_cache.get(ckey) if self.chunk_mode \
+                else None
+            if rec is None:
+                tkey, src, dup, esc = ht.build_join_table(
+                    build, node.right_keys, slots)
+                dup_h, esc_h = self.fetch_ints(node, f"hashbuild{slots}",
+                                               dup, esc)
+                rec = (tkey, src, dup_h, esc_h)
+                if self.chunk_mode:
+                    self._chunk_lut_cache[ckey] = rec
+            tkey, src, dup_h, esc_h = rec
             if esc_h == 0:
                 if dup_h > 0 and not allow_dup:
                     return "dup", None
@@ -989,7 +1179,7 @@ class Executor:
                     probe, build, tkey, src, node.left_keys,
                     node.right_keys, node.kind, self.gather_mode())
                 self._note_strategy("JoinNode", "hybrid-hash", "join")
-                if node.kind == "inner":
+                if node.kind == "inner" and not self.chunk_mode:
                     live = self.fetch_ints(node, "hashjoinlive",
                                            out.live.sum())[0]
                     out = self.maybe_compact(out, live=live)
@@ -1045,6 +1235,34 @@ class Executor:
             valids=[np.concatenate([o[j] for o in outs_v])
                     for j in range(ncols)], device=dev)
 
+    def _chunk_lut_join(self, node: L.JoinNode, probe: Batch,
+                        build: Batch, domain: int) -> Optional[Batch]:
+        """Chunk-mode unique-build join: the dense LUT is built and
+        dup/oob-validated once per pinned build side (one fetch), cached
+        for the chunked loop, and every later probe chunk joins sync-free
+        at probe capacity (no compaction). None = validation failed (the
+        caller takes the general fallbacks) or the shape does not apply."""
+        if len(probe.columns) > 63 or len(build.columns) > 63:
+            return None
+        key = (id(node), domain)
+        rec = self._chunk_lut_cache.get(key)
+        if rec is None:
+            from ..ops.join import dense_build_lut
+            lut, dup, oob = dense_build_lut(build, node.right_keys, domain)
+            dup, oob = (int(v) for v in torch.stack(
+                (dup.to(torch.int64), oob)).tolist())
+            rec = lut if dup == 0 and oob == 0 else False
+            self._chunk_lut_cache[key] = rec
+            if rec is False:
+                self.stats.join_domain_fallbacks += oob > 0
+        if rec is False:
+            return None
+        from ..ops.join import dense_join_with_lut
+        self.stats.chunk_lut_joins += 1
+        return dense_join_with_lut(probe, build, rec, node.left_keys,
+                                   node.right_keys, node.kind,
+                                   self.gather_mode())
+
     def apply_dynamic_filter(self, node: L.JoinNode, probe: Batch,
                              build: Batch) -> Batch:
         """Dynamic filtering: the build side's key range prunes probe rows
@@ -1064,7 +1282,9 @@ class Executor:
             pk = probe.columns[pk_i]
             keep = pk.valid & (pk.data >= kmin) & (pk.data <= kmax)
             probe = probe.with_live(probe.live & keep)
-        if probe.capacity >= (1 << 16):
+        if probe.capacity >= (1 << 16) and not self.chunk_mode:
+            # the chunked loop skips the row-count sync (the range mask
+            # above still applies; only compaction needs the count)
             live = self.fetch_ints(node, "dflive", probe.live.sum())[0]
             new_cap = bucket_capacity(live)
             if new_cap * 4 <= probe.capacity:
@@ -1088,8 +1308,9 @@ class Executor:
         joins use, and column order is restored to ladder order at the
         end. The fact side is authoritative (never flipped to build).
 
-        The reference's chunk-mode caches come with the chunked driver,
-        which is not ported: this is its path with chunk mode off."""
+        Chunk mode caches the validated dimension tables per node, so each
+        streamed fact chunk probes sync-free like the pairwise dense-LUT
+        path."""
         from ..ops import hashtable as ht
         if self.multiway_mode() == "off":
             self._note_multijoin_degrade("kernel_off", len(node.dims))
@@ -1097,9 +1318,86 @@ class Executor:
         fact = self.run(node.fact)
         dims = [self.run(d) for d in node.dims]
         k = len(dims)
+        ckey = (id(node), "multiway")
+        rec = self._chunk_lut_cache.get(ckey) if self.chunk_mode else None
+        if rec is None:
+            rec = self._multijoin_tables(node, fact, dims)
+            if self.chunk_mode:
+                self._chunk_lut_cache[ckey] = rec
+        fused, degraded_dims = rec
+        if len(fused) < 2:
+            # nothing left worth a fused pass: run the whole ladder over
+            # the already-materialised children
+            return self._run_multijoin_ladder(node, fact, dims)
+        found, _miss = ht.multiway_probe(
+            fact, torch.stack([b[1] for b in fused]),
+            torch.stack([b[2] for b in fused]),
+            tuple(node.fact_keys[b[0]] for b in fused))
+        self.stats.multijoin_fused_probes += 1
+        self.strategy_decisions["MultiJoinNode"] = \
+            f"multiway[k={len(fused)}]"
+        # payload assembly: fused dims first (their found rows align to
+        # fact rows), then each degraded dim through the pairwise path;
+        # unique-build hops are commutative live-mask ANDs and dup
+        # expansions keep their relative order, so the row sequence
+        # matches the ladder's
+        from ..ops.join import _combined_key, _gather_build_payload
+        gm = self.gather_mode()
+        acc = fact
+        acc_out = list(node.fact.output)
+        col_ranges: Dict[int, tuple] = {}
+        pos = len(fact.columns)
+        for i, (d, _tk, _src) in enumerate(fused):
+            matched = found[i] >= 0
+            pk, _pk_valid = _combined_key(fact, node.fact_keys[d])
+            src_c = found[i].clamp(0, dims[d].capacity - 1)
+            acc = _gather_build_payload(acc, dims[d], src_c, matched, pk,
+                                        node.dim_keys[d], "inner", gm)
+            col_ranges[d] = (pos, len(dims[d].columns))
+            acc_out.extend(node.dims[d].output)
+            pos += len(dims[d].columns)
+        for d in degraded_dims:
+            # chunk mode keeps the synthesized hop alive across chunks so
+            # its id stays stable: the pairwise LUT/hash caches key on
+            # id(node), and a per-chunk temporary could both miss every
+            # chunk and alias a dead node's reused id
+            jkey = (id(node), "mjpair", d)
+            j = self._chunk_lut_cache.get(jkey) if self.chunk_mode \
+                else None
+            if j is None:
+                j = L.JoinNode(
+                    "inner", node.fact, node.dims[d], node.fact_keys[d],
+                    node.dim_keys[d], None, True,
+                    tuple(acc_out) + tuple(node.dims[d].output),
+                    distribution=node.distribution,
+                    build_key_domain=node.dim_domains[d])
+                if self.chunk_mode:
+                    self._chunk_lut_cache[jkey] = j
+            # the accumulated batch differs from what the structure key
+            # describes (fused columns ride along): no cached decisions
+            with self.no_decisions():
+                acc = self._run_join_inner(j, acc, dims[d])
+            col_ranges[d] = (pos, len(dims[d].columns))
+            acc_out.extend(node.dims[d].output)
+            pos += len(dims[d].columns)
+        perm = list(range(len(fact.columns)))
+        for d in range(k):
+            start, ln = col_ranges[d]
+            perm.extend(range(start, start + ln))
+        if perm != list(range(len(acc.columns))):
+            acc = Batch(tuple(acc.columns[i] for i in perm), acc.live)
+        if not self.chunk_mode and not degraded_dims:
+            acc = self.maybe_compact(acc, node=node)
+        return acc
+
+    def _multijoin_tables(self, node: L.MultiJoinNode, fact: Batch,
+                          dims: list):
+        """Size, build and validate the star's dimension tables (K3);
+        returns (fused [(d, tkey, src)], degraded dims in order)."""
+        from ..ops import hashtable as ht
         degraded: Dict[int, str] = {}
         sized = []
-        for d in range(k):
+        for d in range(len(dims)):
             ok_dtype = all(
                 _is_integer(side.columns[ki].data.dtype)
                 for side, keys in ((fact, node.fact_keys[d]),
@@ -1148,70 +1446,23 @@ class Executor:
                     fused.append(b)
         for _d, reason in sorted(degraded.items()):
             self._note_multijoin_degrade(reason)
-        degraded_dims = sorted(degraded)
-        if len(fused) < 2:
-            # nothing left worth a fused pass: run the whole ladder over
-            # the already-materialised children
-            return self._run_multijoin_ladder(node, fact, dims)
-        found, _miss = ht.multiway_probe(
-            fact, torch.stack([b[1] for b in fused]),
-            torch.stack([b[2] for b in fused]),
-            tuple(node.fact_keys[b[0]] for b in fused))
-        self.stats.multijoin_fused_probes += 1
-        self.strategy_decisions["MultiJoinNode"] = \
-            f"multiway[k={len(fused)}]"
-        # payload assembly: fused dims first (their found rows align to
-        # fact rows), then each degraded dim through the pairwise path;
-        # unique-build hops are commutative live-mask ANDs and dup
-        # expansions keep their relative order, so the row sequence
-        # matches the ladder's
-        from ..ops.join import _combined_key, _gather_build_payload
-        gm = self.gather_mode()
-        acc = fact
-        acc_out = list(node.fact.output)
-        col_ranges: Dict[int, tuple] = {}
-        pos = len(fact.columns)
-        for i, (d, _tk, _src) in enumerate(fused):
-            matched = found[i] >= 0
-            pk, _pk_valid = _combined_key(fact, node.fact_keys[d])
-            src_c = found[i].clamp(0, dims[d].capacity - 1)
-            acc = _gather_build_payload(acc, dims[d], src_c, matched, pk,
-                                        node.dim_keys[d], "inner", gm)
-            col_ranges[d] = (pos, len(dims[d].columns))
-            acc_out.extend(node.dims[d].output)
-            pos += len(dims[d].columns)
-        for d in degraded_dims:
-            j = L.JoinNode(
-                "inner", node.fact, node.dims[d], node.fact_keys[d],
-                node.dim_keys[d], None, True,
-                tuple(acc_out) + tuple(node.dims[d].output),
-                distribution=node.distribution,
-                build_key_domain=node.dim_domains[d])
-            # the accumulated batch differs from what the structure key
-            # describes (fused columns ride along): no cached decisions
-            with self.no_decisions():
-                acc = self._run_join_inner(j, acc, dims[d])
-            col_ranges[d] = (pos, len(dims[d].columns))
-            acc_out.extend(node.dims[d].output)
-            pos += len(dims[d].columns)
-        perm = list(range(len(fact.columns)))
-        for d in range(k):
-            start, ln = col_ranges[d]
-            perm.extend(range(start, start + ln))
-        if perm != list(range(len(acc.columns))):
-            acc = Batch(tuple(acc.columns[i] for i in perm), acc.live)
-        if not degraded_dims:
-            acc = self.maybe_compact(acc, node=node)
-        return acc
+        return fused, sorted(degraded)
 
     def _run_multijoin_ladder(self, node: L.MultiJoinNode,
                               fact: Optional[Batch] = None,
                               dims: Optional[list] = None) -> Batch:
         """Full degrade: execute the exact pairwise ladder the star
         fused. Already-run children are substituted in so they are not
-        recomputed."""
+        recomputed; chunk mode caches the ladder per node so the pairwise
+        LUT/hash caches stay keyed on stable node ids."""
         self.strategy_decisions["MultiJoinNode"] = "ladder"
-        ladder = L.multijoin_to_ladder(node)
+        lkey = (id(node), "mjladder")
+        ladder = self._chunk_lut_cache.get(lkey) if self.chunk_mode \
+            else None
+        if ladder is None:
+            ladder = L.multijoin_to_ladder(node)
+            if self.chunk_mode:
+                self._chunk_lut_cache[lkey] = ladder
         temp = []
         try:
             if fact is not None:

@@ -17,9 +17,16 @@ probes them in one pass) resolve ``auto`` to on, and ``false`` takes each
 call site's non-kernel path; ``mxu_agg`` (K5) takes direct aggregates of
 at least 12 groups under ``auto``, every supported one under ``true``,
 none under ``false``. So on the CPU the port's plans under ``auto`` are
-the reference's TPU plans, not its CPU plans. ``spill_chunk_rows`` and
-``stream_build_min_kb`` must stay 0, ``distributed`` false, and DDL/DML
-are not ported: each raises NotImplementedError naming its ROADMAP item.
+the reference's TPU plans, not its CPU plans.
+
+``SET SESSION spill_chunk_rows = N`` runs the chunked driver
+(exec/chunked.py): the largest scan streams in N-row chunks, from the
+fact-column cache on the device, with the dimension LUTs pinned; a
+query's second run adapts its packed joins to windowed probes (K2) from
+the first run's measured key spans. ``stream_build_min_kb`` streams
+Scan/Filter(Scan) build sides above that size through the dense LUT.
+``distributed`` must stay false, and DDL/DML are not ported: each raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -276,11 +283,13 @@ class Session:
         ex.enable_zone_map_pruning = \
             self.properties["enable_zone_map_pruning"]
         ex.zone_map_rows = max(1, self.properties["zone_map_rows"])
+        ex.spill_partitions = self.properties["spill_partitions"]
+        ex.prefetch_depth = max(0, self.properties["prefetch_depth"])
+        ex.prewarm_chunks = self.properties["prewarm_chunks"]
         max_s = self.properties["query_max_run_time_s"]
         ex.deadline = (t0 + max_s) if max_s else None
         kb = self.properties["stream_build_min_kb"]
         ex.stream_build_bytes = (kb << 10) if kb else None
-        ex.spill_chunk_rows = self.properties["spill_chunk_rows"] or None
         ex.enable_pallas_gather = self.properties["enable_pallas_gather"]
         ex.enable_pallas_hash = self.properties["enable_pallas_hash"]
         ex.hash_table_slots = self.properties["hash_table_slots"]
@@ -405,6 +414,9 @@ class Session:
             self.set_distributed(self.properties["distributed"])
         elif stmt.name == "query_max_memory_mb":
             self.executor.pool.set_limit(self.properties[stmt.name] << 20)
+        elif stmt.name == "spill_chunk_rows":
+            self.executor.spill_chunk_rows = \
+                self.properties[stmt.name] or None
         elif stmt.name == "enable_tracing":
             from ..utils.tracing import NOOP, Tracer
             self.tracer = Tracer() if self.properties[stmt.name] else NOOP

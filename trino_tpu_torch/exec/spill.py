@@ -1,13 +1,21 @@
-"""Host-side radix partitioning and partition-local equi-join.
+"""Host-side radix partitioning, partition-local equi-join, and the
+chunked driver's spillable partial-aggregate state.
 
-Port copy of the numpy helpers the hash paths need from
-``trino_tpu/exec/spill.py`` (``_partition_ids``, ``_host_equi_join`` and
-what they call) and ``trino_tpu/server/tasks.py``
-(``partition_assignment``), unchanged. The spill tier itself (host/disk
-spilling under memory pressure) is not ported (ROADMAP).
+Port copy of what the port needs from ``trino_tpu/exec/spill.py``:
+the numpy helpers of the hash paths (``_partition_ids``,
+``_host_equi_join`` and what they call, with ``partition_assignment`` from
+``trino_tpu/server/tasks.py``), unchanged, and ``PartialState`` with
+``merge_partial_pages`` (device partials held as revocable reservations,
+moved to host pages when the pool asks, merged partition-wise when the
+concatenation would not fit). The rest of the spill tier (host/disk
+spilling of joins, aggregations and sorts under memory pressure) is not
+ported (ROADMAP).
 """
 
 from __future__ import annotations
+
+import threading
+from typing import List
 
 import numpy as np
 
@@ -160,3 +168,163 @@ def _host_equi_join(parrs, pvalids, barrs, bvalids, pkeys, bkeys,
         vv = v[brow] if len(v) else np.zeros(len(prow), np.bool_)
         valids.append(np.asarray(vv & has_match, np.bool_))
     return arrays, valids
+
+
+def _host_bytes(arrays, valids) -> int:
+    return int(sum(a.nbytes for a in arrays) +
+               sum(v.nbytes for v in valids))
+
+
+def _pick_partitions(executor, total_bytes: int) -> int:
+    """Enough partitions that one partition's working set fits a third of
+    the pool's headroom, clamped to [2, 64] with the configured default as
+    the floor."""
+    base = max(2, executor.spill_partitions)
+    avail = max(1 << 20, executor.pool.available())
+    need = -(-total_bytes // max(1, avail // 3))      # ceil div
+    p = base
+    while p < need and p < 64:
+        p *= 2
+    return p
+
+
+# --------------------------------------------------------------------------
+# spillable partial-aggregation state (exec/chunked.py's accumulator)
+# --------------------------------------------------------------------------
+
+class PartialState:
+    """The chunked driver's partial-aggregate accumulator, made spillable
+    (SpillableHashAggregationBuilder's role): device partials are
+    revocable reservations; when the pool asks they move to host pages,
+    and the merge re-aggregates either resident or partition-wise."""
+
+    def __init__(self, executor, tag: str = "agg-partials"):
+        self.executor = executor
+        self.tag = tag
+        self.device: List[object] = []
+        self._device_bytes: List[int] = []
+        self.host: List[tuple] = []          # (arrays, valids)
+        # revocation may fire from another thread while the chunk loop
+        # appends — the lists move together
+        self._lock = threading.Lock()
+        self._handle = executor.pool.register_revocation(
+            self._revoke, tag=tag)
+
+    def add(self, batch) -> None:
+        from .memory import batch_bytes
+        b = batch_bytes(batch)
+        self.executor.pool.reserve_revocable(b, tag=self.tag)
+        with self._lock:
+            self.device.append(batch)
+            self._device_bytes.append(b)
+
+    def _revoke(self, target_bytes: int) -> int:
+        """Revocation callback: move device partials to host until the
+        target is met (oldest first — they are coldest)."""
+        from ..batch import batch_to_numpy
+        freed = 0
+        while freed < target_bytes:
+            with self._lock:
+                if not self.device:
+                    break
+                batch = self.device.pop(0)
+                b = self._device_bytes.pop(0)
+            self.host.append(batch_to_numpy(batch))
+            self.executor.pool.free_revocable(b, tag=self.tag)
+            freed += b
+        if freed:
+            self.executor.stats.spilled_aggregations += 1
+        return freed
+
+    def spill_all(self) -> int:
+        return self._revoke(1 << 62)
+
+    def close(self) -> None:
+        # free whatever is still resident; drop the callback
+        while True:
+            with self._lock:
+                if not self.device:
+                    break
+                self.device.pop()
+                b = self._device_bytes.pop()
+            self.executor.pool.free_revocable(b, tag=self.tag)
+        self.executor.pool.unregister_revocation(self._handle)
+
+    def merge(self, node):
+        """FINAL step over mixed device/host partials: all-resident
+        partials merge on the device in one concat; once anything
+        spilled, everything merges through host pages."""
+        from ..batch import batch_to_numpy
+        from .chunked import merge_partials
+        # drop the callback first so revocation cannot race the merge
+        self.executor.pool.unregister_revocation(self._handle)
+        with self._lock:
+            device = list(self.device)
+            host = list(self.host)
+        try:
+            if not host:
+                return merge_partials(self.executor, node, device)
+            pages = host + [batch_to_numpy(b) for b in device]
+            return merge_partial_pages(self.executor, node, pages)
+        finally:
+            self.close()
+
+
+def merge_partial_pages(executor, node, pages: List[tuple]):
+    """Merge host partial-state pages. Fits the pool: one device merge.
+    Otherwise radix-partition the concatenated states by group key and
+    merge each partition alone (a group's states share a partition, so
+    the merge is exact)."""
+    from ..batch import batch_from_numpy, batch_to_numpy, bucket_capacity
+    from ..ops.aggregate import AggSpec, global_aggregate
+    from .chunked import MERGE_FUNC
+    from .memory import batch_bytes
+    dev = executor.device
+    nonempty = [p for p in pages if p[0] and len(p[0][0])]
+    if not pages:
+        from .chunked import merge_partials
+        return merge_partials(executor, node, [])   # raises like before
+    # all-empty partials still carry dtypes: merge one zero-row page so a
+    # global aggregate emits its identity row as the resident merge does
+    pages = nonempty if nonempty else pages[:1]
+    ncols = len(pages[0][0])
+    arrs = [np.concatenate([p[0][j] for p in pages]) for j in range(ncols)]
+    vals = [np.concatenate([p[1][j] for p in pages]) for j in range(ncols)]
+    n_keys = len(node.group_keys)
+    merge_aggs = tuple(AggSpec(MERGE_FUNC[a.func], n_keys + j)
+                       for j, a in enumerate(node.aggs))
+    if node.strategy == "global" or not n_keys:
+        merged = batch_from_numpy(arrs, valids=vals, device=dev)
+        return global_aggregate(merged, merge_aggs)
+    total = _host_bytes(arrs, vals)
+    # 3x: input + sort scratch + output headroom for the device merge
+    if executor.pool.available() >= 3 * total:
+        merged = batch_from_numpy(arrs, valids=vals, device=dev)
+        capacity = max(node.out_capacity, bucket_capacity(len(arrs[0])))
+        return executor.merge_group_aggregate(node, merged, merge_aggs,
+                                              capacity)
+    count = _pick_partitions(executor, total)
+    part = _partition_ids(arrs, vals, tuple(range(n_keys)), count)
+    outs, outs_v = [], []
+    for p in range(count):
+        m = part == p
+        if not m.any():
+            continue
+        pb = batch_from_numpy([a[m] for a in arrs],
+                              valids=[v[m] for v in vals], device=dev)
+        executor.pool.reserve(batch_bytes(pb))
+        try:
+            out = executor.merge_group_aggregate(
+                node, pb, merge_aggs, bucket_capacity(int(m.sum())))
+            oa, ov = batch_to_numpy(out)
+        finally:
+            executor.pool.free(batch_bytes(pb))
+        if oa and len(oa[0]):
+            outs.append(oa)
+            outs_v.append(ov)
+    executor.stats.spilled_aggregations += 1
+    ncols2 = len(outs[0])
+    return batch_from_numpy(
+        [np.concatenate([p[j] for p in outs]) for j in range(ncols2)],
+        valids=[np.concatenate([p[j] for p in outs_v])
+                for j in range(ncols2)], device=dev)

@@ -31,7 +31,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("gather", "hash_insert", "multiprobe", "direct_agg")
+KERNEL_SOURCES = ("gather", "window_gather", "hash_insert", "multiprobe",
+                  "direct_agg")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

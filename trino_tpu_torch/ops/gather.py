@@ -1,8 +1,9 @@
-"""K1: fused multi-table gather — the dense-join probe kernel.
+"""K1 and K2: the dense-join probe kernels.
 
-Counterpart of ``trino_tpu/ops/pallas_gather.py`` (TPU kernel
-``_scan_kernel`` launched by ``_scan_gather_planes``, public
-``gather_columns``). Contract, bit-exact vs a plain ``take``:
+Counterpart of ``trino_tpu/ops/pallas_gather.py``.
+
+K1 (TPU kernel ``_scan_kernel`` launched by ``_scan_gather_planes``,
+public ``gather_columns``). Contract, bit-exact vs a plain ``take``:
 
     out[t][i] = tables[t][idx[i]]   if 0 <= idx[i] < W
               = fills[t]            otherwise
@@ -12,7 +13,15 @@ The kernel (``csrc/gather.cu``) is one thread per output index over native
 do not carry over (a GPU gather costs the same at any W), so every call
 site takes the kernel whenever its mode is on and the dtype gate passes.
 
-The wrapper decides by the tensors' device: CPU tensors get the plain
+K2 (TPU kernel ``_window_kernel`` launched by ``_window_gather_planes``,
+public ``gather_word_windowed``): one word of a value-packed LUT per
+near-sorted probe index, resolved against a window of 2 * WIN entries
+chosen per 1024-index tile; indices outside their tile's window come back
+as 0 and are counted as escapes (``csrc/window_gather.cu``). The
+"planes" are the LUT in its own word dtype, padded by the TPU's rule, so
+window choices and escape totals equal the TPU's.
+
+Each wrapper decides by the tensors' device: CPU tensors get the plain
 torch version (the CPU tests' path); CUDA tensors launch the kernel or
 raise — there is no fallback.
 """
@@ -26,6 +35,12 @@ import numpy as np
 import torch
 
 MAX_TABLES = 16             # tables per launch (csrc/gather.cu MAX_TABLES)
+TILE = 1024                 # K2: probe indices per tile (one window each)
+WIN = 8192                  # K2: LUT entries per window block
+# K2's indices are 32-bit in the kernel
+MAX_WINDOWED_ELEMS = (1 << 31) - 1
+_WORD_DTYPES = {"int8": torch.int8, "int16": torch.int16,
+                "int32": torch.int32, "int64": torch.int64}
 
 _LANE_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int16,
                 torch.int32, torch.int64, torch.float32, torch.float64)
@@ -134,3 +149,121 @@ def _launch(tables, idx, fills) -> List[torch.Tensor]:
         check(status, "K1 gather launch")
         gather_columns.launches += 1
     return outs
+
+
+# --------------------------------------------------------------------------
+# K2: windowed single-word gather for near-sorted probe keys
+# --------------------------------------------------------------------------
+
+def _pad_to(x: torch.Tensor, mult: int, value) -> torch.Tensor:
+    pad = (-x.shape[0]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, torch.full((pad,), value, dtype=x.dtype,
+                                    device=x.device)])
+
+
+def prepare_word_planes(lut: torch.Tensor) -> torch.Tensor:
+    """One-time prep of a value-packed LUT for gather_word_windowed: the
+    LUT in its own word dtype, padded with 0 to whole windows and to at
+    least two (the TPU's rule: window choices depend on the padded
+    length). The chunked driver calls this once per pinned LUT."""
+    planes = _pad_to(lut, WIN, 0)
+    if planes.shape[0] < 2 * WIN:
+        planes = _pad_to(planes, 2 * WIN, 0)
+    return planes
+
+
+def _window_index(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The TPU wrapper's index prep: anything outside [0, W) of the
+    PADDED LUT becomes -1 before the int32 narrowing, then -1 pads to
+    whole tiles aligned at index 0."""
+    w = planes.shape[0]
+    ok = (idx >= 0) & (idx < w)
+    idx32 = torch.where(ok, idx, -1).to(torch.int32)
+    return _pad_to(idx32, TILE, -1)
+
+
+def window_base_blocks(idx32: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Per-tile window choice: the tile's least in-range index rounded
+    down to a WIN block, clipped to n_blocks - 2 (the window is that
+    block and the next)."""
+    tiles = idx32.view(-1, TILE)
+    lo = torch.where(tiles >= 0, tiles, 2147483647).amin(dim=1)
+    return (lo // WIN).clamp(0, max(n_blocks - 2, 0)).to(torch.int32)
+
+
+def _check_windowed(planes: torch.Tensor, idx: torch.Tensor,
+                    word_dtype: str) -> None:
+    if _WORD_DTYPES.get(str(word_dtype)) != planes.dtype or \
+            planes.dim() != 1:
+        raise ValueError(f"gather_word_windowed: planes {planes.dtype} are "
+                         f"not a 1-D {word_dtype} LUT")
+    n_planes = planes.shape[0]
+    if n_planes % WIN or n_planes < 2 * WIN or \
+            n_planes > MAX_WINDOWED_ELEMS:
+        raise ValueError("gather_word_windowed: planes not prepared by "
+                         "prepare_word_planes")
+    if idx.dim() != 1 or idx.dtype.is_floating_point or \
+            idx.dtype == torch.bool or idx.device != planes.device:
+        raise ValueError("gather_word_windowed: idx must be a 1-D integer "
+                         "tensor on the planes' device")
+
+
+def gather_word_windowed_plain(planes: torch.Tensor, idx: torch.Tensor,
+                               word_dtype: str):
+    """The plain torch version of K2 (CPU tests, and the on-card
+    comparison): per-tile amin over a [tiles, 1024] view."""
+    _check_windowed(planes, idx, word_dtype)
+    n = idx.shape[0]
+    idx32 = _window_index(planes, idx)
+    base = window_base_blocks(idx32, planes.shape[0] // WIN)
+    tiles = idx32.view(-1, TILE).to(torch.int64)
+    rel = tiles - base.to(torch.int64)[:, None] * WIN
+    in_range = tiles >= 0
+    in_win = in_range & (rel >= 0) & (rel < 2 * WIN)
+    escaped = (in_range & ~in_win).sum(dtype=torch.int64)
+    word = torch.where(in_win, planes[torch.where(in_win, tiles, 0)]
+                       .to(torch.int64), 0)
+    return word.flatten()[:n], escaped
+
+
+def gather_word_windowed(planes: torch.Tensor, idx: torch.Tensor,
+                         word_dtype: str):
+    """Windowed single-word gather off prepared planes
+    (prepare_word_planes): returns (word int64 [n], escaped int64
+    scalar). `escaped` counts in-range indices outside their tile's
+    window; those rows come back as 0 (the packed-LUT miss word) and the
+    caller must rerun through its escape machinery when it is > 0."""
+    _check_windowed(planes, idx, word_dtype)
+    dev = idx.device
+    if dev.type == "cpu":
+        return gather_word_windowed_plain(planes, idx, word_dtype)
+    if dev.type != "cuda":
+        raise RuntimeError(f"gather_word_windowed: no kernel for {dev}")
+    return _launch_window(planes, idx)
+
+
+gather_word_windowed.launches = 0
+
+
+def _launch_window(planes: torch.Tensor, idx: torch.Tensor):
+    from .cuda_build import check, library
+    fn = library("window_gather").k2_window_gather
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    # the kernel does _window_index's prep itself, from int64 indices
+    idx = idx.to(torch.int64).contiguous()
+    n = idx.shape[0]
+    planes = planes.contiguous()
+    out = torch.empty(n, dtype=torch.int64, device=idx.device)
+    esc = torch.empty(1, dtype=torch.int64, device=idx.device)
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    status = fn(idx.data_ptr(), n, planes.data_ptr(), planes.shape[0],
+                planes.element_size(), out.data_ptr(), esc.data_ptr(),
+                stream)
+    check(status, "K2 window gather launch")
+    gather_word_windowed.launches += 1
+    return out, esc[0]

@@ -430,16 +430,202 @@ def join_expand(probe: Batch, build: Batch, probe_keys: tuple,
 
 
 def compact_live(batch: Batch, cap: int):
-    """Compaction to a fixed capacity. Returns (batch, overflow) where
-    overflow counts live rows beyond `cap`."""
+    """Compaction to a fixed capacity, sync-free: a stable sort of
+    deadness puts the live rows first in order, and the first `cap`
+    positions are kept (the reference's sized `nonzero`). Returns (batch,
+    overflow) where overflow counts live rows beyond `cap`."""
     n = batch.capacity
-    idx = torch.nonzero(batch.live).flatten()[:cap]
-    pad = torch.full((cap - idx.shape[0],), n, dtype=torch.int64,
-                     device=batch.device)
-    idx = torch.cat([idx, pad])
-    ok = idx < n
-    idxc = idx.clamp(0, n - 1)
-    cols = tuple(Column(c.data[idxc], c.valid[idxc] & ok)
+    idx = torch.sort((~batch.live).to(torch.uint8),
+                     stable=True).indices[:cap]
+    ok = batch.live[idx]
+    if idx.shape[0] < cap:         # cap above the capacity: pad dead rows
+        pad = cap - idx.shape[0]
+        idx = torch.cat([idx, torch.full((pad,), n - 1, dtype=idx.dtype,
+                                          device=idx.device)])
+        ok = torch.cat([ok, torch.zeros(pad, dtype=torch.bool,
+                                        device=ok.device)])
+    cols = tuple(Column(c.data[idx], c.valid[idx] & ok)
                  for c in batch.columns)
     overflow = batch.live.sum(dtype=torch.int64) - ok.sum(dtype=torch.int64)
     return Batch(cols, ok), overflow
+
+
+# --------------------------------------------------------------------------
+# chunked-driver joins: LUTs built once per pinned build, probed sync-free
+# --------------------------------------------------------------------------
+
+def dense_build_lut(build: Batch, build_keys: tuple, domain: int):
+    """Build the dense key->row LUT once for a pinned build side (the
+    chunked driver reuses it for every probe chunk). Returns (lut,
+    dup_count, oob_count); the caller validates dup/oob with one fetch,
+    after which probes are sync-free."""
+    bk, bk_valid = _combined_key(build, build_keys)
+    b_ok = build.live & bk_valid
+    oob = (b_ok & ((bk < 0) | (bk >= domain))).sum(dtype=torch.int64)
+    lut, dup = _dense_row_lut(bk, b_ok, domain)
+    return lut, dup, oob
+
+
+def dense_join_with_lut(probe: Batch, build: Batch, lut: torch.Tensor,
+                        probe_keys: tuple, build_keys: tuple, kind: str,
+                        gather_mode: str = "off") -> Batch:
+    """Probe a prebuilt, already validated dense LUT: no duplicate or
+    out-of-domain checks, no host syncs, no compaction — the chunked
+    driver's steady-state join at probe capacity."""
+    domain = lut.shape[0] - 1
+    pk, pk_valid = _combined_key(probe, probe_keys)
+    p_idx = torch.where(pk_valid, pk.clamp(0, domain - 1), domain)
+    src = _lut_probe(lut, p_idx, gather_mode)
+    matched = (src >= 0) & pk_valid & probe.live & \
+        (pk >= 0) & (pk < domain)
+    if kind == "semi":
+        return probe.with_live(probe.live & matched)
+    if kind == "anti":
+        return probe.with_live(probe.live & ~matched)
+    src_c = src.clamp(0, build.capacity - 1)
+    return _gather_build_payload(probe, build, src_c, matched, pk,
+                                 build_keys, kind, gather_mode)
+
+
+def build_lut_chunk(lut: torch.Tensor, chunk: Batch, key_idx: int,
+                    domain: int, start):
+    """Scatter one build chunk's GLOBAL row ids into a persistent dense LUT
+    (the streaming-build join): the LUT is domain-sized whatever the build
+    row count, so a build side streams through one chunk of device memory.
+    Updates `lut` in place (the reference returns a new array; the caller
+    owns the LUT). Returns (lut, in-domain valid rows, out-of-domain valid
+    rows) so the caller validates the uniqueness proof without a second
+    pass: duplicates show as scattered rows > occupied slots."""
+    key = chunk.columns[key_idx]
+    kd = key.data.to(torch.int64)
+    ok = chunk.live & key.valid
+    in_dom = ok & (kd >= 0) & (kd < domain)
+    idx = torch.where(ok, kd.clamp(0, domain - 1), domain)
+    rows = (torch.arange(chunk.capacity, dtype=torch.int64,
+                         device=lut.device) + start).to(torch.int32)
+    lut.scatter_reduce_(0, idx, rows, "amax")
+    return (lut, in_dom.sum(dtype=torch.int64),
+            (ok & ~in_dom).sum(dtype=torch.int64))
+
+
+def _as_dtype(dt) -> torch.dtype:
+    """A dtype given as torch dtype or numpy-style name ('int64')."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    from ..batch import torch_dtype
+    return torch_dtype(str(dt).replace("torch.", ""))
+
+
+def dense_build_packed_lut(build: Batch, build_keys: tuple, domain: int,
+                           meta: tuple, word_dtype: str):
+    """Value-packed dense LUT: the build row's payload values pack into the
+    LUT word itself (bit 0 = presence, then per payload column `width`
+    value bits offset by `lo` plus one validity bit), so a probe is one
+    gather in all instead of a row-id gather plus one per payload column.
+
+    meta: ((col_idx, lo, width, val_off, valid_off), ...).
+    Returns (lut, expected_rows, oob_rows, occupied_slots); duplicates show
+    as occupied < expected, validated by the caller in one fetch."""
+    bk, bk_valid = _combined_key(build, build_keys)
+    ok = build.live & bk_valid
+    in_dom = ok & (bk >= 0) & (bk < domain)
+    word = torch.ones(build.capacity, dtype=torch.int64,
+                      device=build.device)                 # presence bit
+    for col_idx, lo, width, val_off, valid_off in meta:
+        col = build.columns[col_idx]
+        v = (col.data.to(torch.int64) - lo) & ((1 << width) - 1)
+        word = word | (v << val_off) | \
+            (col.valid.to(torch.int64) << valid_off)
+    idx = torch.where(in_dom, bk.clamp(0, domain - 1), domain)
+    wd = _as_dtype(word_dtype)
+    lut = torch.zeros(domain + 1, dtype=wd, device=build.device)
+    lut.scatter_reduce_(0, idx, word.to(wd), "amax")
+    occupied = (lut[:domain] != 0).sum(dtype=torch.int64)
+    return (lut, in_dom.sum(dtype=torch.int64),
+            (ok & ~in_dom).sum(dtype=torch.int64), occupied)
+
+
+def _packed_output(probe: Batch, word: torch.Tensor, matched: torch.Tensor,
+                   pk: torch.Tensor, meta: tuple, bkey: int,
+                   out_dtypes: tuple, kind: str) -> Batch:
+    """Decode a packed-LUT probe: build columns in the build's output
+    order, the key column from the probe key (equal where matched)."""
+    if kind == "semi":
+        return probe.with_live(probe.live & matched)
+    if kind == "anti":
+        return probe.with_live(probe.live & ~matched)
+    by_idx = {m[0]: m for m in meta}
+    build_cols = []
+    for i, dt in enumerate(out_dtypes):
+        dtype = _as_dtype(dt)
+        if i == bkey:
+            build_cols.append(Column(
+                data=torch.where(matched, pk, 0).to(dtype), valid=matched))
+            continue
+        _col_idx, lo, width, val_off, valid_off = by_idx[i]
+        raw = (word >> val_off) & ((1 << width) - 1)
+        build_cols.append(Column(
+            data=(raw + lo).to(dtype),
+            valid=(((word >> valid_off) & 1) != 0) & matched))
+    live = probe.live & matched if kind == "inner" else probe.live
+    return Batch(columns=probe.columns + tuple(build_cols), live=live)
+
+
+def dense_join_packed_windowed(probe: Batch, lut: torch.Tensor,
+                               probe_keys: tuple, meta: tuple, bkey: int,
+                               out_dtypes: tuple, kind: str, window: int,
+                               word_dtype: str = None,
+                               gather_mode: str = "off",
+                               lut_planes=None):
+    """dense_join_packed for near-sorted probe keys: the probe reads a
+    window of `window` LUT entries from the chunk's least key (a previous
+    run's measured span, padded), instead of the full table.
+
+    With the gather mode on and `lut_planes` prepared (once, by
+    ops/gather.prepare_word_planes), the probe is K2: each 1024-index tile
+    resolves against its own pair of WIN-entry blocks. K2's escapes land
+    in the same `escaped` counter.
+
+    Returns (batch, escaped, span): `escaped` counts in-domain keys
+    outside the window (they come back unmatched; the caller must check
+    it is zero after the chunk loop and rerun plain otherwise); `span` is
+    the chunk's true key extent, for re-recording. Sync-free: the window
+    offset stays a device scalar and the slice is an index gather."""
+    domain = lut.shape[0] - 1
+    window = min(window, domain + 1)
+    pk, pk_valid = _combined_key(probe, probe_keys)
+    ok_rows = pk_valid & probe.live & (pk >= 0) & (pk < domain)
+    lo = torch.where(ok_rows, pk, domain).min()
+    hi = torch.where(ok_rows, pk, -1).max()
+    span = (hi - lo + 1).clamp(min=0)
+    if gather_mode != "off" and lut_planes is not None and \
+            domain + 1 <= k1.MAX_WINDOWED_ELEMS:
+        word, escaped = k1.gather_word_windowed(
+            lut_planes, torch.where(ok_rows, pk, -1),
+            word_dtype or str(lut.dtype).replace("torch.", ""))
+        matched = (word != 0) & ok_rows
+    else:
+        w0 = lo.clamp(0, max(domain + 1 - window, 0))
+        local = pk - w0
+        in_win = (local >= 0) & (local < window)
+        word = lut[w0 + local.clamp(0, window - 1)].to(torch.int64)
+        matched = (word != 0) & ok_rows & in_win
+        escaped = (ok_rows & ~in_win).sum(dtype=torch.int64)
+    return (_packed_output(probe, word, matched, pk, meta, bkey, out_dtypes,
+                           kind), escaped, span)
+
+
+def dense_join_packed(probe: Batch, lut: torch.Tensor, probe_keys: tuple,
+                      meta: tuple, bkey: int, out_dtypes: tuple, kind: str,
+                      gather_mode: str = "off") -> Batch:
+    """Probe a value-packed LUT (dense_build_packed_lut): one gather (K1
+    when the mode is on) yields presence and every payload value.
+    Sync-free, no compaction — the fused chunk program's join step."""
+    domain = lut.shape[0] - 1
+    pk, pk_valid = _combined_key(probe, probe_keys)
+    p_idx = torch.where(pk_valid, pk.clamp(0, domain - 1), domain)
+    word = _lut_probe(lut, p_idx, gather_mode).to(torch.int64)
+    matched = (word != 0) & pk_valid & probe.live & \
+        (pk >= 0) & (pk < domain)
+    return _packed_output(probe, word, matched, pk, meta, bkey, out_dtypes,
+                          kind)
