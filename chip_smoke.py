@@ -9,9 +9,11 @@ Phases, each failing the run with a non-zero exit:
 1. card and toolchain: `nvidia-smi` name and power limit, torch/CUDA
    versions, and the build of every kernel from ``trino_tpu_torch/csrc``
    (one nvcc per source, all started together);
-2. K1 (gather) against its plain torch version on the card, bit-exact;
-   K2 (windowed gather) against its plain version, words and escape
-   totals bit-exact: q12's shape (1,048,576 near-sorted indices into an
+2. K1 (gather) against its plain torch version on the card, bit-exact
+   (five lane types in one launch, misses and wild indices, an 8M-entry
+   int32 LUT, and a star's 18 tables in one launch); K2
+   (windowed gather) against its plain version, words and escape totals
+   bit-exact: q12's shape (1,048,576 near-sorted indices into an
    8,388,609-entry int8 LUT, no escapes), random indices (escapes), each
    word dtype, misses and out-of-range indices, a LUT shorter than two
    windows;
@@ -42,17 +44,29 @@ Phases, each failing the run with a non-zero exit:
    chunks, K4 once per chunk), each beside its unchunked wall, and one
    join whose Scan build streams (``stream_build_min_kb = 1``); after the
    counts are read, one more steady run of chunked q12 and q3 each under
-   cProfile (where their host time goes);
+   cProfile (where their host time goes); after every path, one more
+   steady run of TPC-H q3 and TPC-DS q3 and q19 each under torch.profiler
+   (the card's busy time, its idle share of the wall, the top kernels);
 7. timing of each kernel on the inputs of its largest launch in the main
-   paths: kernel ms (CUDA events, median of 10), the plain version's ms,
-   one library call's ms where one computes the same function (for K2,
-   ``index_select`` of the same words, a gather without the window
-   semantics), and the least time the card could take (bound); beside
-   K5, the two arms of a direct aggregate (K5's `mxu` arm and the masked-sum `direct` arm) on
-   q12's batch, with its key redrawn over 2 to 16 groups, to place the
-   crossover that `mxu_agg = auto` models;
-8. a `kernels` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+   paths (K1 on each of its two paths: big tiles, the largest launch with
+   a table that L1 can hold, a star's payload gather; small tiles, the
+   largest whose tables are all past that, q3's dense-LUT probe; K1's
+   and K2's calls each after a 1 GiB read that flushes the 50 MB L2, so
+   that their times and their HBM bounds describe the same state):
+   `ms` (CUDA events around one wrapper call on an idle stream, median of
+   10), `device_ms` (the card's own time per call: for K3–K5
+   torch.profiler over 10 calls, every kernel, memset and memcpy of the
+   call summed, or CUDA events around 100 back-to-back calls where the
+   trace holds no device activity; for K1 and K2 CUDA events around each
+   call queued behind the flush, which hides the host's enqueue), the
+   plain version's ms, one library call's ms where one computes the same
+   function (for K2, ``index_select`` of the same words, a gather without
+   the window semantics), and the least time the card could take (bound);
+   beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
+   masked-sum `direct` arm) on q12's batch, with its key redrawn over 2 to
+   16 groups, to place the crossover that `mxu_agg = auto` models;
+8. a `kernels` JSON line (K1 with a row per tile size), the card line, and
+   last the result line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. It never imports jax or the reference package.
@@ -367,13 +381,17 @@ def oracle_ds_q96(t):
 # timing helpers
 # --------------------------------------------------------------------------
 
-def time_cuda(fn, reps: int = 10) -> float:
-    """Median ms of `fn` over `reps` runs, CUDA events around each."""
+def time_cuda(fn, reps: int = 10, flush=None) -> float:
+    """Median ms of `fn` over `reps` runs, CUDA events around each, on an
+    idle stream; `flush` (if given) runs and finishes before each."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
+            torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -382,6 +400,104 @@ def time_cuda(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_activities(prof):
+    """(name, us) of every kernel, memset and memcpy in a torch.profiler
+    trace."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_time(fn, reps: int = 10, flush=None):
+    """(ms, method, parts): the device time of one call of `fn`.
+
+    `profiler`: torch.profiler (CUPTI) over `reps` calls, the summed
+    duration of every kernel, memset and memcpy those calls ran, over
+    `reps`; `parts` splits it by activity name (us per call). CUPTI sees
+    kernels launched through ctypes too. A trace that holds no device
+    activity (CUPTI drops one now and then) is taken again, twice at most;
+    after that, `events_100`: CUDA events around 100 back-to-back calls,
+    over 100 (that also counts any gap the host leaves between launches).
+
+    With `flush` (l2_flush's), `events_behind_flush`: each of `reps` calls
+    is queued behind a flush that keeps the card busy longer than the
+    call's host work takes, so that the events around the call hold the
+    card's time alone; the median. `parts` gives the flush's median device
+    ms and the call's longest host ms: the method holds where the second
+    is the smaller."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    if flush is not None:
+        times, flush_ms, host_ms = [], [], []
+        for _ in range(reps):
+            c, a, b = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            c.record()
+            flush()
+            a.record()
+            t0 = time.perf_counter()
+            fn()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            flush_ms.append(c.elapsed_time(a))
+        return statistics.median(times), "events_behind_flush", {
+            "flush_ms": round(statistics.median(flush_ms), 4),
+            "host_ms_max": round(max(host_ms), 4)}
+    from torch.profiler import ProfilerActivity, profile
+    parts = {}
+    for _attempt in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except Exception as exc:      # no CUPTI: fall back to events
+            log(f"torch.profiler failed ({exc!r}); timing with CUDA "
+                f"events")
+            break
+        for name, us in _device_activities(prof):
+            parts[name] = parts.get(name, 0.0) + us / reps
+        if parts:
+            break
+    total_us = sum(parts.values())
+    if total_us > 0:
+        return total_us / 1e3, "profiler", {
+            k[:60]: round(v, 3) for k, v in parts.items()}
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(100):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 100, "events_100", {}
+
+
+def l2_flush():
+    """A function that reads 1 GiB on the card (one torch sum, ~0.3 ms):
+    it leaves none of the 50 MB L2 to what ran before it (a read, so no
+    dirty lines are left to write back during the next call), and keeps
+    the card busy while the host enqueues a call behind it
+    (device_time)."""
+    import torch
+    buf = torch.ones(1 << 27, dtype=torch.int64, device="cuda")
+    return lambda: buf.sum()
+
+
+def with_device_time(entry: dict, fn, flush=None) -> dict:
+    """`entry` (a kernels-line row) with `device_ms` and `device_method`
+    of one call of `fn` (device_time), its parts logged."""
+    ms, method, parts = device_time(fn, flush=flush)
+    log(f"device time {entry['name']}: {ms:.4f} ms per call ({method}; "
+        f"events-around-one-call {entry['ms']:.4f} ms); parts (us per "
+        f"call) {json.dumps(parts)}")
+    return {**entry, "device_ms": ms, "device_method": method}
 
 
 def _bits_equal(a, b) -> bool:
@@ -453,8 +569,24 @@ def phase_k1(dev):
     b = k1.gather_columns_plain([lut], pidx)[0]
     torch.cuda.synchronize()
     require(_bits_equal(a, b), "K1 differs from plain on the 8M LUT")
+    # a star's payload shape: 18 tables of 18,432 rows, int32 indices
+    Ws = 18_432
+    star = [tables[i % len(tables)][:Ws].to(dev) for i in range(18)]
+    sfills = [fills[i % len(fills)] for i in range(18)]
+    sidx = torch.randint(-100, Ws + 100, (n,), generator=g).to(
+        torch.int32).to(dev)
+    want = k1.gather_columns_plain(star, sidx, sfills)
+    before = k1.gather_columns.launches
+    got = k1.gather_columns(star, sidx, sfills)
+    torch.cuda.synchronize()
+    require(k1.gather_columns.launches == before + 1,
+            "K1 took more than one launch for 18 tables")
+    for t, a, b in zip(star, got, want):
+        require(_bits_equal(a, b), f"K1 differs from plain for {t.dtype} "
+                f"at the star's shape")
     log(f"K1 check: bit-exact on {len(tc)} dtypes (W={W}, n={n}, misses "
-        f"and wild indices) and the {D + 1}-entry LUT")
+        f"and wild indices), the {D + 1}-entry LUT and 18 tables of {Ws} "
+        f"rows in one launch")
 
 
 def phase_k2(dev):
@@ -740,6 +872,32 @@ def _host_profile(session, sql, top=15):
         for (f, _line, fn), (_cc, nc, _tt, ct, _callers) in rows]}
 
 
+def _device_profile(session, sql, top=8):
+    """One more steady run of `sql` under torch.profiler (uncounted): its
+    wall, the card's busy time (every kernel, memset and memcpy summed;
+    the port runs on one stream, so they do not overlap), the idle share
+    1 - busy / wall, and the `top` activities by device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        session.execute(sql)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+    parts = {}
+    for name, us in _device_activities(prof):
+        n, total = parts.get(name[:50], (0, 0.0))
+        parts[name[:50]] = (n + 1, total + us)
+    busy_ms = sum(us for _n, us in parts.values()) / 1e3
+    ranked = sorted(parts.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_ms": round(wall * 1e3, 4), "device_busy_ms":
+            round(busy_ms, 4), "idle_share": round(1 - busy_ms /
+                                                   (wall * 1e3), 4),
+            "top": [[k, n, round(us / 1e3, 4)] for k, (n, us) in ranked]}
+
+
 def phase_tpch_path(recorder):
     from trino_tpu_torch.exec.session import Session
     from trino_tpu_torch.ops import gather as k1
@@ -864,6 +1022,21 @@ def phase_tpcds_path(recorder):
     log(f"tpcds ladder: q{', q'.join(map(str, STAR_QUERIES))} fused rows "
         f"equal the pairwise ladder (enable_multiway_join = 'false')")
     return launches, session, tables, expected, per_query
+
+
+def phase_device_profiles(session, ds_session):
+    """One more steady run each of TPC-H q3 and TPC-DS q3 and q19 under
+    torch.profiler, after every main path's walls were taken (a profiler
+    session can leave tracing hooks that slow later launches). Each is
+    run once before, unprofiled: the chunked and streaming paths evicted
+    their columns from the scan cache."""
+    from tpcds_queries import QUERIES
+    for name, sess, sql in (("q3", session, Q3),
+                            ("ds q3", ds_session, QUERIES[3]),
+                            ("ds q19", ds_session, QUERIES[19])):
+        sess.execute(sql)
+        log(f"{name} device profile (one more steady run): "
+            + json.dumps(_device_profile(sess, sql)))
 
 
 def phase_q12_path(recorder, session, tables):
@@ -1051,6 +1224,20 @@ def phase_stream_build(recorder, session):
     return launches
 
 
+K1_PATHS = ("big tiles", "small tiles")
+
+
+def k1_path(tables) -> str:
+    """Which of K1's two paths a call takes (ops/gather.plan_gather):
+    `big tiles` where a table of the call is small enough to stay in L1
+    (a star's payload gather), else `small tiles` (q3's dense-LUT
+    probe)."""
+    from trino_tpu_torch.ops import gather as k1
+    plans = k1.plan_gather([t.element_size() for t in tables],
+                           tables[0].shape[0])
+    return K1_PATHS[0] if any(p.big_tile for p in plans) else K1_PATHS[1]
+
+
 class LaunchRecorder:
     """Keeps the inputs of the largest launch of each kernel in the main
     paths (by rows) so that the timing phase times the kernels on them.
@@ -1058,7 +1245,8 @@ class LaunchRecorder:
 
     def __init__(self):
         self.active = False
-        self.k1 = None
+        self.k1 = {}              # K1's largest launch per path
+        self.k1_launches = {}     # K1's main-path launches per path
         self.k3 = None
         self.k4 = None
         self.k5 = None
@@ -1104,10 +1292,17 @@ class LaunchRecorder:
         k5.direct_group_aggregate_mxu = mxu_arm
 
         def k1_launch(tables, idx, fills):
-            if self.active and (self.k1 is None or
-                                idx.shape[0] > self.k1[1].shape[0]):
-                self.k1 = (list(tables), idx, list(fills))
-            return real_k1(tables, idx, fills)
+            if not self.active:
+                return real_k1(tables, idx, fills)
+            path = k1_path(tables)
+            kept = self.k1.get(path)
+            if kept is None or idx.shape[0] > kept[1].shape[0]:
+                self.k1[path] = (list(tables), idx, list(fills))
+            before = k1.gather_columns.launches
+            out = real_k1(tables, idx, fills)
+            self.k1_launches[path] = self.k1_launches.get(path, 0) + \
+                k1.gather_columns.launches - before
+            return out
 
         def k3_launch(slot, key, vbits, vals, layout, nstates, T):
             if self.active and (self.k3 is None or
@@ -1120,46 +1315,70 @@ class LaunchRecorder:
 
 
 def phase_timing(recorder, launches):
+    require(None not in (recorder.k2, recorder.k3, recorder.k4,
+                         recorder.k5) and set(recorder.k1) == set(K1_PATHS),
+            f"a kernel's launch was not recorded on the main paths "
+            f"(K1: {sorted(recorder.k1)})")
+    require(sum(recorder.k1_launches.values()) == launches["K1"],
+            "K1's launches per path do not add up")
+    log(f"events around an empty call: {time_cuda(lambda: None):.4f} ms "
+        f"(the floor under every `ms` below)")
+    flush = l2_flush()
+    out = [_time_k1(recorder, path, flush) for path in K1_PATHS]
+    out.append(_time_k2(recorder, launches, flush))
+    out.append(_time_k3(recorder, launches))
+    out.append(_time_k4(recorder, launches))
+    out.append(_time_k5(recorder, launches))
+    return out
+
+
+def _time_k1(recorder, path, flush):
+    """K1 on its largest main-path launch of one path, every call (kernel,
+    plain and library) after an L2 flush."""
     import torch
     from trino_tpu_torch.ops import gather as k1
-    from trino_tpu_torch.ops import hashtable as ht
-    require(None not in (recorder.k1, recorder.k2, recorder.k3,
-                         recorder.k4, recorder.k5),
-            "a kernel's launch was not recorded on the main paths")
-    out = []
-    # K1 on the largest main-path launch
-    tables, idx, fills = recorder.k1
+    tables, idx, fills = recorder.k1[path]
     n = idx.shape[0]
     w = tables[0].shape[0]
     got = k1.gather_columns(tables, idx, fills)
     want = k1.gather_columns_plain(tables, idx, fills)
     require(all(_bits_equal(a, b) for a, b in zip(got, want)),
             "K1 differs from plain on the main-path inputs")
-    ms = time_cuda(lambda: k1.gather_columns(tables, idx, fills))
+    ms = time_cuda(lambda: k1.gather_columns(tables, idx, fills),
+                   flush=flush)
     plain_ms = time_cuda(lambda: k1.gather_columns_plain(tables, idx,
-                                                         fills))
+                                                         fills), flush=flush)
     idx_c = idx.clamp(0, w - 1)
     lib_ms = time_cuda(lambda: [torch.index_select(t, 0, idx_c)
-                                for t in tables])
+                                for t in tables], flush=flush)
     out_bytes = sum(t.element_size() for t in tables) * n
-    in_bytes = 8 * n + sum(t.numel() * t.element_size() for t in tables)
+    in_bytes = idx.element_size() * n + \
+        sum(t.numel() * t.element_size() for t in tables)
     bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    sector_ms = (8 * n + out_bytes + 32 * n * len(tables)) / \
-        HBM_BYTES_PER_S * 1e3
-    log(f"timing K1: n={n} W={w} tables={[str(t.dtype) for t in tables]} "
+    sector_ms = (idx.element_size() * n + out_bytes +
+                 32 * n * len(tables)) / HBM_BYTES_PER_S * 1e3
+    rows = int(torch.unique(idx[(idx >= 0) & (idx < w)]).numel())
+    log(f"timing K1 ({path}): n={n} W={w} idx {idx.dtype} (touching "
+        f"{rows} rows) tables="
+        f"{[str(t.dtype).replace('torch.', '') for t in tables]} "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"(index_select per table) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms"
-        f" (each input read once), {sector_ms:.4f} ms (one DRAM sector "
-        f"per random read)")
-    out.append({"name": "K1 gather_columns", "route": "cuda",
-                "source": "trino_tpu_torch/csrc/gather.cu",
-                "replaces": "trino_tpu/ops/pallas_gather.py:155",
-                "launches": launches["K1"],
-                "max_abs_err": _max_abs_err(zip(got, want)),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes", "library_ms": lib_ms})
-    out.append(_time_k2(recorder, launches))
-    # K3 on the largest main-path launch
+        f" (each input read once from HBM, L2 flushed before each call), "
+        f"{sector_ms:.4f} ms (one DRAM sector per random read)")
+    return with_device_time(
+        {"name": f"K1 gather_columns ({path})", "route": "cuda",
+         "source": "trino_tpu_torch/csrc/gather.cu",
+         "replaces": "trino_tpu/ops/pallas_gather.py:155",
+         "launches": recorder.k1_launches[path],
+         "max_abs_err": _max_abs_err(zip(got, want)),
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": lib_ms},
+        lambda: k1.gather_columns(tables, idx, fills), flush=flush)
+
+
+def _time_k3(recorder, launches):
+    """K3 on its largest main-path launch."""
+    from trino_tpu_torch.ops import hashtable as ht
     slot, key, vbits, vals, layout, nstates, T = recorder.k3
     n = key.shape[0]
     tk, st, esc, occ = ht.hash_insert(slot, key, vbits, vals, layout,
@@ -1182,18 +1401,19 @@ def phase_timing(recorder, launches):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
         f"bound {bound_ms:.4f} ms (bytes: inputs read once, table "
         f"written once)")
-    out.append({"name": "K3 hash_insert", "route": "cuda",
-                "source": "trino_tpu_torch/csrc/hash_insert.cu",
-                "replaces": "trino_tpu/ops/pallas_hash.py:189",
-                "launches": launches["K3"], "max_abs_err": float(err),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes", "library_ms": None})
-    out.append(_time_k4(recorder, launches))
-    out.append(_time_k5(recorder, launches))
-    return out
+    return with_device_time(
+        {"name": "K3 hash_insert", "route": "cuda",
+         "source": "trino_tpu_torch/csrc/hash_insert.cu",
+         "replaces": "trino_tpu/ops/pallas_hash.py:189",
+         "launches": launches["K3"], "max_abs_err": float(err),
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": None},
+        lambda: ht.hash_insert(slot, key, vbits, vals, layout, nstates, T))
 
 
-def _time_k2(recorder, launches):
+def _time_k2(recorder, launches, flush):
+    """K2 on its largest main-path launch, every call (kernel, plain and
+    library) after an L2 flush."""
     import torch
     from trino_tpu_torch.ops import gather as k2
     planes, idx = recorder.k2
@@ -1203,12 +1423,14 @@ def _time_k2(recorder, launches):
     want_w, want_e = k2.gather_word_windowed_plain(planes, idx, word)
     require(_bits_equal(got_w, want_w) and int(got_e) == int(want_e),
             "K2 differs from plain on the main-path inputs")
-    ms = time_cuda(lambda: k2.gather_word_windowed(planes, idx, word))
-    plain_ms = time_cuda(lambda: k2.gather_word_windowed_plain(planes, idx,
-                                                               word))
+    ms = time_cuda(lambda: k2.gather_word_windowed(planes, idx, word),
+                   flush=flush)
+    plain_ms = time_cuda(lambda: k2.gather_word_windowed_plain(
+        planes, idx, word), flush=flush)
     ok = (idx >= 0) & (idx < planes.shape[0])
     idx_c = torch.where(ok, idx, 0)
-    lib_ms = time_cuda(lambda: torch.index_select(planes, 0, idx_c))
+    lib_ms = time_cuda(lambda: torch.index_select(planes, 0, idx_c),
+                       flush=flush)
     # bytes this run's data needs: the int64 index read once, the int64
     # word written once, and the LUT bytes the in-range key span touches
     live = idx[ok]
@@ -1220,14 +1442,16 @@ def _time_k2(recorder, launches):
         f"{plain_ms:.4f} ms, index_select of the same words (a gather "
         f"without the window semantics) {lib_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms (bytes: index read and word written once, the "
-        f"span's LUT bytes once)")
-    return {"name": "K2 gather_word_windowed", "route": "cuda",
-            "source": "trino_tpu_torch/csrc/window_gather.cu",
-            "replaces": "trino_tpu/ops/pallas_gather.py:206",
-            "launches": launches["K2"],
-            "max_abs_err": _max_abs_err([(got_w, want_w)]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": lib_ms}
+        f"span's LUT bytes once, from HBM: L2 flushed before each call)")
+    return with_device_time(
+        {"name": "K2 gather_word_windowed", "route": "cuda",
+         "source": "trino_tpu_torch/csrc/window_gather.cu",
+         "replaces": "trino_tpu/ops/pallas_gather.py:206",
+         "launches": launches["K2"],
+         "max_abs_err": _max_abs_err([(got_w, want_w)]),
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": lib_ms},
+        lambda: k2.gather_word_windowed(planes, idx, word), flush=flush)
 
 
 def _time_k4(recorder, launches):
@@ -1259,13 +1483,15 @@ def _time_k4(recorder, launches):
         f"{bound_ms:.4f} ms (bytes this data needs: dimension d's slot and "
         f"key only for rows alive entering it, found for all, tables "
         f"once; {dense_ms:.4f} ms if every row read every dimension)")
-    return {"name": "K4 multiway_probe", "route": "cuda",
-            "source": "trino_tpu_torch/csrc/multiprobe.cu",
-            "replaces": "trino_tpu/ops/pallas_hash.py:568",
-            "launches": launches["K4"],
-            "max_abs_err": _max_abs_err([(found, found2), (miss, miss2)]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+    return with_device_time(
+        {"name": "K4 multiway_probe", "route": "cuda",
+         "source": "trino_tpu_torch/csrc/multiprobe.cu",
+         "replaces": "trino_tpu/ops/pallas_hash.py:568",
+         "launches": launches["K4"],
+         "max_abs_err": _max_abs_err([(found, found2), (miss, miss2)]),
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": None},
+        lambda: ht.multiway_probe_slots(slot, key, tkey, src))
 
 
 def _time_k5(recorder, launches):
@@ -1294,13 +1520,15 @@ def _time_k5(recorder, launches):
         f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: group id and "
         f"planes read once)")
     _time_direct_arms(recorder)
-    return {"name": "K5 group_sums", "route": "cuda",
-            "source": "trino_tpu_torch/csrc/direct_agg.cu",
-            "replaces": "trino_tpu/ops/pallas_agg.py:73",
-            "launches": launches["K5"],
-            "max_abs_err": _max_abs_err([(got, want)]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": lib_ms}
+    return with_device_time(
+        {"name": "K5 group_sums", "route": "cuda",
+         "source": "trino_tpu_torch/csrc/direct_agg.cu",
+         "replaces": "trino_tpu/ops/pallas_agg.py:73",
+         "launches": launches["K5"],
+         "max_abs_err": _max_abs_err([(got, want)]),
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": lib_ms},
+        lambda: k5.group_sums(gid, planes, G))
 
 
 def _same_groups(x, y) -> bool:
@@ -1381,6 +1609,7 @@ def main() -> int:
         for name, count in path.items():
             launches[name] += count
     log("main paths, launches in all: " + json.dumps(launches))
+    phase_device_profiles(session, ds_session)
     kernels = phase_timing(recorder, launches)
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "trino_tpu."))

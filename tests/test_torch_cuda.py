@@ -54,7 +54,93 @@ def test_k1_matches_plain_on_card():
     got = k1.gather_columns(tables, idx, fills)
     want = k1.gather_columns_plain(tables, idx, fills)
     torch.cuda.synchronize()
-    # 18 tables: two launches of at most MAX_TABLES
+    # 18 tables ride one launch (MAX_TABLES = 64)
+    assert k1.gather_columns.launches == before + 1
+    for g, wv in zip(got, want):
+        assert g.cpu().numpy().tobytes() == wv.cpu().numpy().tobytes()
+
+
+def _lane_tables(rng, w, count):
+    """`count` tables cycling through every lane type K1 takes."""
+    makers = [lambda: rng.integers(-(1 << 62), 1 << 62, w),
+              lambda: rng.normal(size=w),
+              lambda: rng.integers(-(1 << 30), 1 << 30, w).astype(np.int32),
+              lambda: rng.normal(size=w).astype(np.float32),
+              lambda: rng.integers(-(1 << 15), 1 << 15, w).astype(np.int16),
+              lambda: rng.integers(-100, 100, w).astype(np.int8),
+              lambda: rng.integers(0, 256, w).astype(np.uint8),
+              lambda: rng.integers(0, 2, w).astype(bool)]
+    fills = [-5, 2.5, -7, -1.5, 300, 3, 200, True]
+    return ([makers[i % 8]() for i in range(count)],
+            [fills[i % 8] for i in range(count)])
+
+
+def _k1_case(dev, rng, w, n, idx_dtype, tables=None, fills=None):
+    if tables is None:
+        tables, fills = _lane_tables(rng, w, 40)
+        tables = [torch.from_numpy(t).to(dev) for t in tables]
+    idx = rng.integers(-50, w + 50, n)
+    idx[::97] = -(1 << 40)                       # wild
+    idx[1::89] = 1 << 40
+    idx = torch.from_numpy(idx)
+    if idx_dtype == "int32":
+        idx = idx.clamp(-(1 << 31), (1 << 31) - 1).to(torch.int32)
+    idx = idx.to(dev)
+    before = k1.gather_columns.launches
+    got = k1.gather_columns(tables, idx, fills)
+    want = k1.gather_columns_plain(tables, idx, fills)
+    torch.cuda.synchronize()
+    assert k1.gather_columns.launches == before + (1 if n else 0)
+    for g, wv in zip(got, want):
+        assert g.dtype == wv.dtype and g.shape == (n,)
+        assert g.cpu().numpy().tobytes() == wv.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("idx_dtype", ["int64", "int32"])
+@pytest.mark.parametrize("w", ["5000", "budget", "budget+1"])
+def test_k1_forty_tables_every_lane(w, idx_dtype):
+    """40 tables of every lane type in one launch, bit-exact: W of 5,000
+    (int8 and bool tables end off a 16-byte boundary), of L1_BYTES
+    exactly for the int64 tables, and one row past it (big tiles either
+    way, by the narrower lanes); n not a multiple of the tile; wild
+    indices."""
+    dev = _card()
+    width = {"5000": 5000, "budget": k1.L1_BYTES // 8,
+             "budget+1": k1.L1_BYTES // 8 + 1}[w]
+    rng = np.random.default_rng(width)
+    _k1_case(dev, rng, width, 3 * k1.K1_TILE_BIG + 1001, idx_dtype)
+
+
+@pytest.mark.parametrize("idx_dtype", ["int64", "int32"])
+def test_k1_empty_and_all_miss_on_card(idx_dtype):
+    dev = _card()
+    rng = np.random.default_rng(3)
+    _k1_case(dev, rng, 5000, 0, idx_dtype)
+    tables, fills = _lane_tables(rng, 5000, 16)
+    tables = [torch.from_numpy(t).to(dev) for t in tables]
+    idx = torch.full((70_001,), -1, dtype=getattr(torch, idx_dtype),
+                     device=dev)
+    idx[::3] = 5000                              # past the end: a miss too
+    got = k1.gather_columns(tables, idx, fills)
+    want = k1.gather_columns_plain(tables, idx, fills)
+    torch.cuda.synchronize()
+    for g, wv in zip(got, want):
+        assert g.cpu().numpy().tobytes() == wv.cpu().numpy().tobytes()
+
+
+def test_k1_unaligned_and_many_tables_on_card():
+    """Tables that are views off a 16-byte boundary and a call of 70
+    tables (two launches)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    w = 18_432
+    base, fills = _lane_tables(rng, w + 3, 70)
+    tables = [torch.from_numpy(t).to(dev)[3:] for t in base]
+    idx = torch.from_numpy(rng.integers(-5, w + 5, 200_003)).to(dev)
+    before = k1.gather_columns.launches
+    got = k1.gather_columns(tables, idx, fills)
+    want = k1.gather_columns_plain(tables, idx, fills)
+    torch.cuda.synchronize()
     assert k1.gather_columns.launches == before + 2
     for g, wv in zip(got, want):
         assert g.cpu().numpy().tobytes() == wv.cpu().numpy().tobytes()
@@ -262,6 +348,49 @@ def test_k2_matches_plain_on_card(word):
             assert int(got_e) == int(want_e)
             if idx is near:
                 assert int(got_e) == 0
+
+
+def _escaping_k2_input(dev):
+    rng = np.random.default_rng(37)
+    w = 300_000
+    lut = torch.from_numpy(rng.integers(-128, 128, w).astype(np.int8))
+    planes = k1.prepare_word_planes(lut.to(dev))
+    idx = torch.from_numpy(rng.integers(-10, w, 250_001)).to(dev)
+    return planes, idx
+
+
+def test_k2_twice_in_a_row_same_escapes():
+    """Two launches back to back on escaping input: the same escape total
+    both times (each launch zeroes its own counter), equal to the plain
+    version's."""
+    dev = _card()
+    planes, idx = _escaping_k2_input(dev)
+    want_w, want_e = k1.gather_word_windowed_plain(planes, idx, "int8")
+    w1, e1 = k1.gather_word_windowed(planes, idx, "int8")
+    w2, e2 = k1.gather_word_windowed(planes, idx, "int8")
+    torch.cuda.synchronize()
+    assert int(want_e) > 0
+    assert int(e1) == int(e2) == int(want_e)
+    assert torch.equal(w1, want_w) and torch.equal(w2, want_w)
+
+
+def test_k2_on_a_side_stream():
+    """K2 launched on a side stream (its counter zeroed on that stream)
+    agrees with the plain version and with a launch on the default
+    stream."""
+    dev = _card()
+    planes, idx = _escaping_k2_input(dev)
+    main_w, main_e = k1.gather_word_windowed(planes, idx, "int8")
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            side_w, side_e = k1.gather_word_windowed(planes, idx, "int8")
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    want_w, want_e = k1.gather_word_windowed_plain(planes, idx, "int8")
+    assert int(side_e) == int(main_e) == int(want_e) > 0
+    assert torch.equal(side_w, want_w) and torch.equal(main_w, want_w)
 
 
 def test_chunked_q12_on_card_equals_cpu():

@@ -12,6 +12,10 @@ The library name carries a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads from ``_build/`` (listed in
 .gitignore). Nothing builds at import time: the first kernel launch (or
 ``build_all``) does. A missing ``nvcc`` or a failed build raises.
+
+Every C entry's signature stands in ``SIGNATURES`` and is bound once, when
+its library loads; ``library`` takes its lock only to build or load, so a
+launch pays one dict lookup for its entry.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -33,6 +39,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("gather", "window_gather", "hash_insert", "multiprobe",
                   "direct_agg")
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# library -> {C entry: argtypes}; every entry returns a CUDA status (int)
+SIGNATURES = {
+    # idx, idx bytes, n, width, tables, descriptors, big tile, stream
+    "gather": {"k1_gather": [_P, _I, _I64, _I64, _I, _P, _I, _P]},
+    # idx, n, lut, lut_len, esize, out, esc, stream
+    "window_gather": {"k2_window_gather": [_P, _I64, _P, _I64, _I, _P, _P,
+                                           _P]},
+    # slot, key, vbits, vals, n, tkey, states, T, cap, counters, layout
+    # (4 arrays), k, nstates, stream
+    "hash_insert": {"k3_hash_insert": [_P] * 4 + [_I64] + [_P] * 2 +
+                    [_I64, _I, _P] + [_P] * 4 + [_I, _I, _P]},
+    # slot, key, tkey, src, n, k, T, found, miss, stream
+    "multiprobe": {"k4_multiprobe": [_P] * 4 + [_I64, _I, _I64] + [_P] * 3},
+    # gid, planes, n, a, groups, out, stream
+    "direct_agg": {"k5_group_sums": [_P, _P, _I64, _I, _I, _P, _P]},
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -93,7 +117,11 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, building it on first use."""
+    """The loaded kernel library `name`, building it on first use, its C
+    entries bound to their SIGNATURES."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -102,8 +130,19 @@ def library(name: str) -> ctypes.CDLL:
         if started is not None:
             _finish_build(name, started)
         lib = ctypes.CDLL(str(_target(name)))
+        for entry, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream's handle on `device`, for a launch: the
+    raw handle torch's own generated kernels launch on, without building
+    a torch.cuda.Stream object per call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(status: int, what: str) -> None:

@@ -21,12 +21,11 @@ sums, CUDA -> the kernel or raise.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..batch import Batch, Column
+from .cuda_build import check, library, raw_stream
 
 # the reference's gates, kept so the executor makes the same choice
 MAX_GROUPS = 16
@@ -77,17 +76,12 @@ group_sums.launches = 0
 
 
 def _launch(gid, planes, n_groups):
-    from .cuda_build import check, library
     fn = library("direct_agg").k5_group_sums
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
     gid = gid.contiguous()
     planes = planes.contiguous()
     a, n = planes.shape
     out = torch.empty((n_groups, a), dtype=torch.int64, device=gid.device)
-    stream = torch.cuda.current_stream(gid.device).cuda_stream
+    stream = raw_stream(gid.device)
     status = fn(gid.data_ptr(), planes.data_ptr(), n, a, n_groups,
                 out.data_ptr(), stream)
     check(status, "K5 group sums launch")

@@ -8,10 +8,13 @@ public ``gather_columns``). Contract, bit-exact vs a plain ``take``:
     out[t][i] = tables[t][idx[i]]   if 0 <= idx[i] < W
               = fills[t]            otherwise
 
-The kernel (``csrc/gather.cu``) is one thread per output index over native
-1/2/4/8-byte lanes; the TPU's int32 planes and its ``W <= 65536`` scan gate
-do not carry over (a GPU gather costs the same at any W), so every call
-site takes the kernel whenever its mode is on and the dtype gate passes.
+The kernel (``csrc/gather.cu``) carries up to MAX_TABLES tables per launch
+over native 1/2/4/8-byte lanes and int32 or int64 indices: a CTA keeps a
+tile of range-checked int32 indices in registers and walks the tables,
+gathering each through L1 (``plan_gather`` splits a call into launches
+and picks the tile size). The TPU's VMEM staging, int32 planes and
+``W <= 65536`` scan gate do not carry over, so every call site takes the
+kernel whenever its mode is on and the dtype gate passes.
 
 K2 (TPU kernel ``_window_kernel`` launched by ``_window_gather_planes``,
 public ``gather_word_windowed``): one word of a value-packed LUT per
@@ -29,12 +32,21 @@ raise — there is no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+import functools
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-MAX_TABLES = 16             # tables per launch (csrc/gather.cu MAX_TABLES)
+from .cuda_build import check, library, raw_stream
+
+MAX_TABLES = 64             # tables per launch (csrc/gather.cu MAX_TABLES)
+# K1: a table of at most this many bytes can stay in an SM's L1 (256 KB
+# of L1 and shared memory together); a launch with such a table takes big
+# tiles, so that a tile reuses the table across more indices
+L1_BYTES = 224 * 1024
+K1_TILE_BIG = 16384         # indices per big tile (csrc/gather.cu)
+MAX_K1_WIDTH = (1 << 31) - 1   # K1 narrows indices to int32
 TILE = 1024                 # K2: probe indices per tile (one window each)
 WIN = 8192                  # K2: LUT entries per window block
 # K2's indices are 32-bit in the kernel
@@ -58,13 +70,48 @@ def supports_tables(tables) -> bool:
         t.dtype in _LANE_DTYPES and t.dim() == 1 for t in tables)
 
 
+_fill_cache = {}
+
+
 def _fill_bits(fill, dtype: torch.dtype) -> int:
-    """The fill value's bit pattern in the table's lane width."""
-    np_dt = torch.empty(0, dtype=dtype).numpy().dtype
-    arr = np.zeros(1, dtype=np_dt)
-    arr[0] = fill
-    raw = arr.view(np.uint8)
-    return int.from_bytes(raw.tobytes(), "little")
+    """The fill value's bit pattern in the table's lane width (numpy's
+    cast; cached per dtype and fill)."""
+    key = (dtype, type(fill), repr(fill))
+    bits = _fill_cache.get(key)
+    if bits is None:
+        np_dt = torch.empty(0, dtype=dtype).numpy().dtype
+        arr = np.zeros(1, dtype=np_dt)
+        arr[0] = fill
+        bits = int.from_bytes(arr.view(np.uint8).tobytes(), "little")
+        if len(_fill_cache) > 4096:
+            _fill_cache.clear()
+        _fill_cache[key] = bits
+    return bits
+
+
+class K1Launch(NamedTuple):
+    """One K1 launch of a call: `tables` are positions in the call's table
+    list; `big_tile` asks for 16,384-index tiles (else 4,096)."""
+    tables: Tuple[int, ...]
+    big_tile: bool
+
+
+def plan_gather(esizes: Sequence[int], width: int) -> Tuple[K1Launch, ...]:
+    """How K1 runs a call of len(esizes) tables of `width` rows: launches
+    of at most MAX_TABLES tables in order, each in big tiles where one of
+    its tables fits L1_BYTES. Pure and deterministic."""
+    return _plan_gather(tuple(esizes), int(width))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_gather(esizes, width):
+    out = []
+    for g0 in range(0, len(esizes), MAX_TABLES):
+        grp = esizes[g0:g0 + MAX_TABLES]
+        out.append(K1Launch(
+            tables=tuple(range(g0, g0 + len(grp))),
+            big_tile=any(0 < width * e <= L1_BYTES for e in grp)))
+    return tuple(out)
 
 
 def gather_columns_plain(tables: Sequence[torch.Tensor], idx: torch.Tensor,
@@ -117,35 +164,32 @@ gather_columns.launches = 0
 
 
 def _launch(tables, idx, fills) -> List[torch.Tensor]:
-    from .cuda_build import check, library
-    lib = library("gather")
-    fn = lib.k1_gather
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    idx = idx.to(torch.int64).contiguous()
+    fn = library("gather").k1_gather
+    # the kernel reads int32 and int64 indices as they are
+    if idx.dtype != torch.int64 and idx.dtype != torch.int32:
+        idx = idx.to(torch.int64)
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
     n = idx.shape[0]
     w = tables[0].shape[0]
-    outs = [torch.empty(n, dtype=t.dtype, device=idx.device)
-            for t in tables]
-    tables = [t.contiguous() for t in tables]
-    stream = torch.cuda.current_stream(idx.device).cuda_stream
-    for g0 in range(0, len(tables), MAX_TABLES):
-        grp = tables[g0:g0 + MAX_TABLES]
-        k = len(grp)
-        tab_p = (ctypes.c_void_p * k)(*[t.data_ptr() for t in grp])
-        out_p = (ctypes.c_void_p * k)(
-            *[o.data_ptr() for o in outs[g0:g0 + k]])
-        esz = (ctypes.c_int * k)(*[t.element_size() for t in grp])
-        fl = (ctypes.c_uint64 * k)(
-            *[_fill_bits(f, t.dtype)
-              for f, t in zip(fills[g0:g0 + k], grp)])
-        status = fn(idx.data_ptr(), n, w, k, ctypes.cast(tab_p,
-                                                         ctypes.c_void_p),
-                    ctypes.cast(out_p, ctypes.c_void_p),
-                    ctypes.cast(esz, ctypes.c_void_p),
-                    ctypes.cast(fl, ctypes.c_void_p), stream)
+    dev = idx.device
+    outs = [torch.empty(n, dtype=t.dtype, device=dev) for t in tables]
+    if n == 0:
+        return outs
+    if w > MAX_K1_WIDTH:
+        raise ValueError(f"gather_columns: {w} rows exceed K1's int32 "
+                         f"indices")
+    tables = [t if t.is_contiguous() else t.contiguous() for t in tables]
+    stream = raw_stream(dev)
+    for plan in plan_gather([t.element_size() for t in tables], w):
+        desc = (ctypes.c_uint64 * (4 * len(plan.tables)))()
+        for k, p in enumerate(plan.tables):
+            desc[4 * k] = tables[p].data_ptr()
+            desc[4 * k + 1] = outs[p].data_ptr()
+            desc[4 * k + 2] = _fill_bits(fills[p], tables[p].dtype)
+            desc[4 * k + 3] = tables[p].element_size()
+        status = fn(idx.data_ptr(), idx.element_size(), n, w,
+                    len(plan.tables), desc, int(plan.big_tile), stream)
         check(status, "K1 gather launch")
         gather_columns.launches += 1
     return outs
@@ -248,22 +292,24 @@ gather_word_windowed.launches = 0
 
 
 def _launch_window(planes: torch.Tensor, idx: torch.Tensor):
-    from .cuda_build import check, library
     fn = library("window_gather").k2_window_gather
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
     # the kernel does _window_index's prep itself, from int64 indices
-    idx = idx.to(torch.int64).contiguous()
+    if idx.dtype != torch.int64:
+        idx = idx.to(torch.int64)
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    if not planes.is_contiguous():
+        planes = planes.contiguous()
     n = idx.shape[0]
-    planes = planes.contiguous()
-    out = torch.empty(n, dtype=torch.int64, device=idx.device)
-    esc = torch.empty(1, dtype=torch.int64, device=idx.device)
-    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    # the words and the escape total in one allocation
+    buf = idx.new_empty(n + 1)
+    if n == 0:
+        buf.zero_()
+        return buf[:0], buf[0]
+    ptr = buf.data_ptr()
     status = fn(idx.data_ptr(), n, planes.data_ptr(), planes.shape[0],
-                planes.element_size(), out.data_ptr(), esc.data_ptr(),
-                stream)
+                planes.element_size(), ptr, ptr + 8 * n,
+                raw_stream(idx.device))
     check(status, "K2 window gather launch")
     gather_word_windowed.launches += 1
-    return out, esc[0]
+    return buf[:n], buf[n]

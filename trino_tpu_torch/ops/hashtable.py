@@ -46,6 +46,7 @@ from typing import List, Tuple
 import torch
 
 from ..batch import Batch, Column
+from .cuda_build import check, library, raw_stream
 
 MAX_PROBES = 16              # linear-probe bound (breach = escape)
 LOAD_NUM, LOAD_DEN = 5, 8    # occupancy cap 0.625 * T keeps probes short
@@ -262,15 +263,7 @@ hash_insert.launches = 0
 
 
 def _launch(slot, key, vbits, vals, layout, nstates, T):
-    from .cuda_build import check, library
-    lib = library("hash_insert")
-    fn = lib.k3_hash_insert
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] +
-                   [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p] +
-                   [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])
+    fn = library("hash_insert").k3_hash_insert
     slot = slot.to(torch.int64).contiguous()
     key = key.to(torch.int64).contiguous()
     vbits = vbits.to(torch.int32).contiguous()
@@ -283,7 +276,7 @@ def _launch(slot, key, vbits, vals, layout, nstates, T):
     k = len(layout)
     arr = [(ctypes.c_int * max(k, 1))(*[row[j] for row in layout])
            for j in range(4)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = raw_stream(dev)
     status = fn(slot.data_ptr(), key.data_ptr(), vbits.data_ptr(),
                 vals.data_ptr(), n, tkey.data_ptr(), st.data_ptr(), T,
                 T * LOAD_NUM // LOAD_DEN, counters.data_ptr(),
@@ -540,18 +533,13 @@ def multiway_probe_slots(slot, key, tkey, src):
 
 
 def _launch_multiprobe(slot, key, tkey, src):
-    from .cuda_build import check, library
     fn = library("multiprobe").k4_multiprobe
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int64] +
-                   [ctypes.c_void_p] * 3)
     slot, key, tkey, src = (t.contiguous() for t in (slot, key, tkey, src))
     k, n = slot.shape
     T = tkey.shape[1]
     found = torch.empty((k, n), dtype=torch.int64, device=slot.device)
     miss = torch.empty(k, dtype=torch.int64, device=slot.device)
-    stream = torch.cuda.current_stream(slot.device).cuda_stream
+    stream = raw_stream(slot.device)
     status = fn(slot.data_ptr(), key.data_ptr(), tkey.data_ptr(),
                 src.data_ptr(), n, k, T, found.data_ptr(), miss.data_ptr(),
                 stream)

@@ -596,12 +596,13 @@ def dense_join_packed_windowed(probe: Batch, lut: torch.Tensor,
     pk, pk_valid = _combined_key(probe, probe_keys)
     ok_rows = pk_valid & probe.live & (pk >= 0) & (pk < domain)
     lo = torch.where(ok_rows, pk, domain).min()
-    hi = torch.where(ok_rows, pk, -1).max()
+    pk_ok = torch.where(ok_rows, pk, -1)
+    hi = pk_ok.max()
     span = (hi - lo + 1).clamp(min=0)
     if gather_mode != "off" and lut_planes is not None and \
             domain + 1 <= k1.MAX_WINDOWED_ELEMS:
         word, escaped = k1.gather_word_windowed(
-            lut_planes, torch.where(ok_rows, pk, -1),
+            lut_planes, pk_ok,
             word_dtype or str(lut.dtype).replace("torch.", ""))
         matched = (word != 0) & ok_rows
     else:
