@@ -19,11 +19,16 @@ Phases, each failing the run with a non-zero exit:
    windows;
 3. K3 (hash insert) against its plain version on the card: multiset of
    groups exact, a forced overflow escapes, join-build duplicates counted
-   exactly, and the hash-join probe equal;
+   exactly, and the hash-join probe equal; the multi-table entry with 16
+   tables in one launch (one forced over its cap, the others equal to
+   the plain version table by table), and a star's four builds in one
+   launch (a duplicated and an over-cap dimension) equal to four single
+   builds;
 4. K4 (multiway star probe) against its plain version on a synthetic star
    (4M fact rows, 4 dimensions at 65,536 slots, hits, misses, NULL keys,
    dead rows and a chain longer than MAX_PROBES), `found` and `miss`
-   bit-exact;
+   bit-exact, through the slot-plane entry and the keys-in entry (on the
+   interleaved table, and on two planes that the wrapper interleaves);
 5. K5 (grouped sums) against its plain version and `index_add_` (6M rows,
    16 groups, 17 planes of values up to +-2^58), bit-exact;
 6. the main paths, each with every launch counter set to 0 just before
@@ -46,7 +51,8 @@ Phases, each failing the run with a non-zero exit:
    counts are read, one more steady run of chunked q12 and q3 each under
    cProfile (where their host time goes); after every path, one more
    steady run of TPC-H q3 and TPC-DS q3 and q19 each under torch.profiler
-   (the card's busy time, its idle share of the wall, the top kernels);
+   (the card's busy time, its idle share of the wall, the torch
+   elementwise kernels, the device-to-host copies, the top kernels);
 7. timing of each kernel on the inputs of its largest launch in the main
    paths (K1 on each of its two paths: big tiles, the largest launch with
    a table that L1 can hold, a star's payload gather; small tiles, the
@@ -62,6 +68,15 @@ Phases, each failing the run with a non-zero exit:
    plain version's ms, one library call's ms where one computes the same
    function (for K2, ``index_select`` of the same words, a gather without
    the window semantics), and the least time the card could take (bound);
+   K3 with a row per launch shape (one table: the largest table of the
+   star's builds alone; a star's builds; a partitioned aggregate's
+   partitions; each against its plain version, the groups of every table
+   that did not escape and a join build's interleaved table), its
+   launches per call site, its host ms per call, and the star's public
+   ``build_join_tables`` call with its torch prep; K4 through the public
+   ``multiway_probe`` (prep included), its host ms and device activities
+   per call, and apart the torch encoding of the same keys that callers
+   ran before K4 derived the slots itself;
    beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
    masked-sum `direct` arm) on q12's batch, with its key redrawn over 2 to
    16 groups, to place the crossover that `mxu_agg = auto` models;
@@ -659,6 +674,17 @@ def _group_rows(tkey, st):
                       .tolist()))
 
 
+def _groups_by_key(tkey, st):
+    """A table's occupied slots as one [1 + states, groups] tensor in key
+    order (a table holds each key once): two tables hold the same groups
+    iff these are equal."""
+    import torch
+    from trino_tpu_torch.ops.hashtable import EMPTY_KEY
+    m = tkey != EMPTY_KEY
+    rows = torch.cat([tkey[m][None], st[:, m]])
+    return rows[:, torch.argsort(rows[0])]
+
+
 def phase_k3(dev):
     import torch
     from trino_tpu_torch.batch import Batch, Column
@@ -724,6 +750,85 @@ def phase_k3(dev):
     log(f"K3 check: {groups} groups over {rows} rows equal as multisets "
         f"(sums of ~500 values >= 2^61 wrap), forced overflow escaped "
         f"{int(fesc)} rows, join dup_rows={int(dup)} exact, probe equal")
+    _check_k3_multi(dev, g)
+
+
+def _check_k3_multi(dev, g):
+    """K3's multi-table entry: 16 tables in one launch against the plain
+    version per table (table 5 forced over its cap, the others clean:
+    per-table counters independent), and a star's builds in one launch
+    against one build_join_table per dimension (a duplicated and an
+    over-cap dimension beside clean ones)."""
+    import torch
+    from trino_tpu_torch.batch import Batch, Column
+    from trino_tpu_torch.ops import hashtable as ht
+    G, T, n = 16, 1 << 14, 2_000_000
+    tid = torch.randint(0, G, (n,), generator=g).to(torch.int32)
+    key = torch.randint(0, 3000, (n,), generator=g) * 1_000_003 + tid
+    over = tid == 5
+    key[over] = torch.randint(0, 1 << 40, (int(over.sum()),), generator=g)
+    mask = torch.rand(n, generator=g) > 0.03
+    valid = torch.rand(n, generator=g) > 0.1
+    v64 = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g)
+    v32 = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g).to(
+        torch.int32)
+    key, tid, mask, valid, v64, v32 = (t.to(dev) for t in (
+        key, tid, mask, valid, v64, v32))
+    layout, ns, _ = ht.agg_layout(_agg_specs("sum", "count", "min", "max"))
+    planes = ((v64, valid), (None, valid), (v32, valid), (v64, None))
+    args = (key, mask, planes, layout, ns, T, G, tid)
+    before = ht.hash_insert_multi.launches
+    tk, st, cnt, _ = ht.hash_insert_multi(*args)
+    tk2, st2, cnt2, _ = ht.hash_insert_multi_plain(*args)
+    torch.cuda.synchronize()
+    require(ht.hash_insert_multi.launches == before + 1,
+            "K3 took more than one launch for 16 tables")
+    c, c2 = cnt.tolist(), cnt2.tolist()
+    for t in range(G):
+        if t == 5:
+            require(c[t][0] > 0 and c2[t][0] > 0 and
+                    c[t][1] <= T * ht.LOAD_NUM // ht.LOAD_DEN,
+                    f"K3 table 5 did not escape: {c[t]}")
+            continue
+        require(c[t] == c2[t] and c[t][0] == 0,
+                f"K3 table {t} counters {c[t]} != plain {c2[t]}")
+        require(_group_rows(tk[t], st[:, t]) == _group_rows(tk2[t],
+                                                           st2[:, t]),
+                f"K3 table {t} groups differ from plain")
+    # a star's builds: clean, duplicated, over its cap, clean
+    T = 1 << 15
+    cap = T * ht.LOAD_NUM // ht.LOAD_DEN
+    builds, want = [], []
+    for d, (m, distinct) in enumerate(((18_432, 18_432), (9_000, 6_000),
+                                       (cap + 500, cap + 500),
+                                       (2_000, 2_000))):
+        keys = torch.randperm(1 << 24, generator=g)[:distinct]
+        keys = keys[torch.randint(0, distinct, (m,), generator=g)] \
+            if distinct < m else keys
+        keys = (keys * 8 + d).to(dev)
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        b = Batch((Column(keys, ones),), ones)
+        builds.append(b)
+        want.append(ht.build_join_table(b, (0,), T))
+    before = ht.hash_insert_multi.launches
+    tkey, src, dup, esc = ht.build_join_tables(builds, [(0,)] * 4, T)
+    torch.cuda.synchronize()
+    require(ht.hash_insert_multi.launches == before + 1,
+            "the star's builds took more than one K3 launch")
+    for d, (wk, ws, wd, we) in enumerate(want):
+        require((int(esc[d]) > 0) == (int(we) > 0),
+                f"dimension {d}: escaped {int(esc[d])} vs {int(we)}")
+        if int(we) > 0:
+            continue
+        require(int(dup[d]) == int(wd), f"dimension {d}: dup_rows "
+                f"{int(dup[d])} vs {int(wd)}")
+        require(_group_rows(tkey[d], src[d][None]) ==
+                _group_rows(wk, ws[None]),
+                f"dimension {d}: {{key, row id}} slots differ")
+    log(f"K3 multi check: 16 tables in one launch equal plain per table "
+        f"(table 5 over its cap escaped {c[5][0]} rows alone); a star's 4 "
+        f"builds in one launch equal 4 single builds (dup_rows "
+        f"{dup.tolist()}, escaped {esc.tolist()})")
 
 
 def _star_probe_inputs(dev, g):
@@ -786,10 +891,28 @@ def phase_k4(dev):
     deep = slot[0, 1:4096:2] >= 0
     require(bool((found[0, 1:4096:2][deep] == 4_000_015).all()),
             "K4: the 16th probe did not hit")
+    # the keys-in entry on the same rows: key columns as they lie (a NULL
+    # key is an invalid row), the tables as planes and interleaved
+    from trino_tpu_torch.batch import Batch, Column
+    k = slot.shape[0]
+    probe = Batch(tuple(Column(key[d], slot[d] >= 0) for d in range(k)),
+                  slot[0] != -2)
+    pairs = torch.stack((tkey, src), -1)
+    for name, tk, sr in (("planes", tkey, src),
+                         ("interleaved", pairs[..., 0], pairs[..., 1])):
+        before = ht.multiway_probe.launches
+        f3, m3 = ht.multiway_probe(probe, tk, sr,
+                                   tuple((d,) for d in range(k)))
+        torch.cuda.synchronize()
+        require(ht.multiway_probe.launches == before + 1,
+                "K4 keys-in took more than one launch")
+        require(torch.equal(f3, found2) and torch.equal(m3, miss2),
+                f"K4 keys-in ({name} tables) differs from plain")
     log(f"K4 check: found and miss bit-exact on n={slot.shape[1]} k="
         f"{slot.shape[0]} T={tkey.shape[1]}; misses per dim "
         f"{miss.tolist()}; fused hits "
-        f"{int((found[-1] >= 0).sum())}; exhausted chain missed")
+        f"{int((found[-1] >= 0).sum())}; exhausted chain missed; the "
+        f"keys-in entry equal on planes and on the interleaved table")
 
 
 def phase_k5(dev):
@@ -824,7 +947,7 @@ def _counters():
     from trino_tpu_torch.ops import gather as k1
     from trino_tpu_torch.ops import hashtable as ht
     return {"K1": k1.gather_columns, "K2": k1.gather_word_windowed,
-            "K3": ht.hash_insert, "K4": ht.multiway_probe,
+            "K3": ht.hash_insert_multi, "K4": ht.multiway_probe,
             "K5": k5.group_sums}
 
 
@@ -876,7 +999,8 @@ def _device_profile(session, sql, top=8):
     """One more steady run of `sql` under torch.profiler (uncounted): its
     wall, the card's busy time (every kernel, memset and memcpy summed;
     the port runs on one stream, so they do not overlap), the idle share
-    1 - busy / wall, and the `top` activities by device ms."""
+    1 - busy / wall, the torch elementwise kernels' ms and count, the
+    device-to-host copies, and the `top` activities by device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -886,15 +1010,21 @@ def _device_profile(session, sql, top=8):
         session.execute(sql)
         torch.cuda.synchronize()
         wall = time.monotonic() - t
+    acts = _device_activities(prof)
     parts = {}
-    for name, us in _device_activities(prof):
+    for name, us in acts:
         n, total = parts.get(name[:50], (0, 0.0))
         parts[name[:50]] = (n + 1, total + us)
     busy_ms = sum(us for _n, us in parts.values()) / 1e3
+    elem = [us for name, us in acts if "elementwise" in name]
     ranked = sorted(parts.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": round(wall * 1e3, 4), "device_busy_ms":
             round(busy_ms, 4), "idle_share": round(1 - busy_ms /
                                                    (wall * 1e3), 4),
+            "elementwise_ms": round(sum(elem) / 1e3, 4),
+            "elementwise_launches": len(elem),
+            "dtoh_copies": sum(1 for name, _us in acts
+                               if name.startswith("Memcpy DtoH")),
             "top": [[k, n, round(us / 1e3, 4)] for k, (n, us) in ranked]}
 
 
@@ -918,7 +1048,8 @@ def phase_tpch_path(recorder):
     recorder.active = True
     per_query = {}
     for name, sql in (("q1", Q1), ("q6", Q6), ("q3", Q3)):
-        before = (k1.gather_columns.launches, ht.hash_insert.launches)
+        before = (k1.gather_columns.launches,
+                  ht.hash_insert_multi.launches)
         rows, walls = _timed_runs(session, sql, 4)
         require(rows == expected[name],
                 f"{name} differs from the numpy oracle:\n{rows[:3]}\nvs\n"
@@ -927,7 +1058,7 @@ def phase_tpch_path(recorder):
             "cold_s": walls[0], "steady_median_s": statistics.median(
                 walls[1:]),
             "k1_launches": k1.gather_columns.launches - before[0],
-            "k3_launches": ht.hash_insert.launches - before[1],
+            "k3_launches": ht.hash_insert_multi.launches - before[1],
             "strategy": dict(session.executor.strategy_decisions)}
         log(f"{name}: {len(rows)} rows match the oracle; cold "
             f"{walls[0]:.4f} s, steady median "
@@ -1109,7 +1240,7 @@ def phase_chunked_path(recorder, session, tables):
     per_query = {}
     for name, sql, expected in queries:
         before_c = _chunk_counters(ex)
-        k2_runs, k3_before = [], ht.hash_insert.launches
+        k2_runs, k3_before = [], ht.hash_insert_multi.launches
         walls, rows = [], None
         for run in range(4):
             k2_before = k1.gather_word_windowed.launches
@@ -1135,7 +1266,7 @@ def phase_chunked_path(recorder, session, tables):
                     f"chunked q12: K2 launches per run {k2_runs}, want 0 "
                     f"then {chunks} per adapted run")
         if name == "q3":
-            require(ht.hash_insert.launches > k3_before,
+            require(ht.hash_insert_multi.launches > k3_before,
                     "chunked q3 did not launch K3")
         per_query[name] = {
             "rows": len(rows), "cold_s": walls[0],
@@ -1225,6 +1356,12 @@ def phase_stream_build(recorder, session):
 
 
 K1_PATHS = ("big tiles", "small tiles")
+# K3's call sites on the main paths (the innermost running one takes the
+# launch; a launch under none of them is "other hash aggregates")
+K3_SITES = {"star builds": "_multijoin_tables",
+            "partitioned aggregates": "_partitioned_hash_agg",
+            "chunked merges": "merge_group_aggregate",
+            "hybrid join builds": "try_hash_join"}
 
 
 def k1_path(tables) -> str:
@@ -1247,8 +1384,11 @@ class LaunchRecorder:
         self.active = False
         self.k1 = {}              # K1's largest launch per path
         self.k1_launches = {}     # K1's main-path launches per path
-        self.k3 = None
+        self.k3 = {}              # K3's largest launch per call site
+        self.k3_launches = {}     # K3's main-path launches per call site
+        self.k3_site = []         # the executor methods being run
         self.k4 = None
+        self.star_build = None    # the largest build_join_tables call
         self.k5 = None
         self.k5_batch = None      # the direct aggregate's input to K5's arm
         self.k2 = None
@@ -1257,6 +1397,7 @@ class LaunchRecorder:
         from trino_tpu_torch.ops import direct_agg as k5
         from trino_tpu_torch.ops import gather as k1
         from trino_tpu_torch.ops import hashtable as ht
+        from trino_tpu_torch.exec.executor import Executor
         real_k1, real_k3 = k1._launch, ht._launch
         real_k4, real_k5 = ht._launch_multiprobe, k5._launch
         real_k2 = k1._launch_window
@@ -1268,11 +1409,12 @@ class LaunchRecorder:
             return real_k2(planes, idx)
         k1._launch_window = k2_launch
 
-        def k4_launch(slot, key, tkey, src):
-            if self.active and (self.k4 is None or
-                                slot.numel() > self.k4[0].numel()):
-                self.k4 = (slot, key, tkey, src)
-            return real_k4(slot, key, tkey, src)
+        def k4_launch(live, keys, tkey, src):
+            if self.active and (self.k4 is None or len(keys) *
+                                live.shape[0] > len(self.k4[1]) *
+                                self.k4[0].shape[0]):
+                self.k4 = (live, list(keys), tkey, src)
+            return real_k4(live, keys, tkey, src)
 
         def k5_launch(gid, planes, n_groups):
             if self.active and (self.k5 is None or
@@ -1280,7 +1422,19 @@ class LaunchRecorder:
                 self.k5 = (gid, planes, n_groups)
             return real_k5(gid, planes, n_groups)
 
+        real_build = ht.build_join_tables
+
+        def build_tables(builds, keys_per_build, table_slots):
+            def size(b):
+                return sum(x.capacity for x in b) * len(b)
+            if self.active and (self.star_build is None or size(builds) >
+                                size(self.star_build[0])):
+                self.star_build = (list(builds), list(keys_per_build),
+                                   table_slots)
+            return real_build(builds, keys_per_build, table_slots)
+
         ht._launch_multiprobe = k4_launch
+        ht.build_join_tables = build_tables
         k5._launch = k5_launch
         real_mxu = k5.direct_group_aggregate_mxu
 
@@ -1304,32 +1458,87 @@ class LaunchRecorder:
                 k1.gather_columns.launches - before
             return out
 
-        def k3_launch(slot, key, vbits, vals, layout, nstates, T):
-            if self.active and (self.k3 is None or
-                                key.shape[0] > self.k3[1].shape[0]):
-                self.k3 = (slot, key, vbits, vals, layout, nstates, T)
-            return real_k3(slot, key, vbits, vals, layout, nstates, T)
+        def k3_launch(key, mask, tid, planes, layout, nstates, T, G,
+                      pairs):
+            args = (key, mask, tid, planes, layout, nstates, T, G, pairs)
+            if not self.active:
+                return real_k3(*args)
+            site = self.k3_site[-1] if self.k3_site else \
+                "other hash aggregates"
+            kept = self.k3.get(site)
+            if kept is None or key.shape[0] * G > kept[0].shape[0] * \
+                    kept[7]:
+                self.k3[site] = args
+            self.k3_launches[site] = self.k3_launches.get(site, 0) + 1
+            return real_k3(*args)
 
+        def at_site(name, method):
+            def run(*args, **kwargs):
+                self.k3_site.append(name)
+                try:
+                    return method(*args, **kwargs)
+                finally:
+                    self.k3_site.pop()
+            return run
+
+        for name, method in K3_SITES.items():
+            setattr(Executor, method, at_site(name, getattr(Executor,
+                                                            method)))
         k1._launch = k1_launch
         ht._launch = k3_launch
 
 
 def phase_timing(recorder, launches):
-    require(None not in (recorder.k2, recorder.k3, recorder.k4,
-                         recorder.k5) and set(recorder.k1) == set(K1_PATHS),
+    require(None not in (recorder.k2, recorder.k4, recorder.k5,
+                         recorder.star_build) and
+            "star builds" in recorder.k3 and
+            set(recorder.k1) == set(K1_PATHS),
             f"a kernel's launch was not recorded on the main paths "
-            f"(K1: {sorted(recorder.k1)})")
+            f"(K1: {sorted(recorder.k1)}, K3: {sorted(recorder.k3)})")
     require(sum(recorder.k1_launches.values()) == launches["K1"],
             "K1's launches per path do not add up")
+    require(sum(recorder.k3_launches.values()) == launches["K3"],
+            "K3's launches per call site do not add up")
+    log("K3 launches on the main paths per call site: "
+        + json.dumps(recorder.k3_launches))
     log(f"events around an empty call: {time_cuda(lambda: None):.4f} ms "
         f"(the floor under every `ms` below)")
     flush = l2_flush()
     out = [_time_k1(recorder, path, flush) for path in K1_PATHS]
     out.append(_time_k2(recorder, launches, flush))
-    out.append(_time_k3(recorder, launches))
+    out.extend(_time_k3(recorder))
     out.append(_time_k4(recorder, launches))
     out.append(_time_k5(recorder, launches))
     return out
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host ms per call of `fn` over `calls` calls back to back (the card
+    runs behind; its queue is drained before and after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def activities_per_call(fn, reps: int = 5) -> float:
+    """Device activities (kernels, memsets, memcpys) one call of `fn` runs,
+    from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return len(_device_activities(prof)) / reps
 
 
 def _time_k1(recorder, path, flush):
@@ -1376,39 +1585,108 @@ def _time_k1(recorder, path, flush):
         lambda: k1.gather_columns(tables, idx, fills), flush=flush)
 
 
-def _time_k3(recorder, launches):
-    """K3 on its largest main-path launch."""
+def _time_k3(recorder):
+    """K3 on its largest main-path launch per multi-table call site (a
+    star's builds, a partitioned aggregate's partitions), and on one
+    table of the star's launch alone: the single build of the parent's
+    row."""
+    import torch
     from trino_tpu_torch.ops import hashtable as ht
-    slot, key, vbits, vals, layout, nstates, T = recorder.k3
+    key, mask, tid, planes, layout, ns, T, G, pairs = \
+        recorder.k3["star builds"]
+    rows = [int(((tid == g) if tid is not None else mask).sum())
+            for g in range(G)]
+    g = rows.index(max(rows))
+    one = tid == g if tid is not None else torch.ones_like(mask)
+    single = (key[one], mask[one], None,
+              tuple((None if v is None else v[one],
+                     None if ok is None else ok[one]) for v, ok in planes),
+              layout, ns, T, 1, False)
+    multi_launches = sum(recorder.k3_launches.get(site, 0) for site in
+                         ("star builds", "partitioned aggregates"))
+    out = [_k3_row("one table", single,
+                   sum(recorder.k3_launches.values()) - multi_launches)]
+    builds, keys_per_build, slots = recorder.star_build
+    out.append(_k3_row("star builds", recorder.k3["star builds"],
+                       recorder.k3_launches["star builds"],
+                       lambda: ht.build_join_tables(builds, keys_per_build,
+                                                    slots)))
+    if "partitioned aggregates" in recorder.k3:
+        out.append(_k3_row("partitioned aggregates",
+                           recorder.k3["partitioned aggregates"],
+                           recorder.k3_launches["partitioned aggregates"]))
+    return out
+
+
+def _k3_row(what, args, launches, public=None):
+    """K3's kernels-line row on one recorded launch: the kernel against
+    its plain version (the groups of every table that did not escape, and
+    the interleaved {key, row id} table of a join build), timed; with
+    `public`, also the public call that made the launch, its torch prep
+    included."""
+    import torch
+    from trino_tpu_torch.ops import hashtable as ht
+    key, mask, tid, planes, layout, ns, T, G, pairs = args
     n = key.shape[0]
-    tk, st, esc, occ = ht.hash_insert(slot, key, vbits, vals, layout,
-                                      nstates, T)
-    tk2, st2, esc2, occ2 = ht.hash_insert_plain(slot, key, vbits, vals,
-                                                layout, nstates, T)
-    require(int(esc) == 0 and int(esc2) == 0, "K3 main-path input escaped")
-    ra, rb = _group_rows(tk, st), _group_rows(tk2, st2)
-    require(ra == rb, "K3 differs from plain on the main-path inputs")
-    err = max((abs(x - y) for a, b in zip(ra, rb) for x, y in zip(a, b)),
-              default=0)
-    ms = time_cuda(lambda: ht.hash_insert(slot, key, vbits, vals, layout,
-                                          nstates, T))
-    plain_ms = time_cuda(lambda: ht.hash_insert_plain(
-        slot, key, vbits, vals, layout, nstates, T), reps=5)
-    in_bytes = n * (8 + 8 + 4) + vals.numel() * 8
-    out_bytes = T * 8 * (1 + nstates) + 8
+
+    def call():
+        return ht.hash_insert_multi(key, mask, planes, layout, ns, T, G,
+                                    tid, pairs)
+
+    def plain():
+        return ht.hash_insert_multi_plain(key, mask, planes, layout, ns, T,
+                                          G, tid, pairs)
+    tk, st, cnt, pr = call()
+    tk2, st2, cnt2, pr2 = plain()
+    c, c2 = cnt.tolist(), cnt2.tolist()
+    compared = []
+    for t in range(G):
+        require((c[t][0] > 0) == (c2[t][0] > 0),
+                f"K3 ({what}) table {t}: escapes {c[t]} vs plain {c2[t]}")
+        if c[t][0]:
+            continue          # its slots depend on which racing row won
+        got = [_groups_by_key(tk[t], st[:, t])]
+        want = [_groups_by_key(tk2[t], st2[:, t])]
+        if pairs:
+            got.append(_groups_by_key(pr[t, :, 0], pr[t, :, 1][None]))
+            want.append(_groups_by_key(pr2[t, :, 0], pr2[t, :, 1][None]))
+        require(c[t][1] == c2[t][1] and all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+            f"K3 ({what}) table {t} differs from plain")
+        compared += zip(got, want)
+    require(compared, f"K3 ({what}): every table escaped, none compared")
+    err = _max_abs_err(compared)
+    ms = time_cuda(call)
+    plain_ms = time_cuda(plain, reps=3)
+    host = host_ms(call)
+    in_bytes = n * (8 + 1 + (4 if tid is not None else 0)) + sum(
+        n * ((0 if v is None else v.element_size()) +
+             (0 if ok is None else 1)) for v, ok in planes)
+    out_bytes = G * T * 8 * (1 + ns) + (16 * G * T if pairs else 0) + 8 * G
     bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"timing K3: n={n} T={T} groups={int(occ)} states={nstates} "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
-        f"bound {bound_ms:.4f} ms (bytes: inputs read once, table "
-        f"written once)")
-    return with_device_time(
-        {"name": "K3 hash_insert", "route": "cuda",
-         "source": "trino_tpu_torch/csrc/hash_insert.cu",
-         "replaces": "trino_tpu/ops/pallas_hash.py:189",
-         "launches": launches["K3"], "max_abs_err": float(err),
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": "bytes", "library_ms": None},
-        lambda: ht.hash_insert(slot, key, vbits, vals, layout, nstates, T))
+    log(f"timing K3 ({what}): n={n} G={G} T={T} states={ns} groups="
+        f"{sum(x[1] for x in c)} escaped tables "
+        f"{sum(1 for x in c if x[0] > 0)}, {G - sum(1 for x in c if x[0])}"
+        f" tables compared with plain{' (groups and pairs)' if pairs else ''}"
+        f"; kernel {ms:.4f} ms, host {host:.4f} ms per call, plain "
+        f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms (bytes: "
+        f"inputs read once, tables written once)")
+    row = {"name": f"K3 hash_insert_multi ({what})", "route": "cuda",
+           "source": "trino_tpu_torch/csrc/hash_insert.cu",
+           "replaces": "trino_tpu/ops/pallas_hash.py:189",
+           "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": None, "host_ms": host,
+           "rows": n, "tables": G}
+    if public is not None:
+        row["call_ms"] = time_cuda(public)
+        row["call_device_ms"], method, parts = device_time(public)
+        row["call_host_ms"] = host_ms(public)
+        log(f"timing K3 ({what}) public call with its torch prep: "
+            f"{row['call_ms']:.4f} ms, device {row['call_device_ms']:.4f} "
+            f"ms ({method}; {len(parts)} activity kinds), host "
+            f"{row['call_host_ms']:.4f} ms per call")
+    return with_device_time(row, call)
 
 
 def _time_k2(recorder, launches, flush):
@@ -1455,34 +1733,58 @@ def _time_k2(recorder, launches, flush):
 
 
 def _time_k4(recorder, launches):
+    """K4 on its largest main-path launch through the public
+    ``multiway_probe`` (its fact batch rebuilt from the launch's key
+    columns, one column a dimension, the tables as the star built them);
+    and, apart, the reference wrapper's encoding in torch on the same
+    rows (``encode_probe_keys``, the prep a caller ran before K4 read
+    keys itself)."""
+    import torch
+    from trino_tpu_torch.batch import Batch, Column
     from trino_tpu_torch.ops import hashtable as ht
-    slot, key, tkey, src = recorder.k4
-    k, n = slot.shape
-    T = tkey.shape[1]
-    found, miss = ht.multiway_probe_slots(slot, key, tkey, src)
-    found2, miss2 = ht.multiway_probe_plain(slot, key, tkey, src)
+    live, keys, tkey, src = recorder.k4
+    k, n, T = len(keys), live.shape[0], tkey.shape[1]
+    probe = Batch(tuple(Column(key, ok) for key, ok in keys), live)
+    pk = tuple((d,) for d in range(k))
+
+    def call():
+        return ht.multiway_probe(probe, tkey, src, pk)
+
+    def plain():
+        return ht._multiway_probe_keys_plain(live, keys, tkey, src)
+    found, miss = call()
+    found2, miss2 = plain()
     require(_bits_equal(found, found2) and _bits_equal(miss, miss2),
             "K4 differs from plain on the main-path inputs")
-    ms = time_cuda(lambda: ht.multiway_probe_slots(slot, key, tkey, src))
-    plain_ms = time_cuda(lambda: ht.multiway_probe_plain(slot, key, tkey,
-                                                         src))
-    # slot and found fit 4 bytes (T <= 2^17, build rows < 2^31), the key
-    # needs 8; each table slot holds a key and a row id (16 bytes). What
-    # this run's data needs: every row's dimension-0 slot; slot and key
-    # of dimension d only for the rows still alive entering it; found for
-    # every row and dimension; each table once
-    alive = int((slot[0] != -2).sum())
-    need = 4 * n + 8 * alive + 4 * k * n + 16 * k * T
-    for d in range(1, k):
-        alive -= int(miss[d - 1])
-        need += 12 * alive
+    ms = time_cuda(call)
+    plain_ms = time_cuda(plain)
+    host = host_ms(call)
+    acts = activities_per_call(call)
+    # what this run's data needs: every row's live byte; dimension d's
+    # key and validity byte only for the rows alive entering it; found
+    # (int32) for every row and dimension; each table once
+    alive = int(live.sum())
+    need = n + 4 * k * n + 16 * k * T
+    for d, (key, _ok) in enumerate(keys):
+        need += alive * (key.element_size() + 1)
+        alive -= int(miss[d])
     bound_ms = need / HBM_BYTES_PER_S * 1e3
-    dense_ms = (k * n * (4 + 8 + 4) + k * T * 16) / HBM_BYTES_PER_S * 1e3
-    log(f"timing K4: k={k} n={n} T={T} misses {miss.tolist()} kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-        f"{bound_ms:.4f} ms (bytes this data needs: dimension d's slot and "
-        f"key only for rows alive entering it, found for all, tables "
-        f"once; {dense_ms:.4f} ms if every row read every dimension)")
+    require(ht._is_interleaved(tkey, src),
+            "the star's tables reached K4 as planes")
+
+    def prep():
+        return ht.encode_probe_keys(live, keys, T)
+    prep_ms = time_cuda(prep)
+    prep_dev = device_time(prep)[0]
+    log(f"timing K4: k={k} n={n} T={T} key bytes "
+        f"{[kk.element_size() for kk, _ in keys]} misses {miss.tolist()}; "
+        f"public multiway_probe {ms:.4f} ms, host {host:.4f} ms per call, "
+        f"{acts:.1f} device activities per call, plain {plain_ms:.4f} ms, "
+        f"library none, bound {bound_ms:.4f} ms (bytes this data needs: "
+        f"live bytes, dimension d's key and validity only for rows alive "
+        f"entering it, int32 found for all, tables once); the torch "
+        f"encoding of the same keys (encode_probe_keys) {prep_ms:.4f} ms, "
+        f"device {prep_dev:.4f} ms")
     return with_device_time(
         {"name": "K4 multiway_probe", "route": "cuda",
          "source": "trino_tpu_torch/csrc/multiprobe.cu",
@@ -1490,8 +1792,9 @@ def _time_k4(recorder, launches):
          "launches": launches["K4"],
          "max_abs_err": _max_abs_err([(found, found2), (miss, miss2)]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": "bytes", "library_ms": None},
-        lambda: ht.multiway_probe_slots(slot, key, tkey, src))
+         "bound_by": "bytes", "library_ms": None, "host_ms": host,
+         "device_activities_per_call": acts, "prep_ms": prep_ms,
+         "prep_device_ms": prep_dev}, call)
 
 
 def _time_k5(recorder, launches):

@@ -163,11 +163,11 @@ def test_k3_matches_plain_on_card():
     aggs = tuple(AggSpec(f, 0) for f in ("sum", "count", "min", "max"))
     layout, ns, _ = ht.agg_layout(aggs)
     args = (slot, key, vbits.to(dev), vals.to(dev), layout, ns, slots)
-    before = ht.hash_insert.launches
+    before = ht.hash_insert_multi.launches
     tk, st, esc, occ = ht.hash_insert(*args)
     tk2, st2, esc2, occ2 = ht.hash_insert_plain(*args)
     torch.cuda.synchronize()
-    assert ht.hash_insert.launches == before + 1
+    assert ht.hash_insert_multi.launches == before + 1
     assert int(esc) == int(esc2) == 0 and int(occ) == int(occ2) == groups
     assert _groups(tk, st) == _groups(tk2, st2)
 
@@ -180,6 +180,94 @@ def test_k3_overflow_escapes_on_card():
         torch.zeros(5000, dtype=torch.int32, device=dev),
         torch.zeros((1, 5000), dtype=torch.int64, device=dev), (), 0, 1024)
     assert int(esc) > 0 and int(occ) <= 1024 * ht.LOAD_NUM // ht.LOAD_DEN
+
+
+@pytest.mark.parametrize("tables", [1, 3, 16])
+def test_k3_multi_tables_match_plain_on_card(tables):
+    """G tables in one launch against the plain version per table: four
+    aggregates over int32 and int64 values with NULLs; table 1 (when
+    there is one) is forced over its cap while the others stay clean, so
+    the per-table counters are shown to be independent."""
+    dev = _card()
+    rng = np.random.default_rng(19 + tables)
+    slots = 1 << 12
+    cap = slots * ht.LOAD_NUM // ht.LOAD_DEN
+    n = 60_000
+    tid = rng.integers(0, tables, n).astype(np.int32)
+    key = rng.integers(0, 600, n).astype(np.int64) * 7919 + tid
+    if tables > 1:
+        over = tid == 1
+        key[over] = rng.integers(0, 1 << 40, int(over.sum()))
+    mask = rng.random(n) > 0.03
+    v64 = rng.integers(-(1 << 62), 1 << 62, n)
+    v32 = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    valid = rng.random(n) > 0.1
+    aggs = tuple(AggSpec(f, 0) for f in ("sum", "count", "min", "max"))
+    layout, ns, _ = ht.agg_layout(aggs)
+    t = [torch.from_numpy(a).to(dev) for a in
+         (key, mask, tid, v64, v32, valid)]
+    planes = ((t[3], t[5]), (None, t[5]), (t[4], t[5]), (t[3], None))
+    args = (t[0], t[1], planes, layout, ns, slots, tables,
+            t[2] if tables > 1 else None)
+    before = ht.hash_insert_multi.launches
+    tk, st, cnt, _ = ht.hash_insert_multi(*args)
+    tk2, st2, cnt2, _ = ht.hash_insert_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert ht.hash_insert_multi.launches == before + 1
+    assert cnt.dtype == torch.int32 and cnt.shape == (tables, 2)
+    for g in range(tables):
+        if g == 1:
+            assert int(cnt[g, 0]) > 0 and int(cnt2[g, 0]) > 0
+            assert int(cnt[g, 1]) <= cap
+            continue
+        assert int(cnt[g, 0]) == int(cnt2[g, 0]) == 0
+        assert int(cnt[g, 1]) == int(cnt2[g, 1]) > 0
+        assert _groups(tk[g], st[:, g]) == _groups(tk2[g], st2[:, g])
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+@pytest.mark.parametrize("width", [torch.int32, torch.int64])
+def test_k4_keys_in_matches_plain_on_card(k, width):
+    """The keys-in K4 entry on k tables built by one K3 launch (the
+    interleaved table) and on the same tables as planes (interleaved by
+    the wrapper), against the plain version: found and miss bit-exact,
+    NULL and sentinel keys, dead rows; one launch per call."""
+    from trino_tpu_torch.batch import Batch, Column
+    dev = _card()
+    rng = np.random.default_rng(23 + k)
+    n, slots = 200_000, 1 << 15        # load <= 0.22: no chain escapes
+    builds, cols = [], []
+    for d in range(k):
+        m = 3000 + 1000 * d
+        keys = rng.choice(1 << 30, m, replace=False)
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        builds.append(Batch((Column(torch.from_numpy(keys).to(dev).to(
+            width), ones),), ones))
+        fk = np.where(rng.random(n) < 0.85, keys[rng.integers(0, m, n)],
+                      rng.integers(1 << 30, (1 << 31) - 1, n))
+        fk = torch.from_numpy(fk).to(width)
+        if width == torch.int64:
+            fk[rng.random(n) < 0.01] = ht.EMPTY_KEY
+        cols.append(Column(fk.to(dev), torch.from_numpy(
+            rng.random(n) > 0.02).to(dev)))
+    probe = Batch(tuple(cols), torch.from_numpy(rng.random(n) > 0.03).to(
+        dev))
+    tkey, src, dup, esc = ht.build_join_tables(
+        builds, [(0,)] * k, slots)
+    assert tkey.stride(1) == 2 and int(dup.sum()) == int(esc.sum()) == 0
+    pk = tuple((d,) for d in range(k))
+    for tk, sr in ((tkey, src), (tkey.contiguous(), src.contiguous())):
+        before = ht.multiway_probe.launches
+        found, miss = ht.multiway_probe(probe, tk, sr, pk)
+        torch.cuda.synchronize()
+        assert ht.multiway_probe.launches == before + 1
+        cpu = Batch(tuple(Column(c.data.cpu(), c.valid.cpu())
+                          for c in cols), probe.live.cpu())
+        found2, miss2 = ht.multiway_probe(cpu, tk.cpu(), sr.cpu(), pk)
+        assert found.dtype == torch.int32
+        assert torch.equal(found.cpu(), found2)
+        assert torch.equal(miss.cpu(), miss2)
+    assert int(miss[0]) > 0 and int((found[-1] >= 0).sum()) > 0
 
 
 def test_q3_on_card_equals_cpu():
@@ -201,6 +289,27 @@ ORDER BY revenue DESC, o_orderdate, l_orderkey LIMIT 10"""
         rows.append(s.execute(q3).rows)
         assert s.executor.strategy_decisions["AggregateNode"] == "hash"
     assert rows[0] == rows[1] and len(rows[0]) == 10
+
+
+def test_partitioned_hash_agg_on_card_equals_cpu():
+    """15,000 groups into 1024-slot tables: the aggregate escapes, and on
+    the card every partition then aggregates in one K3 launch; rows equal
+    the CPU's."""
+    _card()
+    from trino_tpu_torch.exec.session import Session
+    sql = ("SELECT l_orderkey, count(*), sum(l_quantity), min(l_partkey) "
+           "FROM lineitem GROUP BY l_orderkey ORDER BY l_orderkey")
+    rows = []
+    for device in ("cuda", "cpu"):
+        s = Session(device=device)
+        s.execute("SET SESSION hash_agg_mode = 'force'")
+        s.execute("SET SESSION hash_table_slots = 1024")
+        before = ht.hash_insert_multi.launches
+        rows.append(s.execute(sql).rows)
+        assert s.executor.stats.hash_agg_escapes == 1
+        if device == "cuda":
+            assert ht.hash_insert_multi.launches == before + 2
+    assert rows[0] == rows[1] and len(rows[0]) == 15_000
 
 
 def _tpch_queries():

@@ -168,6 +168,143 @@ def test_build_join_table_duplicate_keys():
         == [(7, 0), (9, 2), (11, 3)]
 
 
+def _reference_pairs(tk_lo, tk_hi, src):
+    """{(key, row id)} of a reference table's occupied slots."""
+    key = (np.asarray(tk_hi).astype(np.int64) << 32) | \
+        (np.asarray(tk_lo).astype(np.int64) & 0xFFFFFFFF)
+    occ = key != ht.EMPTY_KEY
+    return sorted(zip(key[occ].tolist(),
+                      np.asarray(src)[occ].astype(np.int64).tolist()))
+
+
+def _port_pairs(tkey, src):
+    occ = tkey != ht.EMPTY_KEY
+    return sorted(zip(tkey[occ].tolist(), src[occ].tolist()))
+
+
+def test_build_join_tables_equal_per_dimension_reference():
+    """A star's builds in one batched call equal one reference
+    build_join_table per dimension: the {key, row id} slots, dup_rows and
+    escaped (exact where nothing escaped, non-zero together otherwise) —
+    a clean int64 dimension with NULLs and dead rows, a duplicated one, one
+    over its load cap that also holds an EMPTY_KEY-valued key (force-
+    escaped), and a clean int32 one."""
+    rng = np.random.default_rng(41)
+    slots = 1024
+    cap = slots * ht.LOAD_NUM // ht.LOAD_DEN
+    specs = [rng.permutation(1 << 30)[:300].astype(np.int64),
+             rng.choice(100, 300).astype(np.int64) + (1 << 33),
+             np.concatenate([rng.permutation(1 << 20)[:cap + 20],
+                             [ht.EMPTY_KEY]]).astype(np.int64),
+             rng.permutation(1 << 20)[:200].astype(np.int32)]
+    jbs, tbs = [], []
+    for d, keys in enumerate(specs):
+        valid = rng.random(len(keys)) > (0.05 if d == 0 else 0.0)
+        jb, tb = both_batches([keys, np.arange(len(keys))], [valid, None])
+        if d == 0:
+            dead = np.pad(rng.random(len(keys)) < 0.05,
+                          (0, tb.capacity - len(keys)))
+            jb = jb.with_live(jb.live & jnp.asarray(~dead))
+            tb = tb.with_live(tb.live & torch.from_numpy(~dead))
+        jbs.append(jb)
+        tbs.append(tb)
+    tkey, src, dup, esc = ht.build_join_tables(tbs, [(0,)] * len(tbs),
+                                               slots)
+    assert tkey.shape == src.shape == (len(tbs), slots)
+    jdups = []
+    for d, (jb, tb) in enumerate(zip(jbs, tbs)):
+        tk_lo, tk_hi, jsrc, jdup, jesc = ph.build_join_table(
+            jb, (0,), slots, "interpret")
+        jdups.append(int(jdup))
+        one = ht.build_join_table(tb, (0,), slots)
+        assert torch.equal(one[0], tkey[d]) and torch.equal(one[1], src[d])
+        assert int(one[2]) == int(dup[d]) and int(one[3]) == int(esc[d])
+        assert (int(esc[d]) > 0) == (int(jesc) > 0)
+        if int(jesc) == 0:
+            assert int(dup[d]) == int(jdup)
+            assert _port_pairs(tkey[d], src[d]) == \
+                _reference_pairs(tk_lo, tk_hi, jsrc)
+    assert int(dup[1]) == jdups[1] > 0
+    assert int(esc[2]) > 0
+    assert [int(e) for e in esc[[0, 1, 3]]] == [0, 0, 0]
+
+
+def _skewed_groups(rng, count, heavy, light):
+    """Groups (k0 int64, k1 int32 or NULL, a function of k0) whose
+    splitmix64 partition of `count` over both keys is 0 for `heavy` of
+    them and 1..count-1 for `light` each."""
+    from trino_tpu_torch.exec.spill import partition_assignment
+    k0 = rng.permutation(1 << 22).astype(np.int64)
+    k1 = (k0 % 3).astype(np.int32)
+    v1 = k0 % 7 != 0
+    part = partition_assignment([k0, k1], [np.ones(len(k0), bool), v1],
+                                (0, 1), count)
+    pick = np.concatenate([np.flatnonzero(part == 0)[:heavy]] + [
+        np.flatnonzero(part == p)[:light] for p in range(1, count)])
+    return k0[pick], k1[pick], v1[pick]
+
+
+@pytest.mark.parametrize("case", ["uniform", "skewed", "launch-groups"])
+def test_executor_partitioned_agg_matches_reference(case, monkeypatch):
+    """The one-launch partitioned aggregate against the reference's
+    per-partition path, groups as multisets: two group keys (one nullable)
+    and sum/count/min/max. `skewed`: partition 0 holds more groups than a
+    table's cap, escapes alone and finishes on the sort path; `launch-
+    groups`: a launch budget of three tables, so the four partitions run
+    in a group of three and a group of one."""
+    from trino_tpu_torch.exec import executor as texec
+    jex, tex = _executors()
+    rng = np.random.default_rng(43)
+    sorts = []
+    real_sort = texec.sort_group_aggregate
+    monkeypatch.setattr(texec, "sort_group_aggregate",
+                        lambda *a, **kw: sorts.append(1) or
+                        real_sort(*a, **kw))
+    if case == "launch-groups":
+        monkeypatch.setattr(ht, "MAX_LAUNCH_TABLE_BYTES",
+                            3 * ht.table_bytes(1024, 7))
+    heavy = 800 if case == "skewed" else 300
+    k0, k1, v1 = _skewed_groups(rng, 4, heavy, 300)
+    n = 6000
+    rows = rng.integers(0, len(k0), n)
+    vals = rng.integers(-(1 << 40), 1 << 40, n)
+    arrays = [k0[rows], vals, k1[rows]]
+    valids = [None, rng.random(n) > 0.05, v1[rows]]
+    jb, tb = both_batches(arrays, valids)
+    aggs = (("sum", 1), ("count", 1), ("min", 1), ("max", 1))
+    jaggs, taggs = _specs(aggs)
+    want = jex.try_hash_group_agg(jb, (0, 2), jaggs, est_groups=1500)
+    got = tex.try_hash_group_agg(tb, (0, 2), taggs, est_groups=1500)
+    assert tex.stats.hash_agg_escapes == jex.stats.hash_agg_escapes == 1
+    assert rows_of(got) == rows_of(want)
+    assert len(sorts) == (1 if case == "skewed" else 0)
+
+
+@pytest.mark.parametrize("keys,count", [
+    ((0,), 16), ((1,), 4), ((2,), 2), ((0, 1, 2), 256), ((1, 0), 7),
+    ((3,), 32)])
+def test_partition_ids_bit_identical(keys, count):
+    """The device partitioner equals the host tier's numpy one (and the
+    reference's) bit for bit: int64, int32 and bool keys with NULLs, a
+    multi-key, a partition count that is no power of two."""
+    from trino_tpu.exec.spill import _partition_ids as jax_partition_ids
+    from trino_tpu_torch.exec.spill import (partition_assignment,
+                                            partition_ids)
+    rng = np.random.default_rng(47)
+    n = 5000
+    arrays = [rng.integers(-(1 << 62), 1 << 62, n),
+              rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32),
+              rng.integers(0, 2, n).astype(bool),
+              rng.integers(-5, 5, n)]
+    valids = [rng.random(n) > 0.1 for _ in arrays]
+    tb = torch_batch(arrays, valids=valids, device="cpu")
+    got = partition_ids(tb, keys, count)[:n].numpy()
+    assert np.array_equal(got, partition_assignment(arrays, valids, keys,
+                                                    count))
+    assert np.array_equal(got, jax_partition_ids(arrays, valids, keys,
+                                                 count))
+
+
 @pytest.mark.parametrize("kind", ["inner", "left", "semi", "anti"])
 def test_hash_join_probe_matches_reference(kind):
     rng = np.random.default_rng(3)

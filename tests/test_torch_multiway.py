@@ -114,9 +114,8 @@ def test_multiway_probe_matches_reference():
                                       probe_keys, "interpret")
     found, miss = ht.multiway_probe(tb, torch.from_numpy(tkey),
                                     torch.from_numpy(src), probe_keys)
-    assert found.dtype == torch.int64 and miss.dtype == torch.int64
-    assert np.array_equal(found.numpy(),
-                          np.asarray(jfound).astype(np.int64))
+    assert found.dtype == torch.int32 and miss.dtype == torch.int64
+    assert np.array_equal(found.numpy(), np.asarray(jfound))
     assert np.array_equal(miss.numpy(), np.asarray(jmiss))
     # the craft did its job: some row probed X and missed on dim 0
     x = tables[0][0][tables[0][1] == CRAFTED_SRC + ht.MAX_PROBES][0]
@@ -127,6 +126,70 @@ def test_multiway_probe_matches_reference():
     deep_rows = (cols[0] == deep) & valids[0] & ~dead
     assert deep_rows.any() and (found[0, :n].numpy()[deep_rows] ==
                                 CRAFTED_SRC + ht.MAX_PROBES - 1).all()
+
+
+def _key_variant(cols, valids, variant):
+    """The fact key columns of one dimension in the variant's form:
+    `int32` (the keys fit), `int64`, or `two-column` (hi and lo halves
+    that _combined_key packs back into the int64 key). Returns (columns,
+    valids, probe key index tuple) relative to the column's slot."""
+    if variant == "int32":
+        return [cols.astype(np.int32)], [valids], 1
+    if variant == "int64":
+        return [cols], [valids], 1
+    hi = cols >> 32
+    lo = cols & 0xFFFFFFFF
+    return [hi, lo], [valids, valids], 2
+
+
+@pytest.mark.parametrize("variant", ["int32", "int64", "two-column"])
+def test_multiway_probe_keys_in_matches_reference(variant):
+    """The keys-in probe against the interpreted TPU kernel, bit-exact on
+    `found` (int32) and `miss`, per key form: one int32 column, one int64
+    column with EMPTY_KEY-valued keys, and a two-column key (dimension 1);
+    NULL keys, dead rows and an exhausted chain throughout."""
+    rng = np.random.default_rng(31)
+    k, n, slots = 3, 2500, 4096
+    base = (lambda d: d << 26) if variant == "int32" else \
+        (lambda d: d << 40)
+    tables, arrays, valids, probe_keys = [], [], [], []
+    for d in range(k):
+        tkey, src, keys, x, colliders = _crafted_table(
+            rng, 900 + 200 * d, slots, key_base=base(d))
+        tables.append((tkey, src))
+        span = (1 << 31) - 1 if variant == "int32" else 1 << 40
+        pool = np.concatenate([keys, colliders, [x] * 30,
+                               rng.integers(-span, span, 300)])
+        col = rng.choice(pool, n)
+        if variant != "int32":
+            col[rng.random(n) < 0.01] = ht.EMPTY_KEY
+        cs, vs, width = _key_variant(col, rng.random(n) > 0.05,
+                                     variant if d == 1 or
+                                     variant != "two-column" else "int64")
+        probe_keys.append(tuple(range(len(arrays), len(arrays) + width)))
+        arrays.extend(cs)
+        valids.extend(vs)
+    dead = rng.random(n) < 0.05
+    jb = jax_batch(arrays, valids=valids)
+    jb = jb.with_live(jb.live & jnp.asarray(np.pad(~dead, (0, jb.capacity
+                                                            - n))))
+    tb = torch_batch(arrays, valids=valids, device="cpu")
+    tb = tb.with_live(tb.live & torch.from_numpy(
+        np.pad(~dead, (0, tb.capacity - n))))
+    tkey = np.stack([t[0] for t in tables])
+    src = np.stack([t[1] for t in tables])
+    lo, hi = ph._split64(jnp.asarray(tkey))
+    jfound, jmiss = ph.multiway_probe(jb, lo, hi,
+                                      jnp.asarray(src.astype(np.int32)),
+                                      tuple(probe_keys), "interpret")
+    # the tables interleaved, as build_join_tables gives them
+    pairs = torch.from_numpy(np.stack([tkey, src], -1))
+    found, miss = ht.multiway_probe(tb, pairs[..., 0], pairs[..., 1],
+                                    tuple(probe_keys))
+    assert found.dtype == torch.int32
+    assert np.array_equal(found.numpy(), np.asarray(jfound))
+    assert np.array_equal(miss.numpy(), np.asarray(jmiss))
+    assert int(miss[0]) > 0 and int((found[-1] >= 0).sum()) > 0
 
 
 def test_multiway_probe_short_circuit_and_dead_rows():

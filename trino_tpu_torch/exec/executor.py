@@ -120,6 +120,15 @@ def _subtree_scans(node: "L.PlanNode"):
         yield from _subtree_scans(c)
 
 
+def _int_words(t: torch.Tensor) -> torch.Tensor:
+    """`t` flattened, as int32 or int64 (concatenation promotes a mix of
+    the two to int64 exactly); other dtypes are cast to int64."""
+    t = t.reshape(-1)
+    if t.dtype == torch.int64 or t.dtype == torch.int32:
+        return t
+    return t.to(torch.int64)
+
+
 def _is_integer(dtype: torch.dtype) -> bool:
     return not dtype.is_floating_point and not dtype.is_complex
 
@@ -336,8 +345,9 @@ class Executor:
 
     def fetch_ints(self, node, tag: str, *vals) -> tuple:
         """Fetch small device integers as host ints — through the decision
-        cache when `node`'s subtree is deterministic. The sync point: one
-        stack + tolist per call."""
+        cache when `node`'s subtree is deterministic. A tensor value gives
+        all of its elements, in order. The sync point: one cat + tolist
+        per call."""
         key = None
         if node is not None and self.decisions_cacheable(node):
             skey = self.memo_structure_key(node)
@@ -346,8 +356,8 @@ class Executor:
                 hit = self._decision_cache.get(key)
                 if hit is not None:
                     return hit
-        out = tuple(int(v) for v in torch.stack(
-            [torch.as_tensor(v, device=self.device).to(torch.int64)
+        out = tuple(int(v) for v in torch.cat(
+            [_int_words(torch.as_tensor(v, device=self.device))
              for v in vals]).tolist())
         if key is not None:
             if len(self._decision_cache) >= 4096:
@@ -786,50 +796,74 @@ class Executor:
     def _partitioned_hash_agg(self, child: Batch, keys: tuple, aggs,
                               kmins, bits: tuple, est_groups: int,
                               slots: int) -> Batch:
-        """The escape path: radix-partition on the host with the
-        splitmix64 partitioner (exec/spill._partition_ids); groups never
-        straddle partitions, so per-partition results concatenate."""
+        """The escape path: radix-partition on the device with the
+        splitmix64 partitioner (exec/spill.partition_ids, bit for bit the
+        host tier's), then aggregate every partition in ONE K3 launch over
+        [count, T] tables (partitions in groups when their tables pass
+        MAX_LAUNCH_TABLE_BYTES), read every partition's escape and
+        occupancy counters in one fetch, and compact the occupied slots of
+        the clean partitions on the device. Groups never straddle
+        partitions, so the partitions' groups concatenate; a partition
+        that still escaped (skew) finishes on the sort kernel."""
         from ..ops import hashtable as ht
-        from .spill import _partition_ids
-        dev = self.device
-        arrs, vals = batch_to_numpy(child)
+        from .spill import partition_ids
         load = ht.LOAD_NUM / ht.LOAD_DEN
         want = max(2, -(-int(max(est_groups, 1)) //
                         max(1, int(slots * load))))
         count = 2
         while count < want and count < 256:
             count *= 2
-        part = _partition_ids(arrs, vals, keys, count)
-        outs: List[tuple] = []
-        for p in range(count):
-            m = part == p
-            if not m.any():
-                continue
-            pb = batch_from_numpy([a[m] for a in arrs],
-                                  valids=[v[m] for v in vals], device=dev)
-            out, esc, _occ = ht.hash_group_aggregate(
-                pb, kmins, keys, bits, aggs, slots)
-            if int(esc) > 0:
-                # still too many groups in this partition (skew): the
-                # sort kernel finishes it — groups are disjoint anyway
-                out = sort_group_aggregate(
-                    pb, keys, aggs, bucket_capacity(int(m.sum())),
-                    self.gather_mode())
-            oa, ov = batch_to_numpy(out)
-            if oa and len(oa[0]):
-                outs.append((oa, ov))
-        if not outs:
-            empty = batch_from_numpy(
-                [np.zeros(0, np.asarray(a).dtype) for a in arrs],
-                valids=[np.zeros(0, np.bool_) for _ in arrs], device=dev)
-            out, _e, _o = ht.hash_group_aggregate(
-                empty, kmins, keys, bits, aggs, ht.MIN_TABLE_SLOTS)
+        pid = partition_ids(child, keys, count)
+        _layout, ns, _nv = ht.agg_layout(aggs)
+        per_launch = max(1, ht.MAX_LAUNCH_TABLE_BYTES //
+                         ht.table_bytes(slots, ns))
+        pieces, escaped = [], []
+        for g0 in range(0, count, per_launch):
+            g = min(per_launch, count - g0)
+            if g == count:
+                live, tid = child.live, pid.to(torch.int32)
+            else:
+                live = child.live & (pid >= g0) & (pid < g0 + g)
+                tid = (pid - g0).to(torch.int32)
+            tkey, st, counters = ht.hash_group_aggregate_tables(
+                child, kmins, keys, bits, aggs, slots, g, tid, live)
+            vals = self.fetch_ints(None, "partagg", counters)
+            esc = [p for p in range(g) if vals[2 * p] > 0]
+            n = sum(vals[2 * p + 1] for p in range(g) if p not in esc)
+            occupied = tkey != ht.EMPTY_KEY
+            if esc:
+                occupied[esc] = False
+                escaped.extend(g0 + p for p in esc)
+            idx = torch.nonzero(occupied.reshape(-1)).flatten()
+            pieces.append((n, tkey.reshape(-1)[idx],
+                           st.reshape(ns, -1)[:, idx]))
+        total = sum(p[0] for p in pieces)
+        cap = pad_capacity(total)
+        out_key = torch.full((cap,), ht.EMPTY_KEY, dtype=torch.int64,
+                             device=self.device)
+        out_st = torch.zeros((ns, cap), dtype=torch.int64,
+                             device=self.device)
+        at = 0
+        for n, pk, ps in pieces:
+            out_key[at:at + n] = pk
+            out_st[:, at:at + n] = ps
+            at += n
+        out = ht.group_rows(child, out_key, out_st, keys, bits, kmins, aggs)
+        if not escaped:
             return out
-        ncols = len(outs[0][0])
+        # still too many groups in a partition (skew): the sort kernel
+        # finishes it — groups are disjoint across partitions anyway
+        outs = [batch_to_numpy(out)]
+        for p in escaped:
+            pb = child.with_live(child.live & (pid == p))
+            rows = self.fetch_ints(None, "partrows", pb.live.sum())[0]
+            outs.append(batch_to_numpy(sort_group_aggregate(
+                pb, keys, aggs, bucket_capacity(rows), self.gather_mode())))
         return batch_from_numpy(
-            [np.concatenate([o[0][j] for o in outs]) for j in range(ncols)],
+            [np.concatenate([o[0][j] for o in outs])
+             for j in range(len(outs[0][0]))],
             valids=[np.concatenate([o[1][j] for o in outs])
-                    for j in range(ncols)], device=dev)
+                    for j in range(len(outs[0][0]))], device=self.device)
 
     # ---- uncorrelated scalar subqueries (fold to constants) ----------
 
@@ -1308,9 +1342,9 @@ class Executor:
         joins use, and column order is restored to ladder order at the
         end. The fact side is authoritative (never flipped to build).
 
-        Chunk mode caches the validated dimension tables per node, so each
-        streamed fact chunk probes sync-free like the pairwise dense-LUT
-        path."""
+        Chunk mode caches the validated dimension tables per node, as
+        the probe reads them, so each streamed fact chunk probes sync-free
+        like the pairwise dense-LUT path."""
         from ..ops import hashtable as ht
         if self.multiway_mode() == "off":
             self._note_multijoin_degrade("kernel_off", len(node.dims))
@@ -1325,17 +1359,16 @@ class Executor:
             if self.chunk_mode:
                 self._chunk_lut_cache[ckey] = rec
         fused, degraded_dims = rec
-        if len(fused) < 2:
+        if fused is None or len(fused[0]) < 2:
             # nothing left worth a fused pass: run the whole ladder over
             # the already-materialised children
             return self._run_multijoin_ladder(node, fact, dims)
+        fused_dims, tkey, src = fused
         found, _miss = ht.multiway_probe(
-            fact, torch.stack([b[1] for b in fused]),
-            torch.stack([b[2] for b in fused]),
-            tuple(node.fact_keys[b[0]] for b in fused))
+            fact, tkey, src, tuple(node.fact_keys[d] for d in fused_dims))
         self.stats.multijoin_fused_probes += 1
         self.strategy_decisions["MultiJoinNode"] = \
-            f"multiway[k={len(fused)}]"
+            f"multiway[k={len(fused_dims)}]"
         # payload assembly: fused dims first (their found rows align to
         # fact rows), then each degraded dim through the pairwise path;
         # unique-build hops are commutative live-mask ANDs and dup
@@ -1347,7 +1380,7 @@ class Executor:
         acc_out = list(node.fact.output)
         col_ranges: Dict[int, tuple] = {}
         pos = len(fact.columns)
-        for i, (d, _tk, _src) in enumerate(fused):
+        for i, d in enumerate(fused_dims):
             matched = found[i] >= 0
             pk, _pk_valid = _combined_key(fact, node.fact_keys[d])
             src_c = found[i].clamp(0, dims[d].capacity - 1)
@@ -1392,8 +1425,9 @@ class Executor:
 
     def _multijoin_tables(self, node: L.MultiJoinNode, fact: Batch,
                           dims: list):
-        """Size, build and validate the star's dimension tables (K3);
-        returns (fused [(d, tkey, src)], degraded dims in order)."""
+        """Size, build (one K3 launch) and validate the star's dimension
+        tables; returns (fused, degraded dims in order), fused = (dims in
+        order, their tables tkey/src [k, T]) or None."""
         from ..ops import hashtable as ht
         degraded: Dict[int, str] = {}
         sized = []
@@ -1426,24 +1460,28 @@ class Executor:
             drop = max(sized, key=lambda x: x[1])
             sized.remove(drop)
             degraded[drop[0]] = "vmem"
-        fused = []
+        fused = None
         if len(sized) >= 2:
             table_slots = max(s for _, s in sized)
-            builds, checks = [], []
-            for d, _s in sized:
-                tkey, src, dup, esc = ht.build_join_table(
-                    dims[d], node.dim_keys[d], table_slots)
-                builds.append((d, tkey, src))
-                checks.extend((dup, esc))
+            tkey, src, dup, esc = ht.build_join_tables(
+                [dims[d] for d, _s in sized],
+                [node.dim_keys[d] for d, _s in sized], table_slots)
             # ONE fused validation fetch for all k builds
-            vals = self.fetch_ints(node, f"mjbuild{table_slots}", *checks)
-            for i, b in enumerate(builds):
-                if vals[2 * i] > 0:
-                    degraded[b[0]] = "dup"
-                elif vals[2 * i + 1] > 0:
-                    degraded[b[0]] = "escape"
+            vals = self.fetch_ints(node, f"mjbuild{table_slots}", dup, esc)
+            m = len(sized)
+            keep = []
+            for i, (d, _s) in enumerate(sized):
+                if vals[i] > 0:
+                    degraded[d] = "dup"
+                elif vals[m + i] > 0:
+                    degraded[d] = "escape"
                 else:
-                    fused.append(b)
+                    keep.append(i)
+            if 2 <= len(keep) < m:
+                # the surviving dims' tables, interleaved again
+                pairs = torch.stack((tkey[keep], src[keep]), -1)
+                tkey, src = pairs[..., 0], pairs[..., 1]
+            fused = ([sized[i][0] for i in keep], tkey, src)
         for _d, reason in sorted(degraded.items()):
             self._note_multijoin_degrade(reason)
         return fused, sorted(degraded)

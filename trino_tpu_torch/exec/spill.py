@@ -51,6 +51,35 @@ def partition_assignment(arrays, valids, key_idxs, count: int):
     return (h % np.uint64(count)).astype(np.int64)
 
 
+_NULL_MARK = 0xA5A5A5A5A5A5A5A5 - (1 << 64)      # as a signed int64
+
+
+def partition_ids(batch, key_idxs, count: int):
+    """``partition_assignment`` on the device, bit for bit: per-row
+    partition ids [capacity] int64 of `batch` from its key columns (dead
+    rows get ids too; callers mask them). Integer and bool keys only."""
+    import torch
+    from ..ops.hashtable import _splitmix64
+    h = None
+    for j, i in enumerate(key_idxs):
+        col = batch.columns[i]
+        if col.data.dtype.is_floating_point or col.data.dtype.is_complex:
+            raise ValueError(
+                f"partitioned exchange requires integer keys, got "
+                f"{col.data.dtype}")
+        k = torch.where(col.valid, col.data.to(torch.int64), _NULL_MARK)
+        m = _splitmix64(k + j)
+        h = m if h is None else h ^ m
+    if h is None:
+        return torch.zeros(batch.capacity, dtype=torch.int64,
+                           device=batch.device)
+    if count & (count - 1) == 0:
+        return h & (count - 1)
+    # unsigned 64-bit remainder of the int64 bit pattern
+    r = torch.remainder(h, count)
+    return torch.where(h < 0, (r + (1 << 64) % count) % count, r)
+
+
 def _partition_ids(arrays, valids, key_idxs, count: int) -> np.ndarray:
     return partition_assignment(arrays, valids, key_idxs, count)
 

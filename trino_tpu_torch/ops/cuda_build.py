@@ -48,12 +48,13 @@ SIGNATURES = {
     # idx, n, lut, lut_len, esize, out, esc, stream
     "window_gather": {"k2_window_gather": [_P, _I64, _P, _I64, _I, _P, _P,
                                            _P]},
-    # slot, key, vbits, vals, n, tkey, states, T, cap, counters, layout
-    # (4 arrays), k, nstates, stream
-    "hash_insert": {"k3_hash_insert": [_P] * 4 + [_I64] + [_P] * 2 +
-                    [_I64, _I, _P] + [_P] * 4 + [_I, _I, _P]},
-    # slot, key, tkey, src, n, k, T, found, miss, stream
-    "multiprobe": {"k4_multiprobe": [_P] * 4 + [_I64, _I, _I64] + [_P] * 3},
+    # key, mask, tid, n, layout, planes, buf, T, G, cap, pairs,
+    # pair state, stream
+    "hash_insert": {"k3_hash_insert_multi": [_P] * 3 + [_I64] + [_P] * 3 +
+                    [_I64, _I, _I, _P, _I, _P]},
+    # live, dims, n, k, table, T, found, miss, stream
+    "multiprobe": {"k4_multiprobe": [_P, _P, _I64, _I, _P, _I64, _P, _P,
+                                     _P]},
     # gid, planes, n, a, groups, out, stream
     "direct_agg": {"k5_group_sums": [_P, _P, _I64, _I, _I, _P, _P]},
 }

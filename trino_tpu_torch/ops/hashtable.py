@@ -17,13 +17,17 @@ VMEM-derived ``max_table_slots``), so the executor picks the same table
 sizes and partition counts as the reference. Lifting those VMEM-born caps
 is later performance work (ROADMAP).
 
-The kernel (``csrc/hash_insert.cu``) runs one thread per row with 64-bit
-atomics; which rows escape may differ from the TPU's sequential order, but
-``esc > 0`` iff some live row was not accumulated, and with ``esc == 0``
-the occupancy is exact and every group's states equal the sequential
-kernel's (a run with escapes is discarded by the caller).
-The plain torch version beside it is vectorised (up to MAX_PROBES rounds
-over all unresolved rows) and gives the same guarantees.
+The kernel (``csrc/hash_insert.cu``, entry ``hash_insert_multi``) fills
+G independent tables in one launch (a star's dimension builds, or every
+partition of a partitioned hash aggregate), each row carrying its table
+id; it computes the home slot itself and keeps per-table counters. It runs
+one thread per row with 64-bit atomics; which rows escape may differ from
+the TPU's sequential order, but per table ``esc > 0`` iff some live row
+of it was not accumulated, and with ``esc == 0`` the occupancy is exact
+and every group's states equal the sequential kernel's (a table with
+escapes is discarded by the caller). The plain torch version beside it is
+vectorised (up to MAX_PROBES rounds over all unresolved rows, per table)
+and gives the same guarantees.
 
 The wrapper decides by the tensors' device: CPU -> plain version, CUDA ->
 kernel or raise.
@@ -34,8 +38,10 @@ probe walks each chain with MAX_PROBES rounds of K1 gathers.
 
 K4, the fused multiway star probe (the reference's ``_multiprobe_kernel``
 launched by ``multiway_probe``), probes up to MAX_MULTI_DIMS such tables,
-all built at one shared slot count, in one pass over the fact rows
-(``csrc/multiprobe.cu``; plain version ``multiway_probe_plain``).
+all built at one shared slot count, in one pass over the fact rows: it
+reads each dimension's key column as it lies and derives the slots
+itself (``csrc/multiprobe.cu``; plain version: the reference wrapper's
+encoding in torch, ``encode_probe_keys``, then ``multiway_probe_plain``).
 """
 
 from __future__ import annotations
@@ -232,60 +238,182 @@ def hash_insert_plain(slot, key, vbits, vals, layout: tuple, nstates: int,
 
 def hash_insert(slot, key, vbits, vals, layout: tuple, nstates: int,
                 table_slots: int):
-    """Run K3. slot/key [n] int64 (slot -1 = skip row), vbits [n] int32
-    (bit a: aggregate a takes the row), vals [NV, n] int64. Returns
-    (table keys [T] int64, states [nstates, T] int64, escaped, occupied)
-    with the counters as 0-d int64 tensors."""
-    dev = key.device
-    for t in (slot, key, vbits, vals):
-        if t.device != dev:
-            raise ValueError("hash_insert: inputs must share a device")
-        if t.dtype.is_floating_point or t.dtype == torch.bool:
-            raise ValueError("hash_insert: inputs must be integer tensors")
+    """One table through K3 (``hash_insert_multi``) in the slot-plane
+    form: slot/key [n] int64, slot = hash_slot(key, T) or -1 to skip the
+    row (K3 computes the home slot itself, so only slot's sign is read),
+    vbits [n] int32 (bit a: aggregate a takes the row), vals [NV, n]
+    int64. Returns (table keys [T] int64, states [nstates, T] int64,
+    escaped, occupied), the counters as 0-d int32 tensors."""
+    planes = tuple((None if vp < 0 else vals[vp],
+                    ((vbits >> a) & 1).to(torch.bool))
+                   for a, (_kind, _vs, _cs, vp) in enumerate(layout))
+    tkey, st, counters, _ = hash_insert_multi(
+        key.to(torch.int64), slot >= 0, planes, layout, nstates,
+        table_slots)
+    return tkey[0], st[:, 0], counters[0, 0], counters[0, 1]
+
+
+# the tables of one K3 launch (keys and states of every table it fills)
+# stay under this many bytes; a partitioned aggregate above it takes its
+# partitions in groups
+MAX_LAUNCH_TABLE_BYTES = 1 << 30
+
+
+def table_bytes(table_slots: int, nstates: int) -> int:
+    """Device bytes of one K3 table: its keys and states, 8 B a slot
+    each."""
+    return 8 * table_slots * (1 + nstates)
+
+
+def hash_insert_multi(key, mask, planes, layout: tuple, nstates: int,
+                      table_slots: int, tables: int = 1, tid=None,
+                      pairs: bool = False):
+    """Run K3 over `tables` independent tables of `table_slots` slots in
+    one launch. key [n] int64; mask [n] bool (False: skip the row); tid
+    [n] int32, each row's table (may be None when tables == 1);
+    `planes`, per aggregate of `layout`: (value [n] int32/int64, None for
+    a count; validity [n] bool, None: every row the mask keeps). Returns
+    (table keys [G, T] int64 (EMPTY_KEY = empty), states [nstates, G, T]
+    int64, counters [G, 2] int32 (escaped, occupied), pairs): with
+    `pairs` (a join build, state 0 = row id), the [G, T, 2] int64 table
+    of {key, row id} slots that K4 reads, else None."""
     n = key.shape[0]
-    if slot.shape != (n,) or vbits.shape != (n,) or vals.dim() != 2 or \
-            vals.shape[1] != n:
-        raise ValueError("hash_insert: shape mismatch")
-    if table_slots & (table_slots - 1) or not \
-            MIN_TABLE_SLOTS <= table_slots <= MAX_TABLE_SLOTS:
-        raise ValueError(f"hash_insert: bad table size {table_slots}")
-    if len(layout) > MAX_HASH_AGGS:
-        raise ValueError("hash_insert: too many aggregates")
+    T, G = table_slots, tables
+    if key.dtype != torch.int64 or key.dim() != 1 or \
+            mask.dtype != torch.bool or mask.shape != key.shape:
+        raise ValueError("hash_insert_multi: key must be [n] int64 and "
+                         "mask [n] bool")
+    if G < 1 or (tid is None and G != 1) or (
+            tid is not None and (tid.dtype != torch.int32 or
+                                 tid.shape != key.shape)):
+        raise ValueError("hash_insert_multi: tid must be [n] int32 "
+                         "where there are several tables")
+    if T & (T - 1) or not MIN_TABLE_SLOTS <= T <= MAX_TABLE_SLOTS:
+        raise ValueError(f"hash_insert_multi: bad table size {T}")
+    if len(layout) > MAX_HASH_AGGS or len(planes) != len(layout):
+        raise ValueError("hash_insert_multi: planes do not match the "
+                         "layout")
+    for val, valid in planes:
+        if val is not None and (val.shape != (n,) or not _is_integer(
+                val.dtype)) or valid is not None and (
+                valid.shape != (n,) or valid.dtype != torch.bool):
+            raise ValueError("hash_insert_multi: bad value or validity "
+                             "plane")
+    dev = key.device
     if dev.type == "cpu":
-        return hash_insert_plain(slot, key, vbits, vals, layout, nstates,
-                                 table_slots)
+        return hash_insert_multi_plain(key, mask, planes, layout, nstates,
+                                       T, G, tid, pairs)
     if dev.type != "cuda":
-        raise RuntimeError(f"hash_insert: no kernel for {dev}")
-    return _launch(slot, key, vbits, vals, layout, nstates, table_slots)
+        raise RuntimeError(f"hash_insert_multi: no kernel for {dev}")
+    return _launch(key, mask, tid, planes, layout, nstates, T, G, pairs)
 
 
-hash_insert.launches = 0
+hash_insert_multi.launches = 0
 
 
-def _launch(slot, key, vbits, vals, layout, nstates, T):
-    fn = library("hash_insert").k3_hash_insert
-    slot = slot.to(torch.int64).contiguous()
-    key = key.to(torch.int64).contiguous()
-    vbits = vbits.to(torch.int32).contiguous()
-    vals = vals.to(torch.int64).contiguous()
+def hash_insert_multi_plain(key, mask, planes, layout: tuple, nstates: int,
+                            table_slots: int, tables: int = 1, tid=None,
+                            pairs: bool = False):
+    """Plain version of hash_insert_multi: hash_insert_plain per table,
+    the home slot from hash_slot in torch."""
+    T, dev = table_slots, key.device
     n = key.shape[0]
+    home = hash_slot(key, T)
+    vbits = torch.zeros(n, dtype=torch.int32, device=dev)
+    vals = torch.zeros((_value_planes(layout), n), dtype=torch.int64,
+                       device=dev)
+    for a, ((_kind, _vs, _cs, vp), (val, valid)) in enumerate(
+            zip(layout, planes)):
+        bit = mask if valid is None else mask & valid
+        vbits = vbits | (bit.to(torch.int32) << a)
+        if vp >= 0:
+            vals[vp] = val.to(torch.int64)
+    tkeys, states, counts = [], [], []
+    for g in range(tables):
+        rows = mask if tid is None else mask & (tid == g)
+        tk, st, esc, occ = hash_insert_plain(
+            torch.where(rows, home, -1), key, vbits, vals, layout, nstates,
+            T)
+        tkeys.append(tk)
+        states.append(st)
+        counts.append([int(esc), int(occ)])
+    tkey = torch.stack(tkeys)
+    st = torch.stack(states, 1)
+    counters = torch.tensor(counts, dtype=torch.int32, device=dev)
+    return tkey, st, counters, \
+        torch.stack((tkey, st[0]), -1) if pairs else None
+
+
+def _value_planes(layout: tuple) -> int:
+    """Value planes a layout reads (at least 1, as agg_layout gives)."""
+    return max([vp + 1 for *_x, vp in layout] + [1])
+
+
+class _Layout(ctypes.Structure):
+    """csrc/hash_insert.cu's `Layout`."""
+    _fields_ = [("kind", ctypes.c_int * MAX_HASH_AGGS),
+                ("val_state", ctypes.c_int * MAX_HASH_AGGS),
+                ("cnt_state", ctypes.c_int * MAX_HASH_AGGS),
+                ("naggs", ctypes.c_int), ("nstates", ctypes.c_int)]
+
+
+# (layout, nstates) -> (packed _Layout, its address): a plan's aggregate
+# layout is packed once, not on every launch
+_PACKED_LAYOUTS: dict = {}
+_PlaneWords = ctypes.c_uint64 * (3 * MAX_HASH_AGGS)
+
+
+def _packed_layout(layout: tuple, nstates: int) -> int:
+    got = _PACKED_LAYOUTS.get((layout, nstates))
+    if got is None:
+        lay = _Layout()
+        for a, (kind, vs, cs, _vp) in enumerate(layout):
+            lay.kind[a], lay.val_state[a], lay.cnt_state[a] = kind, vs, cs
+        lay.naggs, lay.nstates = len(layout), nstates
+        got = _PACKED_LAYOUTS[(layout, nstates)] = (lay, ctypes.addressof(
+            lay))
+    return got[1]
+
+
+def _launch(key, mask, tid, planes, layout, nstates, T, G, pairs):
+    fn = library("hash_insert").k3_hash_insert_multi
     dev = key.device
-    tkey = torch.empty(T, dtype=torch.int64, device=dev)
-    st = torch.empty((max(nstates, 1), T), dtype=torch.int64, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)
-    k = len(layout)
-    arr = [(ctypes.c_int * max(k, 1))(*[row[j] for row in layout])
-           for j in range(4)]
-    stream = raw_stream(dev)
-    status = fn(slot.data_ptr(), key.data_ptr(), vbits.data_ptr(),
-                vals.data_ptr(), n, tkey.data_ptr(), st.data_ptr(), T,
-                T * LOAD_NUM // LOAD_DEN, counters.data_ptr(),
-                *[ctypes.cast(a, ctypes.c_void_p) for a in arr],
-                k, nstates, stream)
+    key, mask = key.contiguous(), mask.contiguous()
+    words = [0] * (3 * MAX_HASH_AGGS)
+    held = []                     # converted planes live across the call
+    for a, (val, valid) in enumerate(planes):
+        if val is not None:
+            if val.dtype != torch.int64 and val.dtype != torch.int32:
+                val = val.to(torch.int64)
+            val = val.contiguous()
+            held.append(val)
+            words[3 * a] = val.data_ptr()
+            words[3 * a + 2] = val.element_size()
+        if valid is not None:
+            valid = valid.contiguous()
+            held.append(valid)
+            words[3 * a + 1] = valid.data_ptr()
+    if tid is not None:
+        tid = tid.contiguous()
+    gt = G * T
+    cwords = G + (G & 1)          # counters, in int64 words (pairs align)
+    body = cwords + gt * (1 + nstates)
+    buf = torch.empty(body + (2 * gt if pairs else 0), dtype=torch.int64,
+                      device=dev)
+    base = buf.data_ptr()
+    status = fn(key.data_ptr(), mask.data_ptr(),
+                0 if tid is None else tid.data_ptr(), key.shape[0],
+                _packed_layout(layout, nstates), _PlaneWords(*words), base,
+                T, G, T * LOAD_NUM // LOAD_DEN,
+                base + 8 * body if pairs else 0, 0 if pairs else -1,
+                raw_stream(dev))
     check(status, "K3 hash insert launch")
-    hash_insert.launches += 1
-    c = counters.to(torch.int64)
-    return tkey, st[:nstates], c[0], c[1]
+    hash_insert_multi.launches += 1
+    return (buf.as_strided((G, T), (T, 1), cwords),
+            buf.as_strided((nstates, G, T), (gt, T, 1), cwords + gt),
+            buf.view(torch.int32).as_strided((G, 2), (2, 1)),
+            buf.as_strided((G, T, 2), (2 * T, 2, 1), body) if pairs
+            else None)
 
 
 # --------------------------------------------------------------------------
@@ -310,6 +438,33 @@ def supports_aggs(batch: Batch, aggs: tuple) -> bool:
     return True
 
 
+def _packed_key(batch: Batch, kmins, key_indices: tuple,
+                key_bits: tuple) -> torch.Tensor:
+    """The group key packed into one int64 word (digit 0 = NULL)."""
+    packed = None
+    for j, (ki, b) in enumerate(zip(key_indices, key_bits)):
+        col = batch.columns[ki]
+        digit = torch.where(col.valid,
+                            col.data.to(torch.int64) - (int(kmins[j]) - 1),
+                            0)
+        packed = digit if packed is None else (packed << b) | digit
+    return packed
+
+
+def _agg_planes(batch: Batch, aggs: tuple) -> tuple:
+    """K3's (value, validity) planes per aggregate: the argument column
+    as it lies (counts read no value; count(*) takes every row)."""
+    planes = []
+    for spec in aggs:
+        if spec.arg_index is None:
+            planes.append((None, None))
+            continue
+        col = batch.columns[spec.arg_index]
+        planes.append((None if _KIND[spec.func] == _K_COUNT else col.data,
+                       col.valid))
+    return tuple(planes)
+
+
 def hash_group_aggregate(batch: Batch, kmins, key_indices: tuple,
                          key_bits: tuple, aggs: tuple, table_slots: int):
     """Group-by through the hash table. Keys pack into one int64 word with
@@ -317,35 +472,36 @@ def hash_group_aggregate(batch: Batch, kmins, key_indices: tuple,
     Returns (out_batch, escaped, n_groups); escaped > 0 means the caller
     must discard the batch and radix-partition. Output capacity is
     `table_slots`, live = occupied slots (slot order)."""
-    n = batch.capacity
-    dev = batch.device
-    packed = torch.zeros(n, dtype=torch.int64, device=dev)
-    for j, (ki, b) in enumerate(zip(key_indices, key_bits)):
-        col = batch.columns[ki]
-        norm = col.data.to(torch.int64) - int(kmins[j]) + 1
-        packed = (packed << b) | torch.where(col.valid, norm, 0)
-    slot = torch.where(batch.live, hash_slot(packed, table_slots), -1)
+    tkey, st, counters = hash_group_aggregate_tables(
+        batch, kmins, key_indices, key_bits, aggs, table_slots)
+    out = group_rows(batch, tkey[0], st[:, 0], key_indices, key_bits, kmins,
+                     aggs)
+    return out, counters[0, 0], counters[0, 1]
 
-    layout, ns, nv = agg_layout(aggs)
-    vbits = torch.zeros(n, dtype=torch.int32, device=dev)
-    vplanes: List[torch.Tensor] = [torch.zeros(n, dtype=torch.int64,
-                                               device=dev)] * nv
-    for a, spec in enumerate(aggs):
-        if spec.arg_index is None:
-            bit = batch.live
-        else:
-            bit = batch.live & batch.columns[spec.arg_index].valid
-        vbits = vbits | (bit.to(torch.int32) << a)
-        kind, vs, cs, vp = layout[a]
-        if kind != _K_COUNT:
-            col = batch.columns[spec.arg_index]
-            vplanes[vp] = torch.where(bit, col.data.to(torch.int64), 0)
 
-    tkey, st, esc, occ = hash_insert(slot, packed, vbits,
-                                     torch.stack(vplanes), layout, ns,
-                                     table_slots)
+def hash_group_aggregate_tables(batch: Batch, kmins, key_indices: tuple,
+                                key_bits: tuple, aggs: tuple,
+                                table_slots: int, tables: int = 1,
+                                tid=None, live=None):
+    """The insert of `hash_group_aggregate` into `tables` tables in one
+    K3 launch, row i into table tid[i], for the rows `live` keeps
+    (default: the batch's). Returns (table keys [G, T], states
+    [nstates, G, T], counters [G, 2] int32 (escaped, occupied))."""
+    layout, ns, _nv = agg_layout(aggs)
+    tkey, st, counters, _ = hash_insert_multi(
+        _packed_key(batch, kmins, key_indices, key_bits),
+        batch.live if live is None else live, _agg_planes(batch, aggs),
+        layout, ns, table_slots, tables, tid)
+    return tkey, st, counters
+
+
+def group_rows(batch: Batch, tkey, st, key_indices: tuple,
+               key_bits: tuple, kmins, aggs: tuple) -> Batch:
+    """Decode table slots (keys [m], states [nstates, m]) into the
+    aggregate's output batch: group key columns, then one column per
+    aggregate; live = occupied slots."""
+    layout, _ns, _nv = agg_layout(aggs)
     occupied = tkey != EMPTY_KEY
-
     out_cols: List[Column] = []
     rem = tkey
     rev = []
@@ -371,7 +527,7 @@ def hash_group_aggregate(batch: Batch, kmins, key_indices: tuple,
         else:
             dt = batch.columns[spec.arg_index].data.dtype
             out_cols.append(Column(data=st[vs].to(dt), valid=valid))
-    return Batch(columns=tuple(out_cols), live=occupied), esc, occ
+    return Batch(columns=tuple(out_cols), live=occupied)
 
 
 # --------------------------------------------------------------------------
@@ -382,27 +538,63 @@ def hash_group_aggregate(batch: Batch, kmins, key_indices: tuple,
 _JOIN_LAYOUT = ((_K_MIN, 0, 1, 0),)     # min(row_id) + its count
 
 
+def _join_builds(builds, keys_per_build, table_slots: int, pairs: bool):
+    """k hash-join builds in one K3 launch, build d into table d: every
+    valid build key with min(row_id) as payload. Returns (table keys
+    [k, T], src [k, T] int64 row ids, dup_rows [k], escaped [k]); with
+    `pairs` the two planes are views of the interleaved table K4 reads.
+    Per build the reference's accounting: keys equal to EMPTY_KEY are
+    force-escaped, and dup_rows = ok rows - forced - escaped - occupied."""
+    from .join import _combined_key
+    dev = builds[0].device
+    keys, oks, rows, n_valid, n_ok = [], [], [], [], []
+    for b, bk_idx in zip(builds, keys_per_build):
+        bk, bk_valid = _combined_key(b, bk_idx)
+        valid = b.live & bk_valid
+        ok = valid & (bk != EMPTY_KEY)
+        keys.append(bk)
+        oks.append(ok)
+        rows.append(torch.arange(b.capacity, dtype=torch.int32, device=dev))
+        n_valid.append(valid.sum(dtype=torch.int64))
+        n_ok.append(ok.sum(dtype=torch.int64))
+    k = len(builds)
+    tid = None if k == 1 else torch.cat([
+        torch.full((b.capacity,), d, dtype=torch.int32, device=dev)
+        for d, b in enumerate(builds)])
+    tkey, st, counters, pr = hash_insert_multi(
+        torch.cat(keys) if k > 1 else keys[0],
+        torch.cat(oks) if k > 1 else oks[0],
+        ((torch.cat(rows) if k > 1 else rows[0], None),), _JOIN_LAYOUT, 2,
+        table_slots, k, tid, pairs)
+    n_ok = torch.stack(n_ok)
+    forced = torch.stack(n_valid) - n_ok
+    esc, occ = counters[:, 0], counters[:, 1]
+    if pr is not None:
+        tkey, src = pr[..., 0], pr[..., 1]
+    else:
+        src = st[0]
+    return tkey, src, n_ok - forced - esc - occ, esc + forced
+
+
 def build_join_table(build: Batch, build_keys: tuple, table_slots: int):
     """Hash-join build: insert every valid build key with min(row_id) as
     payload. Returns (table keys [T], src [T] int64 row ids, dup_rows,
     escaped) — dup_rows > 0 breaks a unique-build contract, escaped > 0
     means the table overflowed. Keys equal to EMPTY_KEY are force-escaped
     (same accounting as the reference)."""
-    from .join import _combined_key
-    dev = build.device
-    bk, bk_valid = _combined_key(build, build_keys)
-    ok = build.live & bk_valid & (bk != EMPTY_KEY)
-    forced = (build.live & bk_valid & (bk == EMPTY_KEY)).sum(
-        dtype=torch.int64)
-    slot = torch.where(ok, hash_slot(bk, table_slots), -1)
-    rows = torch.arange(build.capacity, dtype=torch.int64, device=dev)
-    tkey, st, esc, occ = hash_insert(slot, bk, ok.to(torch.int32),
-                                     rows[None], _JOIN_LAYOUT, 2,
-                                     table_slots)
-    n_ok = ok.sum(dtype=torch.int64)
-    escaped = esc + forced
-    dup_rows = n_ok - forced - esc - occ
-    return tkey, st[0], dup_rows, escaped
+    tkey, src, dup, esc = _join_builds([build], [build_keys], table_slots,
+                                       False)
+    return tkey[0], src[0], dup[0], esc[0]
+
+
+def build_join_tables(builds, keys_per_build, table_slots: int):
+    """A star's dimension builds in one K3 launch, all at one shared
+    `table_slots`: build d is `build_join_table(builds[d],
+    keys_per_build[d], table_slots)`. Returns (table keys [k, T], src
+    [k, T], dup_rows [k], escaped [k]); keys and src are the two lanes of
+    the interleaved {key, row id} table that ``multiway_probe`` reads
+    with one load per probe step."""
+    return _join_builds(builds, keys_per_build, table_slots, True)
 
 
 def hash_join_probe(probe: Batch, build: Batch, tkey, src,
@@ -454,39 +646,83 @@ def multiway_table_bytes(k: int, table_slots: int) -> int:
     return 3 * 4 * k * table_slots
 
 
+def _probe_key(probe: Batch, key_indices: tuple):
+    """A dimension's fact-side key as K4 reads it: a one-column key as the
+    column lies (int32 or int64), a wider one combined into int64; with
+    its validity plane."""
+    if len(key_indices) == 1:
+        col = probe.columns[key_indices[0]]
+        if col.data.dtype in (torch.int32, torch.int64):
+            return col.data, col.valid
+    from .join import _combined_key
+    return _combined_key(probe, key_indices)
+
+
 def multiway_probe(probe: Batch, tkey: torch.Tensor, src: torch.Tensor,
                    probe_keys: tuple):
     """Fused star probe: k dup/escape-validated dimension tables
-    (`build_join_table` outputs stacked to tkey/src [k, T], all built at
-    one shared T) probed in one pass over the fact batch. `probe_keys`
-    holds the fact-side key index tuple of each dimension. Returns
-    (found [k, n] int64 build row ids, -1 = miss at or before that
-    dimension; miss [k] int64, the rows alive entering dimension d that
-    failed there). Payload gathers stay with the caller."""
-    from .join import _combined_key
+    (`build_join_tables` outputs, or any [k, T] key and row-id planes,
+    all built at one shared T) probed in one pass over the fact batch.
+    `probe_keys` holds the fact-side key index tuple of each dimension.
+    Returns (found [k, n] int32 build row ids, -1 = miss at or before
+    that dimension; miss [k] int64, the rows alive entering dimension d
+    that failed there), as the reference's ``multiway_probe``. Payload
+    gathers stay with the caller. On a card, one memset and one kernel:
+    K4 reads the key columns and derives the slots itself. It reads the
+    interleaved table build_join_tables gives; other planes cost one
+    torch.stack first."""
+    k = len(probe_keys)
+    if tkey.dim() != 2 or tkey.shape != src.shape or \
+            tkey.dtype != torch.int64 or src.dtype != torch.int64 or \
+            tkey.shape[0] != k:
+        raise ValueError("multiway_probe: tables must be [k, T] int64")
     T = tkey.shape[1]
-    slots, keys = [], []
-    for pk_idx in probe_keys:
-        pk, pk_valid = _combined_key(probe, pk_idx)
-        ok = probe.live & pk_valid & (pk != EMPTY_KEY)
-        slots.append(torch.where(ok, hash_slot(pk, T),
-                                 torch.where(probe.live, -1, -2)))
-        keys.append(torch.where(ok, pk.to(torch.int64), 0))
-    return multiway_probe_slots(torch.stack(slots), torch.stack(keys),
-                                tkey, src)
+    if not 1 <= k <= MAX_MULTI_DIMS or T <= 0 or T & (T - 1):
+        raise ValueError(f"multiway_probe: bad k={k} or T={T}")
+    keys = [_probe_key(probe, pk) for pk in probe_keys]
+    dev = probe.device
+    if dev.type == "cpu":
+        return _multiway_probe_keys_plain(probe.live, keys, tkey, src)
+    if dev.type != "cuda":
+        raise RuntimeError(f"multiway_probe: no kernel for {dev}")
+    return _launch_multiprobe(probe.live, keys, tkey, src)
 
 
 multiway_probe.launches = 0
 
 
+def encode_probe_keys(live, keys, table_slots: int):
+    """The reference wrapper's encoding of a star's fact keys, in torch:
+    (slot, key) [k, n] int64 with slot -2 = dead row, -1 = live row with a
+    NULL or sentinel key, else the home slot, and key 0 where slot < 0.
+    `keys` holds each dimension's (key, validity) planes."""
+    slots, planes = [], []
+    for key, valid in keys:
+        key = key.to(torch.int64)
+        ok = live & valid & (key != EMPTY_KEY)
+        slots.append(torch.where(ok, hash_slot(key, table_slots),
+                                 torch.where(live, -1, -2)))
+        planes.append(torch.where(ok, key, 0))
+    return torch.stack(slots), torch.stack(planes)
+
+
+def _multiway_probe_keys_plain(live, keys, tkey, src):
+    """Plain version of multiway_probe: encode_probe_keys, then
+    multiway_probe_plain."""
+    return multiway_probe_plain(*encode_probe_keys(live, keys,
+                                                   tkey.shape[1]),
+                                tkey, src)
+
+
 def multiway_probe_plain(slot, key, tkey, src):
-    """Vectorised plain version: per dimension up to MAX_PROBES rounds of
-    gathers over the unresolved rows; the short-circuit is a live-mask
-    AND carried from one dimension to the next."""
+    """Vectorised plain version on encoded inputs (slot/key [k, n] int64,
+    as ``multiway_probe_slots``): per dimension up to MAX_PROBES rounds
+    of gathers over the unresolved rows; the short-circuit is a live-mask
+    AND carried from one dimension to the next. found is int32."""
     k, n = slot.shape
     T = tkey.shape[1]
     dev = slot.device
-    found = torch.full((k, n), -1, dtype=torch.int64, device=dev)
+    found = torch.full((k, n), -1, dtype=torch.int32, device=dev)
     miss = torch.zeros(k, dtype=torch.int64, device=dev)
     alive = slot[0] != -2
     for d in range(k):
@@ -500,7 +736,7 @@ def multiway_probe_plain(slot, key, tkey, src):
             at = tkey[d][pos]
             empty = at == EMPTY_KEY
             m = unresolved & ~empty & (at == key[d])
-            found[d] = torch.where(m, src[d][pos], found[d])
+            found[d] = torch.where(m, src[d][pos].to(torch.int32), found[d])
             hit = hit | m
             unresolved = unresolved & ~empty & ~m
             pos = torch.where(pos + 1 >= T, 0, pos + 1)
@@ -510,9 +746,11 @@ def multiway_probe_plain(slot, key, tkey, src):
 
 
 def multiway_probe_slots(slot, key, tkey, src):
-    """Run K4 on encoded inputs: slot/key [k, n] int64 (slot -2 = dead
-    row, -1 = live row with a NULL or sentinel key, else the home slot),
-    tkey/src [k, T] int64. Returns (found [k, n], miss [k]) int64."""
+    """K4 on the reference wrapper's encoded inputs: slot/key [k, n] int64
+    (slot -2 = dead row, -1 = live row with a NULL or sentinel key, else
+    hash_slot(key, T): the kernel derives the home slot from the key, so
+    only slot's sign is read), tkey/src [k, T] int64. Returns (found
+    [k, n] int32, miss [k] int64)."""
     for t in (slot, key, tkey, src):
         if t.device != slot.device:
             raise ValueError("multiway_probe: inputs must share a device")
@@ -522,27 +760,64 @@ def multiway_probe_slots(slot, key, tkey, src):
     T = tkey.shape[1]
     if key.shape != (k, n) or tkey.shape != (k, T) or src.shape != (k, T):
         raise ValueError("multiway_probe: shape mismatch")
-    if not 1 <= k <= MAX_MULTI_DIMS or T <= 0:
+    if not 1 <= k <= MAX_MULTI_DIMS or T <= 0 or T & (T - 1):
         raise ValueError(f"multiway_probe: bad k={k} or T={T}")
     dev = slot.device
     if dev.type == "cpu":
         return multiway_probe_plain(slot, key, tkey, src)
     if dev.type != "cuda":
         raise RuntimeError(f"multiway_probe: no kernel for {dev}")
-    return _launch_multiprobe(slot, key, tkey, src)
+    return _launch_multiprobe(slot[0] != -2,
+                              [(key[d], slot[d] >= 0) for d in range(k)],
+                              tkey, src)
 
 
-def _launch_multiprobe(slot, key, tkey, src):
+_DimWords = ctypes.c_uint64 * (3 * MAX_MULTI_DIMS)
+
+
+def _is_interleaved(tkey, src) -> bool:
+    """Whether tkey/src are the two lanes of one contiguous, 16-byte
+    aligned [k, T, 2] {key, row id} table, as build_join_tables gives
+    them."""
+    k, T = tkey.shape
+    return (src.data_ptr() == tkey.data_ptr() + 8 and
+            tkey.stride(1) == 2 and src.stride() == tkey.stride() and
+            (k == 1 or tkey.stride(0) == 2 * T) and
+            tkey.data_ptr() % 16 == 0)
+
+
+def _launch_multiprobe(live, keys, tkey, src):
     fn = library("multiprobe").k4_multiprobe
-    slot, key, tkey, src = (t.contiguous() for t in (slot, key, tkey, src))
-    k, n = slot.shape
-    T = tkey.shape[1]
-    found = torch.empty((k, n), dtype=torch.int64, device=slot.device)
-    miss = torch.empty(k, dtype=torch.int64, device=slot.device)
-    stream = raw_stream(slot.device)
-    status = fn(slot.data_ptr(), key.data_ptr(), tkey.data_ptr(),
-                src.data_ptr(), n, k, T, found.data_ptr(), miss.data_ptr(),
-                stream)
+    k, T = tkey.shape
+    n = live.shape[0]
+    dev = live.device
+    live = live.contiguous()
+    words = [0] * (3 * MAX_MULTI_DIMS)
+    held = []                     # converted planes live across the call
+    for d, (key, valid) in enumerate(keys):
+        if key.shape != (n,) or valid.shape != (n,) or \
+                valid.dtype != torch.bool or key.device != dev or \
+                valid.device != dev:
+            raise ValueError("multiway_probe: a key plane does not match "
+                             "the fact batch")
+        if key.dtype != torch.int64 and key.dtype != torch.int32:
+            key = key.to(torch.int64)
+        key, valid = key.contiguous(), valid.contiguous()
+        held += [key, valid]
+        words[3 * d] = key.data_ptr()
+        words[3 * d + 1] = valid.data_ptr()
+        words[3 * d + 2] = key.element_size()
+    if tkey.device != dev or src.device != dev:
+        raise ValueError("multiway_probe: tables must be on the batch's "
+                         "device")
+    # K4 reads the interleaved table; other tables (two planes, as the
+    # slot-level tests give them) are interleaved here, k * T * 16 B
+    if not _is_interleaved(tkey, src):
+        tkey = torch.stack((tkey, src), -1)[..., 0]
+    found = torch.empty((k, n), dtype=torch.int32, device=dev)
+    miss = torch.empty(k, dtype=torch.int64, device=dev)
+    status = fn(live.data_ptr(), _DimWords(*words), n, k, tkey.data_ptr(),
+                T, found.data_ptr(), miss.data_ptr(), raw_stream(dev))
     check(status, "K4 multiway probe launch")
     multiway_probe.launches += 1
     return found, miss
