@@ -29,8 +29,12 @@ Phases, each failing the run with a non-zero exit:
    dead rows and a chain longer than MAX_PROBES), `found` and `miss`
    bit-exact, through the slot-plane entry and the keys-in entry (on the
    interleaved table, and on two planes that the wrapper interleaves);
-5. K5 (grouped sums) against its plain version and `index_add_` (6M rows,
-   16 groups, 17 planes of values up to +-2^58), bit-exact;
+5. K5 (a whole direct aggregate in one launch) against its plain
+   version, every output column bit-exact: q12's shape (32,768 rows, an
+   int32 key over 7 groups, two sums), the full-width shape (6,001,215
+   rows, 16 groups, eight int64 sums near +-2^58 with NULLs), and G = 1
+   to 16 over every key dtype and aggregate mix; its summing
+   part also against `index_add_`;
 6. the main paths, each with every launch counter set to 0 just before
    and read just after: ``Session()`` on cuda over ``tpch.sf1`` runs
    TPC-H q1, q6 and q3 (one cold run, three steady; K1 and K3 must
@@ -76,8 +80,12 @@ Phases, each failing the run with a non-zero exit:
    ``build_join_tables`` call with its torch prep; K4 through the public
    ``multiway_probe`` (prep included), its host ms and device activities
    per call, and apart the torch encoding of the same keys that callers
-   ran before K4 derived the slots itself;
-   beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
+   ran before K4 derived the slots itself; K5 through the public
+   ``direct_group_aggregate_mxu`` on q12's batch and on the 6M-row
+   shape, its host ms, device activities per call (one kernel: no
+   memset, no torch kernel, no [A, n] planes allocated) and
+   ``index_add_`` of the reference's lanes as the summing part's library
+   time; beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
    masked-sum `direct` arm) on q12's batch, with its key redrawn over 2 to
    16 groups, to place the crossover that `mxu_agg = auto` models;
 8. a `kernels` JSON line (K1 with a row per tile size), the card line, and
@@ -915,25 +923,78 @@ def phase_k4(dev):
         f"keys-in entry equal on planes and on the interleaved table")
 
 
+K5_SUMS = {"counts": (("count_star", None), ("count", 0)),
+           "two sums": (("sum", 0), ("sum", 1)),
+           "four sums": tuple(("sum", c) for c in range(4)),
+           "eight sums": tuple(("sum", c) for c in range(8)),
+           "mixed": (("sum", 0), ("count", 1), ("count_star", None),
+                     ("sum", 2), ("sum", 3))}
+K5_Q12 = (32_768, ("int32",), (7,), "two sums")
+K5_FULL = (6_001_215, ("int32",), (16,), "eight sums")
+
+
+def k5_inputs(dev, case, seed):
+    """A direct aggregate's input on the card from a seed: (batch, key
+    indices, domains, aggregates). Eight int64 value columns near
+    +-2^58 with 10% NULLs, then the keys, drawn two past their domain on
+    each side (the kernel clamps; an int64 key also carries high bits its
+    int32 cast drops) with 5% NULLs; 5% of rows dead."""
+    import torch
+    from trino_tpu_torch.batch import Batch, Column
+    from trino_tpu_torch.ops.aggregate import AggSpec
+    n, dtypes, domains, aggs = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def valid(frac):
+        return torch.rand(n, generator=g, device=dev) >= frac
+    cols = [Column(torch.randint(-(1 << 58), 1 << 58, (n,), generator=g,
+                                 device=dev), valid(0.1)) for _ in range(8)]
+    for dt, d in zip(dtypes, domains):
+        key = torch.randint(-2, d + 2, (n,), generator=g, device=dev)
+        if dt == "int64":
+            key += torch.randint(0, 2, (n,), generator=g, device=dev) << 32
+        cols.append(Column(key.to(getattr(torch, dt)), valid(0.05)))
+    return (Batch(tuple(cols), valid(0.05)), tuple(range(8, len(cols))),
+            tuple(domains), tuple(AggSpec(f, c) for f, c in K5_SUMS[aggs]))
+
+
+def k5_sweep():
+    """G = 1..16 over every key dtype, the aggregates cycling through
+    counts, two, four and eight sums and a mix (A = 3 to 17); even G
+    with two keys."""
+    dts = ("int8", "int16", "int32", "int64")
+    sets = ("counts", "two sums", "four sums", "eight sums", "mixed")
+    for g in range(1, 17):
+        keys = ((dts[g % 4],), (g,)) if g % 2 else \
+            ((dts[g % 4], dts[(g + 1) % 4]), (2, g // 2))
+        yield (100_003 + g, keys[0], keys[1], sets[g % 5])
+
+
 def phase_k5(dev):
     import torch
+    from test_torch_k5_cases import same_batch
     from trino_tpu_torch.ops import direct_agg as k5
-    g = torch.Generator().manual_seed(5)
-    n, G, A = 6_000_000, 16, 17
-    gid = torch.randint(0, G + 1, (n,), generator=g).to(torch.int32)
-    gid[torch.rand(n, generator=g) < 0.05] = G           # dead rows
-    planes = torch.randint(-(1 << 58), 1 << 58, (A, n), generator=g)
-    planes[torch.rand(A, n, generator=g) < 0.1] = 0      # NULL values
-    gid, planes = gid.to(dev), planes.to(dev)
-    got = k5.group_sums(gid, planes, G)
-    want = k5.group_sums_plain(gid, planes, G)
-    lib = torch.zeros((G + 1, A), dtype=torch.int64, device=dev)
-    lib.index_add_(0, gid.long(), planes.T)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "K5 differs from plain")
-    require(torch.equal(got, lib[:G]), "K5 differs from index_add_")
-    log(f"K5 check: bit-exact with plain and index_add_ on n={n} G={G} "
-        f"A={A} (values up to 2^58, sums wrap)")
+    cases = [K5_Q12, K5_FULL, *k5_sweep()]
+    for i, case in enumerate(cases):
+        args = k5_inputs(dev, case, 50 + i)
+        before = k5.direct_group_aggregate_mxu.launches
+        got = k5.direct_group_aggregate_mxu(*args)
+        want = k5.direct_group_aggregate_mxu_plain(*args)
+        torch.cuda.synchronize()
+        require(k5.direct_group_aggregate_mxu.launches == before + 1,
+                f"K5 took other than one launch on {case}")
+        require(same_batch(got, want), f"K5 differs from plain on {case}")
+        if case is K5_FULL:
+            gid, planes = k5.group_lanes(*args)
+            lib = torch.zeros((17, planes.shape[0]), dtype=torch.int64,
+                              device=dev)
+            lib.index_add_(0, gid.long(), planes.T)
+            require(all(torch.equal(c.data, lib[:16, 1 + 2 * j]) for j, c in
+                        enumerate(got.columns[1:])),
+                    "K5 differs from index_add_")
+    log(f"K5 check: bit-exact with plain on {len(cases)} cases (q12's "
+        f"shape, {K5_FULL[0]} rows at G = 16 with eight sums, G = 1..16 "
+        f"over int8..int64 keys), the sums with index_add_ too")
 
 
 def _strategy_lines(session, sql):
@@ -948,7 +1009,7 @@ def _counters():
     from trino_tpu_torch.ops import hashtable as ht
     return {"K1": k1.gather_columns, "K2": k1.gather_word_windowed,
             "K3": ht.hash_insert_multi, "K4": ht.multiway_probe,
-            "K5": k5.group_sums}
+            "K5": k5.direct_group_aggregate_mxu}
 
 
 def reset_counts():
@@ -1181,9 +1242,9 @@ def phase_q12_path(recorder, session, tables):
     session.execute("SET SESSION mxu_agg = 'false'")
     plain_rows = session.execute(sql).rows
     session.execute("SET SESSION mxu_agg = 'auto'")
-    before = k5.group_sums.launches
+    before = k5.direct_group_aggregate_mxu.launches
     auto_rows = session.execute(sql).rows
-    require(k5.group_sums.launches == before and
+    require(k5.direct_group_aggregate_mxu.launches == before and
             session.executor.strategy_decisions["AggregateNode"] ==
             "direct", "q12 took K5 under mxu_agg = auto (7 groups)")
     session.execute("SET SESSION mxu_agg = 'true'")
@@ -1389,8 +1450,7 @@ class LaunchRecorder:
         self.k3_site = []         # the executor methods being run
         self.k4 = None
         self.star_build = None    # the largest build_join_tables call
-        self.k5 = None
-        self.k5_batch = None      # the direct aggregate's input to K5's arm
+        self.k5 = None            # K5's largest launch: its public args
         self.k2 = None
 
     def install(self):
@@ -1416,11 +1476,11 @@ class LaunchRecorder:
                 self.k4 = (live, list(keys), tkey, src)
             return real_k4(live, keys, tkey, src)
 
-        def k5_launch(gid, planes, n_groups):
-            if self.active and (self.k5 is None or
-                                gid.shape[0] > self.k5[0].shape[0]):
-                self.k5 = (gid, planes, n_groups)
-            return real_k5(gid, planes, n_groups)
+        def k5_launch(batch, key_indices, domains, aggs):
+            if self.active and (self.k5 is None or batch.capacity >
+                                self.k5[0].capacity):
+                self.k5 = (batch, key_indices, domains, aggs)
+            return real_k5(batch, key_indices, domains, aggs)
 
         real_build = ht.build_join_tables
 
@@ -1436,14 +1496,6 @@ class LaunchRecorder:
         ht._launch_multiprobe = k4_launch
         ht.build_join_tables = build_tables
         k5._launch = k5_launch
-        real_mxu = k5.direct_group_aggregate_mxu
-
-        def mxu_arm(batch, key_indices, domains, aggs):
-            if self.active and (self.k5_batch is None or batch.capacity >
-                                self.k5_batch[0].capacity):
-                self.k5_batch = (batch, key_indices, domains, aggs)
-            return real_mxu(batch, key_indices, domains, aggs)
-        k5.direct_group_aggregate_mxu = mxu_arm
 
         def k1_launch(tables, idx, fills):
             if not self.active:
@@ -1508,7 +1560,7 @@ def phase_timing(recorder, launches):
     out.append(_time_k2(recorder, launches, flush))
     out.extend(_time_k3(recorder))
     out.append(_time_k4(recorder, launches))
-    out.append(_time_k5(recorder, launches))
+    out.extend(_time_k5(recorder, launches))
     return out
 
 
@@ -1797,41 +1849,152 @@ def _time_k4(recorder, launches):
          "prep_device_ms": prep_dev}, call)
 
 
-def _time_k5(recorder, launches):
+def _k5_public(k5, args) -> dict:
+    """K5's public call on `args` (batch, keys, domains, aggregates),
+    timed as K3's and K4's public calls are: `call_ms` (events around one
+    call), `call_device_ms` (torch.profiler), `call_host_ms` (200 calls
+    back to back), the device activities one call runs with their names,
+    and the bytes one call allocates above what was allocated before it
+    (peak)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        return k5.direct_group_aggregate_mxu(*args)
+    out = {"call_ms": time_cuda(call)}
+    out["call_device_ms"], out["call_device_method"], _ = device_time(call)
+    out["call_host_ms"] = host_ms(call)
+    names = None
+    for _attempt in range(5):     # CUPTI now and then drops a trace
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        traced = [name for name, _us in _device_activities(prof)]
+        require(len(traced) <= 5 and all("k5_" in n for n in traced),
+                f"K5's public call ran other device work: {traced}")
+        if len(traced) == 5:
+            names = traced
+            break
+    if names is None:
+        log("K5's public call: no whole trace of 5 calls came back in 5 "
+            "tries; device activities per call not measured")
+    out["device_activities_per_call"] = None if names is None else 1.0
+    out["device_activity_names"] = sorted(set(names or ()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    out["call_alloc_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def _k5_bytes(batch, keys, domains, aggs):
+    """(what this run's data needs, what reading every row needs) in
+    bytes: every row's live byte; each key's value and validity for the
+    rows still contributing when it is read; each count's validity and
+    each sum's validity for the contributing rows, a sum's value for
+    those of them that are not NULL; the output columns once."""
     from trino_tpu_torch.ops import direct_agg as k5
-    gid, planes, G = recorder.k5
-    a, n = planes.shape
-    got = k5.group_sums(gid, planes, G)
-    want = k5.group_sums_plain(gid, planes, G)
-    require(_bits_equal(got, want),
-            "K5 differs from plain on the main-path inputs")
-    ms = time_cuda(lambda: k5.group_sums(gid, planes, G))
-    plain_ms = time_cuda(lambda: k5.group_sums_plain(gid, planes, G))
-    gl = gid.long()
-    pt = planes.T
+    n = batch.capacity
+    need, every = n, n
+    alive = batch.live
+    for ki in keys:
+        col = batch.columns[ki]
+        width = col.data.element_size() + 1
+        need += int(alive.sum()) * width
+        every += n * width
+        alive = alive & col.valid
+    rows = int(alive.sum())
+    for a in aggs:
+        if a.func == "count_star":
+            continue
+        col = batch.columns[a.arg_index]
+        need += rows
+        every += n
+        if a.func == "sum":
+            need += int((alive & col.valid).sum()) * col.data.element_size()
+            every += n * col.data.element_size()
+    groups = 1
+    for d in domains:
+        groups *= d
+    out = k5.output_layout([batch.columns[k].data.dtype for k in keys],
+                           [a.func for a in aggs], groups)[-1]
+    return need + out, every + out
+
+
+def _k5_row(what, args, launches) -> dict:
+    """K5's kernels-line row on one direct aggregate: the public call
+    (one launch) against the plain version, every output column
+    bit-exact; `library_ms` is `index_add_` of the reference's lanes
+    (group_lanes, made before the clock) into [G + 1, A], the summing
+    part alone."""
+    import torch
+    from test_torch_k5_cases import same_batch
+    from trino_tpu_torch.ops import direct_agg as k5
+    batch, keys, domains, aggs = args
+    n = batch.capacity
+    G = int(torch.tensor(domains).prod())
+
+    def call():
+        return k5.direct_group_aggregate_mxu(*args)
+
+    def plain():
+        return k5.direct_group_aggregate_mxu_plain(*args)
+    got, want = call(), plain()
+    require(same_batch(got, want), f"K5 ({what}) differs from plain")
+    gid, planes = k5.group_lanes(*args)
+    gl, pt = gid.long(), planes.T.contiguous()
+    A = planes.shape[0]
 
     def library():
-        lib = torch.zeros((G + 1, a), dtype=torch.int64, device=gid.device)
+        lib = torch.zeros((G + 1, A), dtype=torch.int64, device=gid.device)
         lib.index_add_(0, gl, pt)
         return lib
-    require(_bits_equal(library()[:G], got), "K5 differs from index_add_")
+    require(torch.equal(library()[:G], k5.group_sums_plain(gid, planes, G)),
+            f"K5 ({what}): index_add_ differs from the masked sums")
+    ms = time_cuda(call)
+    plain_ms = time_cuda(plain)
     lib_ms = time_cuda(library)
-    bound_ms = n * (4 + 8 * a) / HBM_BYTES_PER_S * 1e3
-    log(f"timing K5: n={n} G={G} A={a} kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library (index_add_ into [G+1, A]) "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: group id and "
-        f"planes read once)")
-    _time_direct_arms(recorder)
+    need, every = _k5_bytes(batch, keys, domains, aggs)
+    bound_ms = need / HBM_BYTES_PER_S * 1e3
+    public = _k5_public(k5, args)
+    require(public["call_alloc_bytes"] < A * n * 8,
+            f"K5 ({what}): the public call allocated "
+            f"{public['call_alloc_bytes']} bytes")
+    log(f"timing K5 ({what}): n={n} G={G} A={A} keys "
+        f"{[str(batch.columns[k].data.dtype) for k in keys]}; public call "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_ of the "
+        f"lanes into [G+1, A]) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes this data needs; every row read: "
+        f"{every / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        + json.dumps(public))
     return with_device_time(
-        {"name": "K5 group_sums", "route": "cuda",
+        {"name": f"K5 direct_group_aggregate_mxu ({what})", "route": "cuda",
          "source": "trino_tpu_torch/csrc/direct_agg.cu",
          "replaces": "trino_tpu/ops/pallas_agg.py:73",
-         "launches": launches["K5"],
-         "max_abs_err": _max_abs_err([(got, want)]),
+         "launches": launches,
+         "max_abs_err": _max_abs_err([(a.data, b.data) for a, b in
+                                      zip(got.columns, want.columns)]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": "bytes", "library_ms": lib_ms},
-        lambda: k5.group_sums(gid, planes, G))
+         "bound_by": "bytes", "library_ms": lib_ms,
+         "host_ms": public["call_host_ms"], "rows": n, "groups": G,
+         "planes": A, "every_row_bound_ms":
+         every / HBM_BYTES_PER_S * 1e3,
+         **{k: v for k, v in public.items()
+            if k != "device_activity_names"}}, call)
+
+
+def _time_k5(recorder, launches):
+    """K5 on q12's main-path batch, and on the full-width shape, which no
+    main path launches: its row's `launches` is null."""
+    _time_direct_arms(recorder)
+    full = _k5_row("6M rows, G = 16, eight sums",
+                   k5_inputs(recorder.k5[0].device, K5_FULL, 7), None)
+    full["note"] = "a synthetic shape, not a main-path launch"
+    return [_k5_row("q12's batch", recorder.k5, launches["K5"]), full]
 
 
 def _same_groups(x, y) -> bool:
@@ -1852,9 +2015,7 @@ def _time_direct_arms(recorder):
     from trino_tpu_torch.batch import Batch, Column
     from trino_tpu_torch.ops import direct_agg as k5
     from trino_tpu_torch.ops.aggregate import direct_group_aggregate
-    require(recorder.k5_batch is not None,
-            "q12's direct aggregate was not recorded")
-    batch, keys, domains, aggs = recorder.k5_batch
+    batch, keys, domains, aggs = recorder.k5
     g = torch.Generator(device=batch.device).manual_seed(12)
     cases = [("q12", batch, keys, domains)]
     key = batch.columns[keys[0]]

@@ -24,8 +24,11 @@ from trino_tpu_torch.ops.aggregate import AggSpec
 
 pytestmark = pytest.mark.cuda
 
-# the shared query texts live beside this file (no conftest on the card)
+# the shared query texts and K5's cases live beside this file (no conftest
+# on the card)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_k5_cases import (K5_CASES, k5_case, k5_case_id,  # noqa: E402
+                                 same_batch)
 
 
 def _card():
@@ -373,22 +376,83 @@ def test_k4_matches_plain_on_card():
     assert int(miss[0]) > 0 and int((found[-1] >= 0).sum()) > 0
 
 
-def test_k5_matches_plain_on_card():
+def _k5_batch(case, seed, dev):
+    from trino_tpu_torch.batch import Batch, Column
+    arrays, valids, live, keys, domains, aggs = k5_case(case, seed)
+    batch = Batch(tuple(Column(torch.from_numpy(a).to(dev),
+                               torch.from_numpy(v).to(dev))
+                        for a, v in zip(arrays, valids)),
+                  torch.from_numpy(live).to(dev))
+    return batch, keys, domains, tuple(AggSpec(f, c) for f, c in aggs)
+
+
+@pytest.mark.parametrize("case", K5_CASES, ids=k5_case_id)
+def test_k5_grid_matches_plain_on_card(case):
+    """K5 against its plain version on the grid of cases, all groups bit
+    for bit, one launch a call."""
     from trino_tpu_torch.ops import direct_agg as k5
     dev = _card()
-    rng = np.random.default_rng(17)
-    n, g, a = 500_000, 16, 17
-    gid = torch.from_numpy(rng.integers(0, g + 1, n).astype(np.int32))
-    planes = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (a, n)))
-    gid, planes = gid.to(dev), planes.to(dev)
-    before = k5.group_sums.launches
-    got = k5.group_sums(gid, planes, g)
-    want = k5.group_sums_plain(gid, planes, g)
-    lib = torch.zeros((g + 1, a), dtype=torch.int64, device=dev)
-    lib.index_add_(0, gid.long(), planes.T)
+    args = _k5_batch(case, 5, dev)
+    before = k5.direct_group_aggregate_mxu.launches
+    got = k5.direct_group_aggregate_mxu(*args)
+    want = k5.direct_group_aggregate_mxu_plain(*args)
     torch.cuda.synchronize()
-    assert k5.group_sums.launches == before + 1
-    assert torch.equal(got, want) and torch.equal(got, lib[:g])
+    assert k5.direct_group_aggregate_mxu.launches == before + 1
+    assert same_batch(got, want)
+
+
+def test_k5_matches_plain_on_card():
+    """K5 at G = 16 with eight sums near +-2^58 (carries between the
+    32-bit halves, sums that wrap) over 500,000 rows, called twice: the second call finds the scratch the first left
+    zero. The summing part equals index_add_ too."""
+    from trino_tpu_torch.ops import direct_agg as k5
+    dev = _card()
+    case = (500_000, ("int16", "int32"), (4, 4), "eight sums")
+    args = _k5_batch(case, 17, dev)
+    before = k5.direct_group_aggregate_mxu.launches
+    first = k5.direct_group_aggregate_mxu(*args)
+    second = k5.direct_group_aggregate_mxu(*args)
+    want = k5.direct_group_aggregate_mxu_plain(*args)
+    torch.cuda.synchronize()
+    assert k5.direct_group_aggregate_mxu.launches == before + 2
+    assert same_batch(first, want) and same_batch(second, want)
+    batch, keys, domains, aggs = args
+    gid = torch.zeros(batch.capacity, dtype=torch.int64, device=dev)
+    ok = batch.live.clone()
+    for ki, d in zip(keys, domains):
+        col = batch.columns[ki]
+        gid = gid * d + col.data.to(torch.int32).clamp(0, d - 1)
+        ok &= col.valid
+    lib = torch.zeros((17, 8), dtype=torch.int64, device=dev)
+    vals = torch.stack([torch.where(batch.columns[c].valid,
+                                    batch.columns[c].data, 0)
+                        for c in range(8)], 1)
+    lib.index_add_(0, torch.where(ok, gid, 16), vals)
+    assert torch.equal(torch.stack([c.data for c in first.columns[2:]], 1),
+                       lib[:16])
+
+
+def test_k5_one_launch_no_memset_on_card():
+    """A public call on q12's shape is one kernel on the card: no memset,
+    no torch kernel before it (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trino_tpu_torch.ops import direct_agg as k5
+    dev = _card()
+    args = _k5_batch((32_768, ("int32",), (7,), "q12"), 12, dev)
+    k5.direct_group_aggregate_mxu(*args)
+    torch.cuda.synchronize()
+    for _attempt in range(3):     # CUPTI now and then drops a whole trace
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                k5.direct_group_aggregate_mxu(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 3 and all("k5_" in n for n in names), names
 
 
 @pytest.fixture(scope="module")
@@ -420,11 +484,12 @@ def test_q12_mxu_on_card_equals_cpu(sessions):
     rows = []
     for s in (gpu, cpu):
         s.execute("SET SESSION mxu_agg = 'true'")
-        before = k5.group_sums.launches
+        before = k5.direct_group_aggregate_mxu.launches
         rows.append(s.execute(QUERIES[12]).rows)
         s.execute("SET SESSION mxu_agg = 'auto'")
         assert s.executor.strategy_decisions["AggregateNode"] == "mxu"
-    assert k5.group_sums.launches == before   # the CPU run: plain
+    # the CPU run: plain
+    assert k5.direct_group_aggregate_mxu.launches == before
     assert rows[0] == rows[1] and len(rows[0]) == 2
 
 

@@ -3,7 +3,7 @@ the reference's ops on the same numpy inputs, at small sizes.
 
 Tolerances: bit-exact everywhere (integers, decimals as scaled int64,
 booleans, dates, and doubles produced by the same elementwise float
-operations). Where row order is undefined (join outputs) rows compare as
+operations, the reference's as its jit compiles them). Where row order is undefined (join outputs) rows compare as
 multisets; float sums compare with rel 1e-12 (summation order differs).
 Covered edge cases: decimal .5 boundaries (HALF_UP, away from zero),
 all-NULL columns, empty batches, zero-selectivity filters, division by
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import trino_tpu.ir as jir
@@ -127,8 +128,12 @@ def expr_batches():
 
 @pytest.mark.parametrize("name", EXPR_NAMES)
 def test_eval_expr_matches_reference(expr_batches, name):
+    """The reference evaluates under jit, as its queries run it: XLA's
+    rewrites (a division by a constant becomes a multiplication by its
+    reciprocal) are part of what the port must equal."""
     jb, tb = expr_batches
-    jd, jv = jproj.eval_expr(_exprs(jir, jtypes)[name], jb)
+    expr = _exprs(jir, jtypes)[name]
+    jd, jv = jax.jit(lambda b: jproj.eval_expr(expr, b))(jb)
     td, tv = tproj.eval_expr(_exprs(tir, ttypes)[name], tb)
     jd, jv = np.asarray(jd), np.asarray(jv)
     td, tv = td.numpy(), tv.numpy()

@@ -55,8 +55,9 @@ SIGNATURES = {
     # live, dims, n, k, table, T, found, miss, stream
     "multiprobe": {"k4_multiprobe": [_P, _P, _I64, _I, _P, _I64, _P, _P,
                                      _P]},
-    # gid, planes, n, a, groups, out, stream
-    "direct_agg": {"k5_group_sums": [_P, _P, _I64, _I, _I, _P, _P]},
+    # live, words, n, keys, aggregates, groups, out, scratch, stream
+    "direct_agg": {"k5_direct_agg": [_P, _P, _I64, _I, _I, _I, _P, _P,
+                                     _P]},
 }
 
 _lock = threading.Lock()

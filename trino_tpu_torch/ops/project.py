@@ -89,7 +89,8 @@ def _to_comparable(expr: ir.Expr, data: torch.Tensor, target):
         raise AssertionError("decimal comparisons use _decimal_compare")
     if target.kind is TypeKind.DOUBLE:
         if t.kind is TypeKind.DECIMAL:
-            return data.to(torch.float64) / (10 ** t.scale)
+            # mirrors XLA's rewrite of a division by a constant (reference)
+            return data.to(torch.float64) * (1.0 / (10 ** t.scale))
         return data.to(torch.float64)
     if target.kind is TypeKind.TIMESTAMP and t.kind is TypeKind.DATE:
         return data.to(torch.int64) * 86_400_000_000
@@ -302,7 +303,8 @@ def eval_expr(expr: ir.Expr, batch: Batch):
             return d.to(torch.int64) * (10 ** dst.scale), v
         if dst.kind is TypeKind.DOUBLE:
             if src.kind is TypeKind.DECIMAL:
-                return d.to(torch.float64) / (10 ** src.scale), v
+                # mirrors XLA's rewrite of a division by a constant
+                return d.to(torch.float64) * (1.0 / (10 ** src.scale)), v
             return d.to(torch.float64), v
         if dst.kind in (TypeKind.BIGINT, TypeKind.INTEGER):
             if src.kind is TypeKind.DECIMAL:
@@ -447,7 +449,8 @@ def eval_scalar_func(expr: ir.ScalarFunc, batch: Batch):
         xs = d.to(torch.float64) * factor
         half_up = torch.where(xs >= 0, torch.floor(xs + 0.5),
                               torch.ceil(xs - 0.5))
-        return half_up / factor, v
+        # mirrors XLA's rewrite of a division by a constant (reference)
+        return half_up * (1.0 / factor), v
     if name in ("floor", "ceil"):
         if t.kind is TypeKind.DECIMAL:
             s = 10 ** t.scale
