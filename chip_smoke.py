@@ -57,8 +57,24 @@ Phases, each failing the run with a non-zero exit:
    steady run of TPC-H q3 and TPC-DS q3 and q19 each under torch.profiler
    (the card's busy time, its idle share of the wall, the torch
    elementwise kernels, the device-to-host copies, the top kernels);
+   and, before those profiles, the corpus paths, each with the counters
+   set to 0 just before and read just after, one cold and three steady
+   runs: TPC-H q4 (a dense-LUT semi join: K1 must launch), q21 (semi and
+   anti joins with the `<>` residual through ``join_mark``) and q22 (an
+   anti join and a scalar subquery) at ``tpch.sf1`` against numpy
+   oracles; TPC-DS q12 (a window sum) and q38 (INTERSECT) at
+   ``tpcds.sf1`` against numpy oracles, q86 (ROLLUP and rank) against the
+   port's ``Session(device="cpu")`` over the same tables; the strategy
+   each semi/anti/mark join ran (a dense-LUT or hash one without K1, or
+   a hash one without K3, fails the run); then a host cProfile of q21
+   and q22 and a torch.profiler run of q21 and ds q38;
+   ``cumsum_like_reference`` on 6,000,000 doubles on the card, bit for
+   bit its CPU result, timed against ``torch.cumsum``; and one UNNEST on
+   the card against the CPU's rows;
 7. timing of each kernel on the inputs of its largest launch in the main
-   paths (K1 on each of its two paths: big tiles, the largest launch with
+   paths before the corpus paths (whose launches are counted but whose
+   inputs are not kept, so the timed shapes stay comparable): K1 on each
+   of its two paths (big tiles, the largest launch with
    a table that L1 can hold, a star's payload gather; small tiles, the
    largest whose tables are all past that, q3's dense-LUT probe; K1's
    and K2's calls each after a 1 GiB read that flushes the 50 MB L2, so
@@ -398,6 +414,144 @@ def oracle_ds_q96(t):
         (_col(st, "s_store_name")[srow] ==
          _code(st, "s_store_name", "ese"))
     return [(int(m.sum()),)]
+
+
+def oracle_q4(orders, li):
+    """TPC-H q4: orders of 1993 Q3 with a line received after its commit
+    date, counted per priority."""
+    import numpy as np
+    od = _col(orders, "o_orderdate")
+    okey = _col(orders, "o_orderkey")
+    late = _col(li, "l_commitdate") < _col(li, "l_receiptdate")
+    has = np.zeros(int(okey.max()) + 1, np.bool_)
+    has[_col(li, "l_orderkey")[late]] = True
+    m = (od >= _days("1993-07-01")) & (od < _days("1993-10-01")) & \
+        has[okey]
+    pool = orders.schema.field("o_orderpriority").dictionary
+    n = np.bincount(_col(orders, "o_orderpriority")[m],
+                    minlength=len(pool))
+    return sorted((pool[c], int(n[c])) for c in range(len(pool)) if n[c])
+
+
+def oracle_q21(supplier, nation, orders, li):
+    """TPC-H q21: per order with o_orderstatus = 'F', a late line of a
+    SAUDI ARABIA supplier counts when the order has at least two distinct
+    suppliers and that line's supplier is its only late one."""
+    import numpy as np
+    lk, ls = _col(li, "l_orderkey"), _col(li, "l_suppkey")
+    late = _col(li, "l_receiptdate") > _col(li, "l_commitdate")
+    size = int(lk.max()) + 1
+
+    def distinct_suppliers(mask):
+        pairs = np.unique(lk[mask] * (1 << 20) + ls[mask])
+        return np.bincount(pairs >> 20, minlength=size)
+    n_supp = distinct_suppliers(np.ones(len(lk), np.bool_))
+    n_late = distinct_suppliers(late)
+    status = np.full(size, -1, np.int64)
+    status[_col(orders, "o_orderkey")] = _col(orders, "o_orderstatus")
+    srow = _row_of(supplier, "s_suppkey", ls)
+    nrow = _row_of(nation, "n_nationkey",
+                   _col(supplier, "s_nationkey")[srow])
+    m = late & (n_supp[lk] >= 2) & (n_late[lk] == 1) & \
+        (status[lk] == _code(orders, "o_orderstatus", "F")) & \
+        (_col(nation, "n_name")[nrow] ==
+         _code(nation, "n_name", "SAUDI ARABIA"))
+    names = supplier.schema.field("s_name").dictionary
+    codes, n = np.unique(_col(supplier, "s_name")[srow[m]],
+                         return_counts=True)
+    rows = sorted(((names[int(c)], int(k)) for c, k in zip(codes, n)),
+                  key=lambda r: (-r[1], r[0]))
+    return rows[:100]
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def oracle_q22(cust, orders):
+    """TPC-H q22: customers of seven country codes with a balance above
+    those codes' positive average and no orders, per code."""
+    import numpy as np
+    pool = cust.schema.field("c_phone").dictionary
+    code_of = np.array([p[:2] for p in pool])
+    cc = code_of[_col(cust, "c_phone")]
+    bal = _col(cust, "c_acctbal")
+    inlist = np.isin(cc, Q22_CODES)
+    pos = inlist & (bal > 0)
+    avg = _avg_half_up(int(bal[pos].sum()), int(pos.sum()))
+    ck = _col(cust, "c_custkey")
+    has = np.zeros(int(ck.max()) + 1, np.bool_)
+    ok = _col(orders, "o_custkey")
+    has[ok[ok <= ck.max()]] = True
+    m = inlist & (bal > avg) & ~has[ck]
+    out = []
+    for code in sorted(set(cc[m].tolist())):
+        g = m & (cc == code)
+        out.append((code, int(g.sum()), _dec(int(bal[g].sum()), 2)))
+    return out
+
+
+def oracle_ds_q12(t):
+    """TPC-DS q12 without its revenueratio column (a double, compared
+    apart): web sales of three categories in 31 days, per item, with the
+    i_class total the window sums."""
+    import numpy as np
+    ws, it, dd = t["web_sales"], t["item"], t["date_dim"]
+    irow = _row_of(it, "i_item_sk", _col(ws, "ws_item_sk"))
+    drow = _row_of(dd, "d_date_sk", _col(ws, "ws_sold_date_sk"))
+    cat = _col(it, "i_category")
+    cpool = it.schema.field("i_category").dictionary
+    cats = [cpool.index(c) for c in ("Sports", "Books", "Home")]
+    d = _col(dd, "d_date")[drow]
+    m = _valid(ws, "ws_item_sk") & _valid(ws, "ws_sold_date_sk") & \
+        np.isin(cat[irow], cats) & (d >= _days("1999-02-22")) & \
+        (d <= _days("1999-03-24"))
+    cols = ("i_item_id", "i_item_desc", "i_category", "i_class",
+            "i_current_price")
+    keys = np.stack([_col(it, c)[irow[m]].astype(np.int64) for c in cols],
+                    1)
+    groups, inv = np.unique(keys, axis=0, return_inverse=True)
+    rev = np.zeros(len(groups), np.int64)
+    np.add.at(rev, inv.ravel(), _col(ws, "ws_ext_sales_price")[m])
+    cls = groups[:, 3]
+    total = {c: int(rev[cls == c].sum()) for c in set(cls.tolist())}
+    pools = [it.schema.field(c).dictionary for c in cols[:4]]
+    rows = []
+    for g, r in zip(groups, rev):
+        rows.append((*(p[int(v)] for p, v in zip(pools, g[:4])),
+                     _dec(int(g[4]), 2), _dec(int(r), 2),
+                     int(r) * 100 / total[int(g[3])]))
+    rows.sort(key=lambda r: (r[2], r[3], r[0], r[1], r[6]))
+    return rows[:100]
+
+
+def oracle_ds_q38(t):
+    """TPC-DS q38: the (last name, first name, date) triples of customers
+    who bought in the 12 months through all three channels."""
+    import numpy as np
+    cust, dd = t["customer"], t["date_dim"]
+    seq_ok = (_col(dd, "d_month_seq") >= 1200) & \
+        (_col(dd, "d_month_seq") <= 1211)
+    sets = []
+    for fact, date_col, cust_col in (
+            ("store_sales", "ss_sold_date_sk", "ss_customer_sk"),
+            ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk"),
+            ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk")):
+        f = t[fact]
+        drow = _row_of(dd, "d_date_sk", _col(f, date_col))
+        crow = _row_of(cust, "c_customer_sk", _col(f, cust_col))
+        m = _valid(f, date_col) & _valid(f, cust_col) & seq_ok[drow] & \
+            (crow >= 0)
+        crow = crow[m]
+        # NULL names compare equal in a set operation: code -1
+        last = np.where(_valid(cust, "c_last_name")[crow],
+                        _col(cust, "c_last_name")[crow], -1) + 1
+        first = np.where(_valid(cust, "c_first_name")[crow],
+                         _col(cust, "c_first_name")[crow], -1) + 1
+        date = _col(dd, "d_date")[drow[m]].astype(np.int64)
+        sets.append(np.unique((last.astype(np.int64) << 40) |
+                              (first.astype(np.int64) << 20) | date))
+    both = np.intersect1d(np.intersect1d(sets[0], sets[1]), sets[2])
+    return [(int(len(both)),)]
 
 
 # --------------------------------------------------------------------------
@@ -1416,6 +1570,212 @@ def phase_stream_build(recorder, session):
     return launches
 
 
+CORPUS_TPCH = (4, 21, 22)
+CORPUS_TPCDS = (12, 38, 86)
+UNNEST_SQL = ("SELECT x, o FROM UNNEST(ARRAY[30, 10, 20, NULL]) "
+              "WITH ORDINALITY AS t(x, o)")
+
+
+class JoinLog:
+    """The strategy each semi, anti and mark join ran with, in call order:
+    the executor's own verdict inside run_membership_join and
+    run_mark_join (dense-lut, hybrid-hash, sorted), `residual` where the
+    join_mark expansion decided, `null-aware` where NOT IN's NULL check
+    emptied the result; mark joins note no verdict, so theirs is read
+    from the domain and the domain-fallback counter."""
+
+    def __init__(self):
+        self.calls = []
+        self._stack = []
+
+    def install(self):
+        from trino_tpu_torch.exec.executor import Executor
+        jlog = self
+        real_note = Executor._note_strategy
+
+        def note(ex, op, strategy, kind):
+            if jlog._stack and op == "JoinNode":
+                jlog._stack[-1].append(strategy)
+            return real_note(ex, op, strategy, kind)
+        Executor._note_strategy = note
+
+        def wrap(real):
+            def run(ex, node, probe, build):
+                jlog._stack.append([])
+                fallbacks = ex.stats.join_domain_fallbacks
+                try:
+                    return real(ex, node, probe, build)
+                finally:
+                    noted = jlog._stack.pop()
+                    if noted:
+                        what = noted[-1]
+                    elif node.residual is not None:
+                        what = "residual"
+                    elif node.kind != "mark":
+                        what = "null-aware"
+                    elif node.build_key_domain is not None and \
+                            ex.stats.join_domain_fallbacks == fallbacks:
+                        what = "dense-lut"
+                    else:
+                        what = "sorted"
+                    jlog.calls.append(f"{node.kind}:{what}")
+            return run
+        for method in ("run_membership_join", "run_mark_join"):
+            setattr(Executor, method, wrap(getattr(Executor, method)))
+
+
+def _corpus_run(recorder, jlog, session, name, sql, expected=None):
+    """One corpus path: counters to 0, one cold and three steady runs,
+    counters read; rows against `expected` where given. Returns (rows,
+    launches, record)."""
+    from collections import Counter
+    reset_counts()
+    jlog.calls = []
+    recorder.active, recorder.keep = True, False
+    try:
+        rows, walls = _timed_runs(session, sql, 4)
+    finally:
+        recorder.active, recorder.keep = False, True
+    launches = read_counts()
+    joins = dict(Counter(jlog.calls))
+    if expected is not None:
+        require(rows == expected, f"{name} differs from the numpy oracle:"
+                f"\n{rows[:3]}\nvs\n{expected[:3]}")
+    if any(j.endswith((":dense-lut", ":hybrid-hash")) for j in joins):
+        require(launches["K1"] > 0, f"{name}: a dense-LUT or hash "
+                f"membership join ran without K1 ({joins})")
+    if any(j.endswith(":hybrid-hash") for j in joins):
+        require(launches["K3"] > 0, f"{name}: a hash membership join ran "
+                f"without K3 ({joins})")
+    record = {"rows": len(rows), "cold_s": walls[0],
+              "steady_median_s": statistics.median(walls[1:]),
+              "steady_s": walls[1:], "launches": launches,
+              "membership_joins_4_runs": joins,
+              "strategy": dict(session.executor.strategy_decisions)}
+    log(f"{name}: {len(rows)} rows"
+        f"{' equal the numpy oracle' if expected is not None else ''}; "
+        f"cold {walls[0]:.4f} s, steady median "
+        f"{record['steady_median_s']:.4f} s (runs "
+        f"{[round(w, 4) for w in walls]}); launches {launches}; semi/anti/"
+        f"mark joins over 4 runs {joins}; ran {record['strategy']}")
+    return rows, launches, record
+
+
+def phase_corpus_paths(recorder, session, tables, ds_session):
+    """The corpus paths this port added last: TPC-H q4 (semi join, K1),
+    q21 (semi and anti joins with the <> residual, join_mark) and q22
+    (anti join and a scalar subquery) at tpch.sf1, and TPC-DS q12 (window
+    sum), q38 (INTERSECT) and q86 (ROLLUP and rank) at tpcds.sf1, each
+    with the counters set to 0 just before and read just after; then the
+    reference-order cumsum on the card against its CPU bits, and an
+    UNNEST on the card against the CPU."""
+    import numpy as np
+    import torch
+    from tpcds_queries import QUERIES as DS
+    from tpch_full import QUERIES as H
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.ops.aggregate import cumsum_like_reference
+    jlog = JoinLog()
+    jlog.install()
+    conn = session.catalog.connector("tpch")
+    t = dict(tables)
+    for name in ("supplier", "nation", "orders"):
+        t[name] = conn.get_table(TPCH_SCHEMA, name)
+    expected = {4: oracle_q4(t["orders"], t["lineitem"]),
+                21: oracle_q21(t["supplier"], t["nation"], t["orders"],
+                               t["lineitem"]),
+                22: oracle_q22(t["customer"], t["orders"])}
+    total = {k: 0 for k in _counters()}
+    records = {}
+    for q in CORPUS_TPCH:
+        _rows, launches, records[f"q{q}"] = _corpus_run(
+            recorder, jlog, session, f"corpus q{q}", H[q], expected[q])
+        for k, v in launches.items():
+            total[k] += v
+    # where the slowest corpus queries' time goes, after their counts
+    # were read: host cProfile of q21 and q22, the card's share of q21
+    for q in (21, 22):
+        records[f"q{q}"]["host_profile"] = _host_profile(session, H[q], 12)
+        log(f"corpus q{q} host profile (one more steady run): "
+            + json.dumps(records[f"q{q}"]["host_profile"]))
+    records["q21"]["device_profile"] = _device_profile(session, H[21])
+    log("corpus q21 device profile (one more steady run): "
+        + json.dumps(records["q21"]["device_profile"]))
+    require(records["q4"]["launches"]["K1"] > 0, "q4 did not launch K1")
+    require(any(j.startswith(("semi:", "anti:")) for r in records.values()
+                for j in r["membership_joins_4_runs"]),
+            "no semi or anti join ran on the TPC-H corpus paths")
+
+    dconn = ds_session.catalog.connector("tpcds")
+    dt = {n: dconn.get_table(TPCDS_SCHEMA, n) for n in (
+        "web_sales", "catalog_sales", "store_sales", "item", "date_dim",
+        "customer")}
+    ds_expected = {12: oracle_ds_q12(dt), 38: oracle_ds_q38(dt)}
+    for q in CORPUS_TPCDS:
+        rows, launches, records[f"ds_q{q}"] = _corpus_run(
+            recorder, jlog, ds_session, f"corpus ds q{q}", DS[q],
+            ds_expected[38] if q == 38 else None)
+        for k, v in launches.items():
+            total[k] += v
+        if q == 12:
+            want = ds_expected[12]
+            require([r[:6] for r in rows] == [w[:6] for w in want],
+                    "ds q12 differs from the numpy oracle")
+            err = max(abs(r[6] - w[6]) / abs(w[6]) for r, w in
+                      zip(rows, want))
+            require(err <= 1e-12, f"ds q12 revenueratio off by {err}")
+            log(f"ds q12: {len(rows)} rows equal the numpy oracle, "
+                f"revenueratio within rel {err:.3g} (1e-12 allowed)")
+        if q == 86:
+            cpu = Session(ds_session.catalog, default_cat="tpcds",
+                          default_schema=TPCDS_SCHEMA, device="cpu")
+            t0 = time.monotonic()
+            want = cpu.execute(DS[86]).rows
+            cpu_s = time.monotonic() - t0
+            require(rows == want, "ds q86 on the card differs from the "
+                    "port's CPU Session")
+            records["ds_q86"]["cpu_session_s"] = cpu_s
+            log(f"ds q86: {len(rows)} rows equal the port's "
+                f"Session(device='cpu') over the same tables ({cpu_s:.4f}"
+                f" s there)")
+
+    records["ds_q38"]["device_profile"] = _device_profile(ds_session,
+                                                          DS[38])
+    log("corpus ds q38 device profile (one more steady run): "
+        + json.dumps(records["ds_q38"]["device_profile"]))
+
+    # the reference-order cumsum: the card's bits are the CPU's
+    x = np.random.default_rng(7).standard_normal(6_000_000) * \
+        np.random.default_rng(8).integers(1, 10 ** 6, 6_000_000)
+    xc = torch.from_numpy(x).cuda()
+    got = cumsum_like_reference(xc).cpu().numpy()
+    want = cumsum_like_reference(torch.from_numpy(x)).numpy()
+    require(got.view(np.int64).tobytes() == want.view(np.int64).tobytes(),
+            "cumsum_like_reference: card bits differ from the CPU's")
+    plain = torch.cumsum(xc, 0).cpu().numpy()
+    cum = {"n": len(x), "bits_equal_cpu": True,
+           "ms": time_cuda(lambda: cumsum_like_reference(xc)),
+           "torch_cumsum_ms": time_cuda(lambda: torch.cumsum(xc, 0)),
+           "activities_per_call": activities_per_call(
+               lambda: cumsum_like_reference(xc)),
+           "torch_cumsum_activities": activities_per_call(
+               lambda: torch.cumsum(xc, 0)),
+           "torch_cumsum_prefixes_differing": int(
+               (plain.view(np.int64) != want.view(np.int64)).sum()),
+           "bound_ms": 2 * x.nbytes / HBM_BYTES_PER_S * 1e3}
+    log("cumsum_like_reference on the card: " + json.dumps(cum))
+
+    cpu = Session(device="cpu")
+    got = session.execute(UNNEST_SQL).rows
+    require(got == cpu.execute(UNNEST_SQL).rows and len(got) == 4,
+            "UNNEST on the card differs from the CPU")
+    log(f"unnest: {got} on the card equals the CPU")
+    log("corpus paths: " + json.dumps({"queries": records,
+                                        "launches": total,
+                                        "cumsum": cum}))
+    return total
+
+
 K1_PATHS = ("big tiles", "small tiles")
 # K3's call sites on the main paths (the innermost running one takes the
 # launch; a launch under none of them is "other hash aggregates")
@@ -1443,6 +1803,10 @@ class LaunchRecorder:
 
     def __init__(self):
         self.active = False
+        # False: count K1/K3 launches per path and site, but keep the
+        # largest launches recorded so far (the corpus paths run after
+        # the timed shapes were chosen)
+        self.keep = True
         self.k1 = {}              # K1's largest launch per path
         self.k1_launches = {}     # K1's main-path launches per path
         self.k3 = {}              # K3's largest launch per call site
@@ -1452,6 +1816,9 @@ class LaunchRecorder:
         self.star_build = None    # the largest build_join_tables call
         self.k5 = None            # K5's largest launch: its public args
         self.k2 = None
+
+    def recording(self) -> bool:
+        return self.active and self.keep
 
     def install(self):
         from trino_tpu_torch.ops import direct_agg as k5
@@ -1463,22 +1830,22 @@ class LaunchRecorder:
         real_k2 = k1._launch_window
 
         def k2_launch(planes, idx):
-            if self.active and (self.k2 is None or
-                                idx.shape[0] > self.k2[1].shape[0]):
+            if self.recording() and (self.k2 is None or
+                                     idx.shape[0] > self.k2[1].shape[0]):
                 self.k2 = (planes, idx)
             return real_k2(planes, idx)
         k1._launch_window = k2_launch
 
         def k4_launch(live, keys, tkey, src):
-            if self.active and (self.k4 is None or len(keys) *
-                                live.shape[0] > len(self.k4[1]) *
-                                self.k4[0].shape[0]):
+            if self.recording() and (self.k4 is None or len(keys) *
+                                     live.shape[0] > len(self.k4[1]) *
+                                     self.k4[0].shape[0]):
                 self.k4 = (live, list(keys), tkey, src)
             return real_k4(live, keys, tkey, src)
 
         def k5_launch(batch, key_indices, domains, aggs):
-            if self.active and (self.k5 is None or batch.capacity >
-                                self.k5[0].capacity):
+            if self.recording() and (self.k5 is None or batch.capacity >
+                                     self.k5[0].capacity):
                 self.k5 = (batch, key_indices, domains, aggs)
             return real_k5(batch, key_indices, domains, aggs)
 
@@ -1487,8 +1854,9 @@ class LaunchRecorder:
         def build_tables(builds, keys_per_build, table_slots):
             def size(b):
                 return sum(x.capacity for x in b) * len(b)
-            if self.active and (self.star_build is None or size(builds) >
-                                size(self.star_build[0])):
+            if self.recording() and (self.star_build is None or
+                                     size(builds) >
+                                     size(self.star_build[0])):
                 self.star_build = (list(builds), list(keys_per_build),
                                    table_slots)
             return real_build(builds, keys_per_build, table_slots)
@@ -1502,7 +1870,8 @@ class LaunchRecorder:
                 return real_k1(tables, idx, fills)
             path = k1_path(tables)
             kept = self.k1.get(path)
-            if kept is None or idx.shape[0] > kept[1].shape[0]:
+            if self.keep and (kept is None or
+                              idx.shape[0] > kept[1].shape[0]):
                 self.k1[path] = (list(tables), idx, list(fills))
             before = k1.gather_columns.launches
             out = real_k1(tables, idx, fills)
@@ -1518,8 +1887,8 @@ class LaunchRecorder:
             site = self.k3_site[-1] if self.k3_site else \
                 "other hash aggregates"
             kept = self.k3.get(site)
-            if kept is None or key.shape[0] * G > kept[0].shape[0] * \
-                    kept[7]:
+            if self.keep and (kept is None or key.shape[0] * G >
+                              kept[0].shape[0] * kept[7]):
                 self.k3[site] = args
             self.k3_launches[site] = self.k3_launches.get(site, 0) + 1
             return real_k3(*args)
@@ -2068,7 +2437,8 @@ def main() -> int:
              phase_chunked_path(recorder, session, tables),
              phase_ds_chunked(recorder, ds_session, ds_tables, ds_expected,
                               ds_walls),
-             phase_stream_build(recorder, session)]
+             phase_stream_build(recorder, session),
+             phase_corpus_paths(recorder, session, tables, ds_session)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -1,18 +1,19 @@
-"""The port's rows against the reference's over the whole query corpus the
-port runs: the 19 TPC-H queries at tpch.tiny (all but q4, q21 and q22)
-and the 57 TPC-DS queries of tests/tpcds_queries.py at tpcds.tiny, each
-through the JAX Session and the port's Session(device="cpu"), both at
-their defaults.
+"""The port's rows against the reference's over the whole query corpus:
+the 22 TPC-H queries at tpch.tiny and the 99 TPC-DS queries of
+tests/tpcds_queries.py at tpcds.tiny, each through the JAX Session and
+the port's Session(device="cpu"), both at their defaults.
 
 Tolerance: none. The rows are equal exactly, doubles to the last bit: in
 order where the query ends in ORDER BY, as multisets otherwise. The
 doubles the reference computes from decimals and from `round` carry
 XLA's rewrite of a division by a constant (a multiply by the
 reciprocal), which the port mirrors; TPC-DS q31, q59 and q78 show it.
+Its float sums and cumsums carry XLA's summation orders, which the port
+mirrors too (tests/test_torch_cumsum.py).
 
-Every other corpus query must raise NotImplementedError naming the
-ROADMAP item that ports what it needs, so that the list of queries the
-port runs cannot shrink unnoticed."""
+A corpus query the port cannot run would be listed with the ROADMAP item
+that ports what it needs and must raise NotImplementedError naming it;
+no query is listed now, and every corpus query plans on the port."""
 
 from collections import Counter
 
@@ -36,18 +37,8 @@ torch.set_num_threads(1)
 TPCH_TABLES = ["region", "nation", "supplier", "customer", "part",
                "partsupp", "orders", "lineitem"]
 # the ROADMAP item each corpus query the port does not run yet raises
-TPCH_NOT_PORTED = {4: "semi/anti/mark joins", 21: "semi/anti/mark joins",
-                   22: "semi/anti/mark joins"}
-_SET, _WINDOW, _SEMI = ("set operations", "window functions",
-                        "semi/anti/mark joins")
-TPCDS_NOT_PORTED = {
-    2: _SET, 4: _SET, 5: _SET, 10: _SEMI, 11: _SET, 12: _WINDOW, 14: _SET,
-    16: _SEMI, 18: _SET, 20: _WINDOW, 22: _SET, 23: _SET, 33: _SET,
-    35: _SEMI, 36: _WINDOW, 38: _SET, 44: _WINDOW, 47: _WINDOW,
-    49: _SET, 51: _WINDOW, 53: _WINDOW, 54: _SET, 56: _SET, 57: _WINDOW,
-    60: _SET, 63: _WINDOW, 66: _SET, 67: _WINDOW, 69: _SEMI, 70: _WINDOW,
-    71: _SET, 74: _SET, 75: _SET, 76: _SET, 77: _SET, 80: _SET,
-    86: _WINDOW, 87: _SET, 89: _WINDOW, 94: _SEMI, 97: _SET, 98: _WINDOW}
+TPCH_NOT_PORTED: dict = {}
+TPCDS_NOT_PORTED: dict = {}
 TPCH_RUN = [q for q in sorted(TPCH) if q not in TPCH_NOT_PORTED]
 TPCDS_RUN = [q for q in sorted(TPCDS) if q not in TPCDS_NOT_PORTED]
 
@@ -96,7 +87,7 @@ def _assert_same_rows(sessions, sql):
 
 
 def test_corpus_lists_every_query():
-    assert len(TPCH_RUN) == 19 and len(TPCDS_RUN) == 57
+    assert len(TPCH_RUN) == 22 and len(TPCDS_RUN) == 99
     assert set(TPCDS_NOT_PORTED) <= set(TPCDS)
 
 
@@ -119,3 +110,6 @@ def test_other_queries_name_their_roadmap_item(tpch_sessions,
             with pytest.raises(NotImplementedError,
                                match=f"ROADMAP: {item}"):
                 port.execute(queries[q])
+        # nothing else in the corpus raises: every query plans on the port
+        for q in sorted(set(queries) - set(not_ported)):
+            assert port.execute("EXPLAIN " + queries[q]).rows

@@ -149,9 +149,14 @@ def test_session_runs_on_cuda_unless_told_otherwise():
     "(SELECT 1 FROM region WHERE r_regionkey = n_regionkey)",
 ])
 def test_outside_the_slice_raises(tables, sql):
-    _, ts = _sessions(tables)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.execute(sql)
+    """A window function, a set operation and a semi join raised until
+    their modules were ported; they now run to the reference's rows.
+    What is still outside the port (DDL) raises naming its ROADMAP
+    item."""
+    js, ts = _sessions(tables)
+    assert ts.execute(sql).rows == js.execute(sql).rows
+    with pytest.raises(NotImplementedError, match="ROADMAP: DDL and DML"):
+        ts.execute("CREATE TABLE memory.default.t AS SELECT 1 AS x")
 
 
 @pytest.mark.parametrize("prop,value", [("distributed", "true"),

@@ -2,8 +2,8 @@
 Session (CPU) against the sqlite oracle over tpch.tiny (the reference's
 generated tables, byte-identical to the port's) — the check
 tests/test_tpch_all.py makes of the reference, with its tolerance
-(abs 0.02: the oracle sums REALs). q4, q21 and q22 need semi/anti joins,
-which are not ported yet, and must say so."""
+(abs 0.02: the oracle sums REALs). All 22 queries, q4, q21 and q22
+through the port's semi and anti joins."""
 
 import pytest
 import torch
@@ -18,7 +18,6 @@ from trino_tpu_torch.exec.session import Session
 # the CPU tests from oversubscribing the cores
 torch.set_num_threads(1)
 
-NEEDS_SEMI_ANTI = (4, 21, 22)
 TPCH_TABLES = ["region", "nation", "supplier", "customer", "part",
                "partsupp", "orders", "lineitem"]
 
@@ -40,16 +39,9 @@ def oracle(tables):
     return load_oracle([tables[t] for t in TPCH_TABLES])
 
 
-@pytest.mark.parametrize("qnum", [q for q in sorted(QUERIES)
-                                  if q not in NEEDS_SEMI_ANTI])
+@pytest.mark.parametrize("qnum", sorted(QUERIES))
 def test_tpch_query_on_port(session, oracle, qnum):
     sql = QUERIES[qnum]
     got = session.execute(sql).rows
     assert_rows_match(got, oracle_query(oracle, sql), rel_tol=1e-9,
                       abs_tol=0.02, ordered=True)
-
-
-@pytest.mark.parametrize("qnum", NEEDS_SEMI_ANTI)
-def test_semi_anti_queries_say_not_ported(session, qnum):
-    with pytest.raises(NotImplementedError, match="semi/anti/mark joins"):
-        session.execute(QUERIES[qnum])

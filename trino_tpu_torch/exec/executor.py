@@ -11,15 +11,18 @@ filter/project, global/direct/sort/packed-sort/hash aggregation (K3 via
 ``ops/hashtable.py``; the direct arm's `mxu` variant is K5 via
 ``ops/direct_agg.py``), inner/left unique-build and expansion joins
 (dense-LUT, sort-merge, sorted, hybrid hash — K1 via ``ops/gather.py``),
-fused multiway star joins (K4 via ``ops/hashtable.multiway_probe``, with
-the reference's degrades back to the pairwise ladder), sort/TopN/limit,
-values and uncorrelated scalar subqueries; the chunked driver
-(`spill_chunk_rows`, ``exec/chunked.py``: fused per-chunk programs whose
-adapted windowed probes are K2, the fact-column cache, the chunk-mode LUT
-caches here) and streaming builds (`stream_build_min_kb`). Nodes and
-options outside the port raise NotImplementedError naming the ROADMAP
-item that ports them: window, unnest, set operations, mark/semi/anti
-joins and the host-spill tier.
+semi/anti/mark joins (the same probes, membership semantics, and the
+residual expansion ``ops/join.join_mark``), fused multiway star joins (K4
+via ``ops/hashtable.multiway_probe``, with the reference's degrades back
+to the pairwise ladder), set operations (``ops/setops.py``), window
+functions (``ops/window.py``), unnest, sort/TopN/limit, values and
+uncorrelated scalar subqueries; chunked execution (`spill_chunk_rows`,
+``exec/chunked.py``: fused per-chunk programs whose adapted windowed
+probes are K2, the fact-column cache, the chunk-mode LUT caches here) and
+streaming builds (`stream_build_min_kb`). Plan nodes outside the port
+(remote sources, table writes) raise NotImplementedError naming the
+ROADMAP item that ports them; a query over the memory limit fails (the
+host-spill tier is not ported).
 
 The kernel gates (`auto` for K1, K3, K4 and K5) model the TPU's decision
 on every device, so the port takes the same strategies on the CPU as the
@@ -49,7 +52,7 @@ from ..batch import (Batch, Column, batch_from_numpy, batch_to_numpy,
 from ..catalog import Catalog
 from ..ops.aggregate import (AggSpec, direct_group_aggregate,
                              global_aggregate, sort_group_aggregate)
-from ..ops.join import (join_expand, join_unique_build,
+from ..ops.join import (join_expand, join_mark, join_unique_build,
                         join_unique_build_dense, join_unique_build_merge)
 from ..ops.project import apply_filter, filter_project, filter_project_fused
 from ..ops.sort import limit_batch, sort_batch
@@ -467,12 +470,74 @@ class Executor:
         if isinstance(node, L.MultiJoinNode):
             return self.run_multijoin(node)
         if isinstance(node, L.WindowNode):
-            raise _not_ported("WindowNode", "window functions")
+            return self.run_window(node)
         if isinstance(node, L.UnnestNode):
-            raise _not_ported("UnnestNode", "unnest")
+            return self.run_unnest(node)
         if isinstance(node, L.SetOpNode):
-            raise _not_ported("SetOpNode", "set operations")
-        raise _not_ported(type(node).__name__, "the remaining plan nodes")
+            return self.run_setop(node)
+        if isinstance(node, L.RemoteSourceNode):
+            raise _not_ported("RemoteSourceNode",
+                              "the mesh tier on torch.distributed")
+        raise _not_ported(type(node).__name__, "DDL and DML")
+
+    def run_window(self, node: L.WindowNode) -> Batch:
+        from ..ops.window import WinSpec, window_compute
+        child = self.run(node.child)
+        keys = tuple((k.index, k.ascending, k.nulls_first)
+                     for k in node.order_by)
+        specs = tuple(WinSpec(s.func, s.arg, s.frame, s.offset, s.default)
+                      for s in node.specs)
+        return window_compute(child, node.partition_by, keys, specs)
+
+    def run_unnest(self, node: L.UnnestNode) -> Batch:
+        """UNNEST expansion (operator/unnest/UnnestOperator.java:42):
+        repeat each live row once per element of its array. Arrays are
+        pool ids, so the expansion is a host-edge transform like the other
+        pool operations: flat offsets per pool, rows gathered through
+        np.repeat."""
+        child = self.run(node.child)
+        arrays, valids = batch_to_numpy(child)
+        ids = arrays[node.array_col]
+        id_valid = valids[node.array_col]
+        pool = node.array_pool
+        lengths = np.array([len(t) for t in pool], dtype=np.int64)
+        flat = [v for t in pool for v in t]
+        offsets = np.concatenate([[0], np.cumsum(lengths)])
+        reps = np.where(id_valid, lengths[ids], 0)   # NULL array: 0 rows
+        row_idx = np.repeat(np.arange(len(ids)), reps)
+        within = np.arange(len(row_idx)) - np.repeat(
+            np.cumsum(reps) - reps, reps)
+        elem_pos = offsets[ids[row_idx]] + within
+        elem_vals = [flat[int(p)] for p in elem_pos]
+        elem_valid = np.array([v is not None for v in elem_vals],
+                              dtype=np.bool_)
+        t = node.element_dtype
+        from ..types import TypeKind as TK
+        if t.kind is TK.VARCHAR:
+            index = {s: i for i, s in enumerate(node.element_pool or ())}
+            elem = np.array([index.get(v, 0) for v in elem_vals],
+                            dtype=np.int32)
+        else:
+            elem = np.array([v if v is not None else 0
+                             for v in elem_vals], dtype=t.np_dtype)
+        out_arrays = [a[row_idx] for a in arrays] + [elem]
+        out_valids = [v[row_idx] for v in valids] + [elem_valid]
+        if node.ordinality:
+            out_arrays.append((within + 1).astype(np.int64))
+            out_valids.append(np.ones(len(row_idx), dtype=np.bool_))
+        return batch_from_numpy(out_arrays, valids=out_valids,
+                                device=self.device)
+
+    def run_setop(self, node: L.SetOpNode) -> Batch:
+        """UNION ALL concatenates; the other set operations run on the
+        device with the reference's host-loop semantics and row order
+        (ops/setops.py)."""
+        from ..ops.setops import concat_batches, remap_codes, setop_rows
+        left = remap_codes(self.run(node.left), node.left_remaps)
+        right = remap_codes(self.run(node.right), node.right_remaps)
+        if node.op == "union_all":
+            return concat_batches(left, right)
+        return setop_rows(node.op, left, right)
 
     def run_values(self, node: L.ValuesNode) -> Batch:
         if node.arrays:
@@ -836,7 +901,7 @@ class Executor:
                 escaped.extend(g0 + p for p in esc)
             idx = torch.nonzero(occupied.reshape(-1)).flatten()
             pieces.append((n, tkey.reshape(-1)[idx],
-                           st.reshape(ns, -1)[:, idx]))
+                           st.reshape(ns, tkey.numel())[:, idx]))
         total = sum(p[0] for p in pieces)
         cap = pad_capacity(total)
         out_key = torch.full((cap,), ht.EMPTY_KEY, dtype=torch.int64,
@@ -1053,14 +1118,11 @@ class Executor:
 
     def _run_join_inner(self, node: L.JoinNode, probe: Batch,
                         build: Batch) -> Batch:
-        if node.kind == "mark":
-            raise _not_ported("mark joins", "semi/anti/mark joins")
-        if node.kind in ("semi", "anti"):
-            raise _not_ported(f"{node.kind} joins", "semi/anti/mark joins")
-        if node.kind not in ("inner", "left"):
-            raise _not_ported(f"{node.kind} joins",
-                              "the remaining join kinds")
         probe = self.apply_dynamic_filter(node, probe, build)
+        if node.kind == "mark":
+            return self.run_mark_join(node, probe, build)
+        if node.kind in ("semi", "anti"):
+            return self.run_membership_join(node, probe, build)
         probe = self.maybe_compact(probe, node=node)
         domain = node.build_key_domain
         if node.build_unique:
@@ -1166,6 +1228,92 @@ class Executor:
             self._note_strategy("JoinNode", "sorted", "join")
             return self.maybe_compact(out, live=live)
         return None
+
+    def run_mark_join(self, node: L.JoinNode, probe: Batch,
+                      build: Batch) -> Batch:
+        """EXISTS truth as an appended boolean column (JoinNode.Type.MARK):
+        every probe row survives; the mark powers disjunctive EXISTS
+        filters downstream. Build duplicates are irrelevant (membership
+        semantics)."""
+        domain = node.build_key_domain
+        if node.residual is None:
+            out = None
+            if domain is not None:
+                dout, _dup, oob = join_unique_build_dense(
+                    probe, build, node.left_keys, node.right_keys,
+                    "semi", domain, self.gather_mode())
+                if self.fetch_ints(node, f"markoob:{domain}",
+                                   oob)[0] == 0:
+                    out = dout
+                else:
+                    self.stats.join_domain_fallbacks += 1
+            if out is None:
+                out, _dup = join_unique_build(
+                    probe, build, node.left_keys, node.right_keys, "semi")
+            mark = out.live          # live & matched
+        else:
+            mark = probe.live & self._residual_mark(node, probe, build,
+                                                    "markexp")
+        return Batch(probe.columns +
+                     (Column(mark, torch.ones_like(mark)),), probe.live)
+
+    def _residual_mark(self, node: L.JoinNode, probe: Batch, build: Batch,
+                       tag: str) -> torch.Tensor:
+        """join_mark with the reference's grow-and-retry loop: the pair
+        capacity grows to the bucket of the measured pair count, and keys
+        outside a stale domain rerun without it."""
+        residual = self.fold_scalars(node.residual)
+        domain = node.build_key_domain
+        cap = probe.capacity
+        while True:
+            mark, total, oob = join_mark(probe, build, node.left_keys,
+                                         node.right_keys, residual, cap,
+                                         domain)
+            total, oob = self.fetch_ints(node, f"{tag}{cap}:{domain}",
+                                         total, oob)
+            if oob > 0:
+                domain = None
+                self.stats.join_domain_fallbacks += 1
+                continue
+            if total <= cap:
+                return mark
+            cap = bucket_capacity(total)
+            self.stats.join_expansion_retries += 1
+
+    def run_membership_join(self, node: L.JoinNode, probe: Batch,
+                            build: Batch) -> Batch:
+        """semi/anti joins. Build duplicates are irrelevant (membership);
+        residuals go through the mark-join expansion."""
+        if node.null_aware:
+            # NOT IN: any NULL in the subquery output -> no row can pass
+            bk = build.columns[node.right_keys[0]]
+            if self.fetch_ints(node, "nullaware",
+                               (build.live & ~bk.valid).any())[0]:
+                return probe.with_live(torch.zeros_like(probe.live))
+        domain = node.build_key_domain
+        if node.residual is None:
+            if domain is not None:
+                out, _dup, oob = join_unique_build_dense(
+                    probe, build, node.left_keys, node.right_keys,
+                    node.kind, domain, self.gather_mode())
+                if self.fetch_ints(node, f"memoob:{domain}",
+                                   oob)[0] == 0:
+                    self._note_strategy("JoinNode", "dense-lut", "join")
+                    return out
+                self.stats.join_domain_fallbacks += 1
+            # membership joins tolerate duplicate build keys (the hash
+            # table keeps one row per key, which IS the semantics)
+            status, hout = self.try_hash_join(node, probe, build,
+                                              allow_dup=True)
+            if status == "ok":
+                return hout
+            out, _dup = join_unique_build(probe, build, node.left_keys,
+                                          node.right_keys, node.kind)
+            self._note_strategy("JoinNode", "sorted", "join")
+            return out
+        mark = self._residual_mark(node, probe, build, "memexp")
+        live = probe.live & (mark if node.kind == "semi" else ~mark)
+        return probe.with_live(live)
 
     def try_hash_join(self, node: L.JoinNode, probe: Batch,
                       build: Batch, allow_dup: bool):
@@ -1630,8 +1778,10 @@ def _append_packed_key(batch: Batch, kmins, keys: tuple,
 def _strip_packed_columns(out: Batch, node: L.JoinNode, n_probe: int,
                           n_build: int) -> Batch:
     """Remove the appended key columns so the output matches
-    node.output (inner/left: probe + packed_p + build + packed_b)."""
+    node.output (inner/left: probe + packed_p + build + packed_b; mark:
+    probe + packed_p + mark; semi/anti: probe + packed_p)."""
     cols = list(out.columns)
-    del cols[n_probe + 1 + n_build]
+    if node.kind in ("inner", "left"):
+        del cols[n_probe + 1 + n_build]
     del cols[n_probe]
     return Batch(tuple(cols), out.live)

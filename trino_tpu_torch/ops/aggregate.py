@@ -60,6 +60,73 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype.is_floating_point else torch.int64
 
 
+# the reference's float cumsum is XLA's blocked scan with this block size
+CUMSUM_BLOCK = 16
+
+
+def cumsum_like_reference(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along dim 0, with the reference's float rounding.
+
+    XLA's CPU backend computes ``jnp.cumsum`` as a blocked scan: a
+    sequential running sum inside each block of 16 (the tail padded with
+    zeros), the same scan applied recursively over the block totals, and
+    each block's carry added to its elements as ``inner + carry``. Float
+    inputs follow that order here, with the in-block sums written as
+    explicit column adds, so the CPU and CUDA give the same bits. Integer
+    inputs take ``torch.cumsum``: exact in any order."""
+    if not x.dtype.is_floating_point:
+        return torch.cumsum(x, 0)
+    n = x.shape[0]
+    if n <= 1:
+        return x.clone()
+    b = CUMSUM_BLOCK
+    m = -(-n // b)
+    if m * b != n:
+        x = torch.cat([x, x.new_zeros(m * b - n)])
+    v = x.reshape(m, b)
+    cols = [v[:, 0]]
+    for j in range(1, b):
+        cols.append(cols[-1] + v[:, j])
+    inner = torch.stack(cols, 1)
+    if m > 1:
+        carry = cumsum_like_reference(inner[:, b - 1].contiguous())
+        inner[1:] = inner[1:] + carry[:-1, None]
+    return inner.reshape(-1)[:n]
+
+
+# ... and its float sum a recursive reduce-window of this size
+SUM_WINDOW = 32
+
+
+def sum_like_reference(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a 1-D tensor, with the reference's float rounding.
+
+    XLA's CPU backend rewrites a ``jnp.sum`` longer than 32 into
+    reduce-windows of 32 (stride 32, the zero padding split evenly
+    before and after, the low half first), applied again to the window
+    sums until at most 32 remain, then one reduce; each window and the
+    final reduce add sequentially from 0. Float inputs follow that order
+    here as explicit column adds; integer sums are exact in any order."""
+    if not x.dtype.is_floating_point:
+        return x.sum()
+    b = SUM_WINDOW
+    while x.shape[0] > b:
+        n = x.shape[0]
+        m = -(-n // b)
+        lo = (m * b - n) // 2
+        if m * b != n:
+            x = torch.cat([x.new_zeros(lo), x, x.new_zeros(m * b - n - lo)])
+        v = x.reshape(m, b)
+        acc = x.new_zeros(m)
+        for j in range(b):
+            acc = acc + v[:, j]
+        x = acc
+    acc = x.new_zeros(())
+    for j in range(x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
 def _identity(func: str, dtype: torch.dtype):
     if func == "sum" or func.startswith("count"):
         return 0
@@ -126,8 +193,9 @@ def direct_group_aggregate(batch: Batch, key_indices: tuple,
             continue
         if spec.func == "sum":
             vals = data.to(_acc_dtype(data.dtype))
-            state = torch.stack([torch.where(m & col.valid, vals, 0).sum()
-                                 for m in group_masks])
+            state = torch.stack([
+                sum_like_reference(torch.where(m & col.valid, vals, 0))
+                for m in group_masks])
         else:
             ident = _identity(spec.func, data.dtype)
             red = torch.amin if spec.func == "min" else torch.amax
@@ -217,10 +285,10 @@ def _grouped_reduce(batch: Batch, key_indices: tuple, aggs: tuple,
     g = torch.arange(out_capacity, dtype=torch.int64, device=dev)
     group_live = g < num_groups
     pos = torch.arange(n, dtype=torch.int32, device=dev)
-    sidx = torch.where(boundary & (seg < out_capacity), seg, out_capacity)
-    start_lut = torch.zeros(out_capacity + 1, dtype=torch.int32,
-                            device=dev)
-    start_lut.scatter_reduce_(0, sidx, pos, "amax")
+    from .join import scatter_max_sunk
+    start_lut = scatter_max_sunk(
+        torch.zeros(out_capacity + 1, dtype=torch.int32, device=dev), seg,
+        pos, boundary & (seg < out_capacity))
     start_c = start_lut[:out_capacity].clamp(0, n - 1).to(torch.int64)
     next_start = start_lut[(g + 1).clamp(0, out_capacity)].to(torch.int64)
     end_pos = torch.where(g + 1 < num_groups,
@@ -247,7 +315,7 @@ def _grouped_reduce(batch: Batch, key_indices: tuple, aggs: tuple,
                                    valid=col.valid[rep] & group_live))
 
     def seg_total(values_sorted):
-        cs = torch.cumsum(values_sorted, 0)
+        cs = cumsum_like_reference(values_sorted)
         upto_end = cs[end_pos]
         before_start = torch.where(start_c > 0,
                                    cs[(start_c - 1).clamp(0, n - 1)],
@@ -416,8 +484,8 @@ def global_aggregate(batch: Batch, aggs: tuple) -> Batch:
             out_cols.append(Column(data=cnt, valid=one))
             continue
         if spec.func == "sum":
-            state = torch.where(m, col.data.to(_acc_dtype(col.data.dtype)),
-                                0).sum()[None]
+            state = sum_like_reference(torch.where(
+                m, col.data.to(_acc_dtype(col.data.dtype)), 0))[None]
         else:
             ident = _identity(spec.func, col.data.dtype)
             red = torch.amin if spec.func == "min" else torch.amax

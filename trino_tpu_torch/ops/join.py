@@ -78,6 +78,25 @@ def _roll1(x: torch.Tensor) -> torch.Tensor:
     return torch.roll(x, 1, 0)
 
 
+def scatter_max_sunk(table: torch.Tensor, idx: torch.Tensor,
+                     vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """`table.scatter_reduce_(0, where(sel, idx, sink), vals, "amax")` with
+    the sink the table's last slot, which no selected index names. The
+    unselected rows take a slot each past the end, and their maximum
+    reaches the sink as one reduction: on the card, a scatter of many rows
+    to one address serialises their atomics. Returns the table (a new
+    tensor)."""
+    t, n = table.shape[0], idx.shape[0]
+    ext = torch.cat([table, table.new_zeros(n)])
+    spare = torch.arange(t, t + n, dtype=idx.dtype, device=idx.device)
+    ext.scatter_reduce_(0, torch.where(sel, idx, spare), vals, "amax")
+    out = ext[:t]
+    low = torch.iinfo(vals.dtype).min
+    rest = torch.where(sel, low, vals).max()
+    out[t - 1] = torch.maximum(out[t - 1], rest.to(out.dtype))
+    return out
+
+
 def _dense_row_lut(key: torch.Tensor, ok: torch.Tensor, domain: int):
     """Scatter build-row indices into a dense key->row table.
 
@@ -87,9 +106,9 @@ def _dense_row_lut(key: torch.Tensor, ok: torch.Tensor, domain: int):
     n = key.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=key.device)
     idx = torch.where(ok, key.clamp(0, domain - 1), domain)
-    lut = torch.full((domain + 1,), -1, dtype=torch.int32,
-                     device=key.device)
-    lut.scatter_reduce_(0, idx, rows, "amax")
+    lut = scatter_max_sunk(
+        torch.full((domain + 1,), -1, dtype=torch.int32, device=key.device),
+        idx, rows, ok)
     readback = lut[idx]
     dup = (ok & (readback != rows)).sum(dtype=torch.int64)
     return lut, dup
@@ -345,10 +364,10 @@ def _expand_map(out_counts: torch.Tensor, out_capacity: int):
                                               device=dev)
     starts = cum - out_counts
     has = out_counts > 0
-    idx = torch.where(has & (starts < out_capacity), starts, out_capacity)
-    seed = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
-    seed.scatter_reduce_(0, idx, torch.arange(n, dtype=torch.int64,
-                                              device=dev) + 1, "amax")
+    seed = scatter_max_sunk(
+        torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev),
+        starts, torch.arange(n, dtype=torch.int64, device=dev) + 1,
+        has & (starts < out_capacity))
     probe_row = torch.cummax(seed[:out_capacity], 0).values - 1
     probe_row_c = probe_row.clamp(0, max(n - 1, 0))
     j = torch.arange(out_capacity, dtype=torch.int64, device=dev)
@@ -368,13 +387,13 @@ def _dense_run_luts(sorted_keys: torch.Tensor, domain: int):
     run_end = in_dom & ((pos == n - 1) |
                         (torch.roll(sorted_keys, -1, 0) != sorted_keys))
     key_c = sorted_keys.clamp(0, domain - 1)
-    lo_lut = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
-    lo_lut.scatter_reduce_(0, torch.where(boundary, key_c, domain), pos,
-                           "amax")
+    lo_lut = scatter_max_sunk(
+        torch.zeros(domain + 1, dtype=torch.int32, device=dev), key_c, pos,
+        boundary)
     lo_of_row = lo_lut[key_c]
-    cnt_lut = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
-    cnt_lut.scatter_reduce_(0, torch.where(run_end, key_c, domain),
-                            pos - lo_of_row + 1, "amax")
+    cnt_lut = scatter_max_sunk(
+        torch.zeros(domain + 1, dtype=torch.int32, device=dev), key_c,
+        pos - lo_of_row + 1, run_end)
     oob = (validk & ~in_dom).sum(dtype=torch.int64)
     return lo_lut, cnt_lut, oob
 
@@ -630,3 +649,54 @@ def dense_join_packed(probe: Batch, lut: torch.Tensor, probe_keys: tuple,
         (pk >= 0) & (pk < domain)
     return _packed_output(probe, word, matched, pk, meta, bkey, out_dtypes,
                           kind)
+
+
+def join_mark(probe: Batch, build: Batch, probe_keys: tuple,
+              build_keys: tuple, residual, out_capacity: int,
+              domain=None):
+    """Mark join: per probe row, does ANY build row match the equi keys AND
+    the residual predicate? Powers semi/anti joins with non-equi
+    correlated conditions (TPC-H q21's l2.l_suppkey <> l1.l_suppkey), the
+    role of Trino's JoinFilterFunction on semi joins.
+
+    The same two-pass expansion as join_expand; the residual is evaluated
+    over the expanded pair batch (probe columns ++ build columns), then
+    reduced back per probe row with a cumulative-count window (integer
+    cumsums: exact in any order).
+
+    Returns (mark per probe row, total_pairs, oob). total_pairs >
+    out_capacity means the expansion overflowed: grow and retry."""
+    from .project import filter_mask
+
+    n_build = build.capacity
+    lo, counts, order, _pk_ok, oob = _probe_runs(
+        probe, build, probe_keys, build_keys, domain)
+    cum = torch.cumsum(counts, 0)
+    probe_row_c, within, out_live, total = _expand_map(counts,
+                                                       out_capacity)
+    pair_live = out_live & (within < counts[probe_row_c])
+    build_row = order[(lo[probe_row_c] + within).clamp(0, n_build - 1)]
+
+    pair_cols = []
+    for col in probe.columns:
+        pair_cols.append(Column(data=col.data[probe_row_c],
+                                valid=col.valid[probe_row_c] & pair_live))
+    for col in build.columns:
+        pair_cols.append(Column(data=col.data[build_row],
+                                valid=col.valid[build_row] & pair_live))
+    pairs = Batch(columns=tuple(pair_cols), live=pair_live)
+    ok = filter_mask(residual, pairs) & pair_live \
+        if residual is not None else pair_live
+
+    # per-probe-row "any ok": windowed sum over the cumulative ok counts
+    cs = torch.cumsum(ok.to(torch.int64), 0)
+    start = torch.minimum(cum - counts,
+                          torch.full_like(cum, out_capacity - 1)).clamp(
+                              min=0)
+    end = (cum - 1).clamp(0, out_capacity - 1)
+    upto_end = cs[end]
+    before_start = torch.where(start > 0,
+                               cs[(start - 1).clamp(0, out_capacity - 1)],
+                               0)
+    any_ok = (counts > 0) & ((upto_end - before_start) > 0)
+    return any_ok, total, oob
