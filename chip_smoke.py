@@ -70,7 +70,24 @@ Phases, each failing the run with a non-zero exit:
    and q22 and a torch.profiler run of q21 and ds q38;
    ``cumsum_like_reference`` on 6,000,000 doubles on the card, bit for
    bit its CPU result, timed against ``torch.cumsum``; and one UNNEST on
-   the card against the CPU's rows;
+   the card against the CPU's rows; then the write path, in a Session of
+   its own over the same catalog, counters set to 0 just before and read
+   just after: CREATE TABLE AS SELECT of lineitem, orders and customer
+   at ``tpch.sf1`` into ``memory.sf1``, DELETE (~1/7 of lineitem), UPDATE
+   (~1/4: a decimal and a VARCHAR column, with a value new to the pool),
+   INSERT ... SELECT (~1/10 back) and a MERGE INTO orders (~10% matched,
+   ~3% new keys; under torch.profiler), each reporting the row count of
+   a numpy replica that applies the same mutation; after each statement
+   the stored tables equal their replicas, TPC-H q1, q6 and q3 over the
+   memory tables equal the numpy oracles over the replicas (one cold,
+   two steady runs), q12 under ``mxu_agg = 'true'`` (K5) equals its
+   oracle, and q1 and q12 chunked twice equal their unchunked rows;
+   MERGE's anti join must launch K1; then CTAS of orders' first quarter
+   into a Parquet and an ORC catalog (row groups and stripes of 65,536
+   rows), read back equal to the generated table, scanned whole and
+   through the executor's pruned decode (groups skipped, no fallback),
+   and a CSV table of customer written, loaded and aggregated against a
+   numpy oracle; then DROP TABLE of the memory tables;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -1210,22 +1227,28 @@ def _host_profile(session, sql, top=15):
         for (f, _line, fn), (_cc, nc, _tt, ct, _callers) in rows]}
 
 
-def _device_profile(session, sql, top=8):
-    """One more steady run of `sql` under torch.profiler (uncounted): its
-    wall, the card's busy time (every kernel, memset and memcpy summed;
-    the port runs on one stream, so they do not overlap), the idle share
-    1 - busy / wall, the torch elementwise kernels' ms and count, the
-    device-to-host copies, and the `top` activities by device ms."""
+def _profiled_run(session, sql):
+    """One run of `sql` under torch.profiler: (result, wall s, the
+    device activities as (name, us))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.monotonic()
-        session.execute(sql)
+        res = session.execute(sql)
         torch.cuda.synchronize()
         wall = time.monotonic() - t
-    acts = _device_activities(prof)
+    return res, wall, _device_activities(prof)
+
+
+def _device_profile(session, sql, top=8):
+    """One more steady run of `sql` under torch.profiler (uncounted): its
+    wall, the card's busy time (every kernel, memset and memcpy summed;
+    the port runs on one stream, so they do not overlap), the idle share
+    1 - busy / wall, the torch elementwise kernels' ms and count, the
+    device-to-host copies, and the `top` activities by device ms."""
+    _res, wall, acts = _profiled_run(session, sql)
     parts = {}
     for name, us in acts:
         n, total = parts.get(name[:50], (0, 0.0))
@@ -1774,6 +1797,429 @@ def phase_corpus_paths(recorder, session, tables, ds_session):
                                         "launches": total,
                                         "cumsum": cum}))
     return total
+
+
+# --------------------------------------------------------------------------
+# the write path: DDL and DML on the memory connector, the file connectors
+# --------------------------------------------------------------------------
+
+WRITE_TABLES = ("lineitem", "orders", "customer")
+# the file tables hold orders' first quarter (o_orderkey < FILE_KEYS): the
+# Python Parquet and ORC writers take ~3 and ~8 s a million rows
+FILE_KEYS = 1_500_000
+FILE_GROUP_ROWS = 65_536
+# the statements, over memory.<s> and tpch.<s> for s = TPCH_SCHEMA
+DELETE_SQL = ("DELETE FROM memory.{s}.lineitem "
+              "WHERE l_shipdate < DATE '1993-01-01'")
+UPDATE_SQL = ("UPDATE memory.{s}.lineitem SET l_extendedprice = "
+              "l_extendedprice + 1.00, l_shipmode = 'DRONE' "
+              "WHERE l_orderkey % 4 = 1")
+INSERT_SQL = ("INSERT INTO memory.{s}.lineitem SELECT * FROM "
+              "tpch.{s}.lineitem WHERE l_shipdate < DATE '1992-09-01'")
+MERGE_SQL = (
+    "MERGE INTO memory.{s}.orders t USING (SELECT CASE WHEN "
+    "o_orderkey % 10 = 3 THEN o_orderkey ELSE o_orderkey + 10000000 END "
+    "AS k, o_custkey AS c, o_totalprice AS p, o_orderdate AS d, "
+    "o_orderpriority AS pr FROM tpch.{s}.orders WHERE o_orderkey % 10 = 3 "
+    "OR o_orderkey % 100 IN (7, 17, 27)) s ON t.o_orderkey = s.k "
+    "WHEN MATCHED THEN UPDATE SET o_totalprice = s.p * 2, "
+    "o_shippriority = 1 WHEN NOT MATCHED THEN INSERT (o_orderkey, "
+    "o_custkey, o_orderstatus, o_totalprice, o_orderdate, "
+    "o_orderpriority, o_shippriority) VALUES (s.k, s.c, 'O', s.p, s.d, "
+    "s.pr, 0)")
+
+
+def _memory_sql(sql: str) -> str:
+    """A TPC-H text over the memory copies of lineitem, orders, customer."""
+    for name in ("customer", "orders", "lineitem"):
+        sql = sql.replace(f" {name},", f" memory.{TPCH_SCHEMA}.{name},") \
+            .replace(f" {name}\n", f" memory.{TPCH_SCHEMA}.{name}\n")
+    return sql
+
+
+class Replica:
+    """A table's columns in numpy with the mutations applied in plain
+    numpy: the oracles' input after each statement, and what the stored
+    memory table must equal."""
+
+    def __init__(self, data):
+        import numpy as np
+        self.name = data.name
+        self.fields = list(data.schema.fields)
+        self.cols = [np.array(c) for c in data.columns]
+        self.valids = [np.ones(data.num_rows, np.bool_)
+                       if data.valids is None or data.valids[i] is None
+                       else np.array(data.valids[i])
+                       for i in range(len(self.cols))]
+
+    def col(self, name):
+        return self.cols[[f.name for f in self.fields].index(name)]
+
+    def table(self):
+        from trino_tpu_torch.batch import Schema
+        from trino_tpu_torch.connectors.tpch.datagen import TableData
+        return TableData(self.name, Schema(tuple(self.fields)), self.cols,
+                         valids=self.valids)
+
+    def keep(self, mask):
+        self.cols = [c[mask] for c in self.cols]
+        self.valids = [v[mask] for v in self.valids]
+
+    def append(self, cols, valids):
+        import numpy as np
+        self.cols = [np.concatenate([a, b.astype(a.dtype)])
+                     for a, b in zip(self.cols, cols)]
+        self.valids = [np.concatenate([a, b])
+                       for a, b in zip(self.valids, valids)]
+
+    def add_string(self, name, value):
+        """Put `value` into a VARCHAR pool at its sorted place and renumber
+        the stored codes; returns its code."""
+        import numpy as np
+        from trino_tpu_torch.batch import Field
+        i = [f.name for f in self.fields].index(name)
+        f = self.fields[i]
+        pool = tuple(sorted(set(f.dictionary) | {value}))
+        remap = np.array([pool.index(s) for s in f.dictionary], np.int32)
+        self.cols[i] = remap[self.cols[i]]
+        self.fields[i] = Field(f.name, f.dtype, dictionary=pool)
+        return pool.index(value)
+
+
+def _check_stored(session, rep, keys):
+    """The stored memory table equals the replica: rows, pools, every
+    column and validity, compared in key order."""
+    import numpy as np
+    got = session.catalog.connector("memory").get_table(TPCH_SCHEMA,
+                                                        rep.name)
+    require(got.num_rows == len(rep.cols[0]),
+            f"memory.{rep.name}: {got.num_rows} rows, want "
+            f"{len(rep.cols[0])}")
+    names = [f.name for f in rep.fields]
+
+    def order(cols):
+        return np.lexsort(tuple(cols[names.index(k)] for k in keys[::-1]))
+    go = order([np.asarray(c) for c in got.columns])
+    ro = order(rep.cols)
+    for i, (gf, rf) in enumerate(zip(got.schema.fields, rep.fields)):
+        require(gf.name == rf.name and gf.dictionary == rf.dictionary,
+                f"memory.{rep.name}.{rf.name}: field or pool differs")
+        gv = np.ones(got.num_rows, np.bool_) if got.valids is None or \
+            got.valids[i] is None else np.asarray(got.valids[i])[go]
+        require(np.array_equal(gv, rep.valids[i][ro]),
+                f"memory.{rep.name}.{rf.name}: validity differs")
+        gc, rc = np.asarray(got.columns[i])[go], rep.cols[i][ro]
+        require(np.array_equal(np.where(gv, gc, 0),
+                               np.where(rep.valids[i][ro], rc, 0)),
+                f"memory.{rep.name}.{rf.name}: values differ")
+
+
+def _write_state(session, reps, label, record):
+    """After one statement: the stored tables against their replicas, q1,
+    q6 and q3 over the memory tables against the numpy oracles (a cold and
+    two steady runs), q12 under mxu_agg = 'true' (K5) against its oracle,
+    and q1 and q12 chunked twice against their unchunked rows."""
+    import torch
+    from tpch_full import QUERIES
+    t0 = time.monotonic()
+    _check_stored(session, reps["lineitem"], ("l_orderkey", "l_linenumber"))
+    _check_stored(session, reps["orders"], ("o_orderkey",))
+    _check_stored(session, reps["customer"], ("c_custkey",))
+    li, orders = reps["lineitem"].table(), reps["orders"].table()
+    cust = reps["customer"].table()
+    expected = {"q1": oracle_q1(li), "q6": oracle_q6(li),
+                "q3": oracle_q3(cust, orders, li),
+                "q12": oracle_q12(orders, li)}
+    check_s = time.monotonic() - t0
+    walls = {}
+    for name, sql in (("q1", Q1), ("q6", Q6), ("q3", Q3)):
+        rows, w = _timed_runs(session, _memory_sql(sql), 3)
+        require(rows == expected[name], f"{label}: {name} over the memory "
+                f"tables differs from the oracle:\n{rows[:3]}\nvs\n"
+                f"{expected[name][:3]}")
+        walls[name] = {"cold_s": w[0], "steady_s": w[1:]}
+    q12 = _memory_sql(QUERIES[12])
+    session.execute("SET SESSION mxu_agg = 'true'")
+    rows, w = _timed_runs(session, q12, 1)
+    session.execute("SET SESSION mxu_agg = 'auto'")
+    require(rows == expected["q12"], f"{label}: q12 (mxu) over the memory "
+            f"tables differs from the oracle:\n{rows}\nvs\n"
+            f"{expected['q12']}")
+    walls["q12_mxu"] = w[0]
+    unchunked = {"q1": expected["q1"], "q12": session.execute(q12).rows}
+    session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+    chunks_before = session.executor.stats.agg_spill_chunks
+    for name, sql in (("q1", _memory_sql(Q1)), ("q12", q12)):
+        rows, w = _timed_runs(session, sql, 2)
+        require(rows == unchunked[name], f"{label}: chunked {name} differs "
+                f"from its unchunked rows")
+        walls[f"chunked_{name}"] = w
+    session.execute("SET SESSION spill_chunk_rows = 0")
+    require(session.executor.stats.agg_spill_chunks > chunks_before,
+            f"{label}: the chunked runs streamed no chunk")
+    torch.cuda.synchronize()
+    record[label] = {"walls": walls, "check_s": check_s}
+    log(f"write path, after {label}: tables equal their replicas; q1, q6, "
+        f"q3, q12 equal the oracles, chunked q1 and q12 equal unchunked ("
+        f"{ {k: (round(v['cold_s'], 4), [round(x, 4) for x in v['steady_s']]) if isinstance(v, dict) else v for k, v in walls.items()} })")
+
+
+def _statement(session, sql, label, want, record):
+    import torch
+    t = time.monotonic()
+    res = session.execute(sql)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    require(res.rows == [(want,)], f"{label} reported {res.rows}, want "
+            f"{want} rows")
+    record.setdefault("statements", {})[label] = {"rows": want,
+                                                  "wall_s": wall}
+    log(f"write path: {label} {want} rows in {wall:.4f} s")
+    return wall
+
+
+def _file_phase(session, tmp, record):
+    """CTAS of orders' first quarter into a Parquet and an ORC catalog
+    (row groups and stripes of FILE_GROUP_ROWS), read back whole and
+    pruned; a CSV table of customer written here and queried."""
+    import numpy as np
+    from trino_tpu_torch.connectors.csvfile import CsvConnector
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    from trino_tpu_torch.connectors.parquetdir import ParquetConnector
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.planner.optimizer import prune_plan
+    from trino_tpu_torch.sql.parser import parse
+    cat = session.catalog
+    cat.register("pq", ParquetConnector(os.path.join(tmp, "pq"),
+                                        row_group_rows=FILE_GROUP_ROWS))
+    cat.register("orc", OrcConnector(os.path.join(tmp, "orc"),
+                                     stripe_rows=FILE_GROUP_ROWS))
+    orders = cat.connector("tpch").get_table(TPCH_SCHEMA, "orders")
+    okey = _col(orders, "o_orderkey")
+    part = okey < FILE_KEYS
+    n = int(part.sum())
+    pruned_sql = ("SELECT count(*), sum(o_totalprice), max(o_orderdate) "
+                  "FROM {t} WHERE o_orderkey < " + str(FILE_KEYS // 5))
+    want_pruned = session.execute(pruned_sql.format(
+        t=f"tpch.{TPCH_SCHEMA}.orders")).rows
+    for c, skipped_attr in (("pq", "skipped_row_groups"),
+                            ("orc", "skipped_stripes")):
+        conn = cat.connector(c)
+        t = time.monotonic()
+        table = f"{c}.{TPCH_SCHEMA}.orders"
+        res = session.execute(
+            f"CREATE TABLE {table} AS SELECT * FROM "
+            f"tpch.{TPCH_SCHEMA}.orders WHERE o_orderkey < {FILE_KEYS}")
+        write_s = time.monotonic() - t
+        require(res.rows == [(n,)], f"{c}: CTAS reported {res.rows}")
+        conn._cache.clear()
+        t = time.monotonic()
+        back = conn.get_table(TPCH_SCHEMA, "orders")
+        read_s = time.monotonic() - t
+        require(back.num_rows == n, f"{c}: read back {back.num_rows} rows")
+        for i, f in enumerate(orders.schema.fields):
+            got = np.asarray(back.columns[i])
+            want = np.asarray(orders.columns[i])[part]
+            if f.dictionary is not None:
+                got = np.asarray(back.schema.fields[i].dictionary,
+                                 dtype=object)[got]
+                want = np.asarray(f.dictionary, dtype=object)[want]
+            require(np.array_equal(got, want),
+                    f"{c}: column {f.name} read back differs")
+        full = session.execute(pruned_sql.format(t=table)).rows
+        require(full == want_pruned, f"{c}: full scan {full} differs from "
+                f"tpch's {want_pruned}")
+        # the pruned read: the executor's scan of a connector that has not
+        # decoded the table (as a scan that did not plan the query)
+        sql = pruned_sql.format(t=table)
+        rel = session.planner().plan_query(parse(sql))
+        root = prune_plan(rel.node)
+        conn._cache.clear()
+        cold = Session(cat, default_schema=TPCH_SCHEMA)
+        t = time.monotonic()
+        batch = cold.executor.execute(root)
+        names, arrays, valids = cold.executor.result_to_host(root, batch)
+        rows = cold.decode_rows(rel, arrays, valids)
+        pruned_s = time.monotonic() - t
+        st = cold.executor.stats
+        require(rows == want_pruned, f"{c}: pruned scan {rows} differs")
+        require(st.pruned_decodes == 1 and st.pruned_groups_skipped > 0,
+                f"{c}: the scan did not take the pruned decode ({st})")
+        require(st.pruned_decode_fallbacks == 0,
+                f"{c}: the pruned decode fell back to the full decode")
+        groups = -(-n // FILE_GROUP_ROWS)
+        record["files"][c] = {
+            "rows": n, "groups": groups, "ctas_write_s": write_s,
+            "ctas_rows_per_s": n / write_s, "full_read_s": read_s,
+            "pruned_scan_s": pruned_s,
+            "groups_skipped": st.pruned_groups_skipped,
+            "pruned_decode_fallbacks": st.pruned_decode_fallbacks,
+            "bytes": sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(os.path.join(tmp, c))
+                         for f in fs)}
+        log(f"write path, {c}: CTAS {n} rows in {write_s:.4f} s "
+            f"({n / write_s:.0f} rows/s), read back in {read_s:.4f} s equal"
+            f" to tpch's orders; pruned scan {pruned_s:.4f} s skipped "
+            f"{st.pruned_groups_skipped} of {groups} groups, fallbacks 0")
+    # a CSV table, written here from customer and loaded by the connector
+    cust = cat.connector("tpch").get_table(TPCH_SCHEMA, "customer")
+    names = np.asarray(cust.schema.field("c_name").dictionary,
+                       dtype=object)[_col(cust, "c_name")]
+    ck, nk = _col(cust, "c_custkey"), _col(cust, "c_nationkey")
+    bal = _col(cust, "c_acctbal")
+    os.makedirs(os.path.join(tmp, "csv", TPCH_SCHEMA))
+    t = time.monotonic()
+    with open(os.path.join(tmp, "csv", TPCH_SCHEMA, "customer.csv"),
+              "w") as f:
+        f.write("c_custkey,c_name,c_nationkey,c_acctbal\n")
+        f.writelines(f"{k},{s},{x},{'-' if b < 0 else ''}{abs(b) // 100}."
+                     f"{abs(b) % 100:02d}\n"
+                     for k, s, x, b in zip(ck.tolist(), names.tolist(),
+                                           nk.tolist(), bal.tolist()))
+    cat.register("csv", CsvConnector(os.path.join(tmp, "csv")))
+    sql = ("SELECT c_nationkey, count(*), sum(c_custkey), max(c_acctbal) "
+           f"FROM csv.{TPCH_SCHEMA}.customer GROUP BY c_nationkey "
+           "ORDER BY c_nationkey")
+    rows = session.execute(sql).rows
+    csv_s = time.monotonic() - t
+    want = []
+    for x in np.unique(nk):
+        m = nk == x
+        want.append((int(x), int(m.sum()), int(ck[m].sum()),
+                     float(str(_dec(int(bal[m].max()), 2)))))
+    require(rows == want, f"csv: {rows[:2]} differs from {want[:2]}")
+    one = session.execute(f"SELECT c_custkey, c_acctbal FROM csv."
+                          f"{TPCH_SCHEMA}.customer WHERE c_name = "
+                          f"'{names[6]}'").rows
+    require(one == [(int(ck[6]), float(str(_dec(int(bal[6]), 2))))],
+            f"csv: the row of {names[6]} is {one}")
+    record["files"]["csv"] = {"rows": len(ck), "write_load_query_s": csv_s}
+    log(f"write path, csv: {len(ck)} customer rows written, loaded and "
+        f"aggregated in {csv_s:.4f} s, equal to the numpy oracle")
+
+
+def phase_write_path(recorder, main_session):
+    """CREATE TABLE AS SELECT of TPC-H lineitem, orders and customer at
+    sf1 into the memory catalog, then DELETE (~1/7 of lineitem), UPDATE
+    (~1/4: a decimal and a VARCHAR column, with a value new to the
+    pool), INSERT ... SELECT (~1/10 back) and one MERGE INTO orders (~10%
+    matched, ~3% new keys; under torch.profiler), each reporting the
+    replica's row count; after each, `_write_state`. Then the file
+    connectors (`_file_phase`), and DROP TABLE of the memory tables.
+    Counters set to 0 before, read after. A Session of its own over the
+    same catalog, so that the writes' cache invalidations leave the other
+    paths' caches (and their later profiles) as they were."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from trino_tpu_torch.exec.session import Session
+    session = Session(main_session.catalog, default_schema=TPCH_SCHEMA)
+    conn = session.catalog.connector("tpch")
+    src = {t: conn.get_table(TPCH_SCHEMA, t) for t in WRITE_TABLES}
+    reps = {t: Replica(src[t]) for t in WRITE_TABLES}
+    record = {"files": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    t_phase = time.monotonic()
+    try:
+        for t in WRITE_TABLES:
+            wall = _statement(
+                session, f"CREATE TABLE memory.{TPCH_SCHEMA}.{t} AS SELECT "
+                f"* FROM tpch.{TPCH_SCHEMA}.{t}", f"CTAS {t}",
+                src[t].num_rows, record)
+            record["statements"][f"CTAS {t}"]["rows_per_s"] = \
+                src[t].num_rows / wall
+        _write_state(session, reps, "CTAS", record)
+
+        li = reps["lineitem"]
+        m = li.col("l_shipdate") < _days("1993-01-01")
+        _statement(session, DELETE_SQL.format(s=TPCH_SCHEMA),
+                   "DELETE", int(m.sum()), record)
+        li.keep(~m)
+        _write_state(session, reps, "DELETE", record)
+
+        m = li.col("l_orderkey") % 4 == 1
+        _statement(session, UPDATE_SQL.format(s=TPCH_SCHEMA),
+                   "UPDATE", int(m.sum()), record)
+        li.col("l_extendedprice")[m] += 100
+        li.col("l_shipmode")[m] = li.add_string("l_shipmode", "DRONE")
+        _write_state(session, reps, "UPDATE", record)
+
+        orig = src["lineitem"]
+        m = _col(orig, "l_shipdate") < _days("1992-09-01")
+        _statement(session, INSERT_SQL.format(s=TPCH_SCHEMA),
+                   "INSERT", int(m.sum()), record)
+        cols = [np.asarray(c)[m] for c in orig.columns]
+        i = [f.name for f in li.fields].index("l_shipmode")
+        pool = li.fields[i].dictionary
+        cols[i] = np.array([pool.index(s) for s in
+                            orig.schema.fields[i].dictionary],
+                           np.int32)[cols[i]]
+        li.append(cols, [np.ones(int(m.sum()), np.bool_)] * len(cols))
+        _write_state(session, reps, "INSERT", record)
+
+        od = reps["orders"]
+        ok = _col(src["orders"], "o_orderkey")
+        matched = ok % 10 == 3
+        new = np.isin(ok % 100, (7, 17, 27))
+        res, wall, acts = _profiled_run(session,
+                                        MERGE_SQL.format(s=TPCH_SCHEMA))
+        busy_ms = sum(us for _name, us in acts) / 1e3
+        prof = {"wall_ms": round(wall * 1e3, 4),
+                "device_busy_ms": round(busy_ms, 4),
+                "idle_share": round(1 - busy_ms / (wall * 1e3), 4)}
+        want = int(matched.sum() + new.sum())
+        require(res.rows == [(want,)], f"MERGE reported {res.rows}, want "
+                f"{want} rows")
+        record["statements"]["MERGE"] = {"rows": want, "wall_s": wall,
+                                         "profile": prof}
+        log(f"write path: MERGE {want} rows in {wall:.4f} s; under "
+            f"torch.profiler: {json.dumps(prof)}")
+        hit = np.isin(od.col("o_orderkey"), ok[matched])
+        od.col("o_totalprice")[hit] *= 2
+        od.col("o_shippriority")[hit] = 1
+        s = [f.name for f in od.fields]
+        srcc = {f.name: _col(src["orders"], f.name)[new]
+                for f in src["orders"].schema.fields}
+        n_new = int(new.sum())
+        add = {"o_orderkey": srcc["o_orderkey"] + 10_000_000,
+               "o_custkey": srcc["o_custkey"],
+               "o_orderstatus": np.full(n_new, od.fields[s.index(
+                   "o_orderstatus")].dictionary.index("O"), np.int32),
+               "o_totalprice": srcc["o_totalprice"],
+               "o_orderdate": srcc["o_orderdate"],
+               "o_orderpriority": srcc["o_orderpriority"],
+               "o_shippriority": np.zeros(n_new, np.int32)}
+        od.append([add.get(name, np.zeros(n_new, od.col(name).dtype))
+                   for name in s],
+                  [np.full(n_new, name in add, np.bool_) for name in s])
+        _write_state(session, reps, "MERGE", record)
+        memory_s = time.monotonic() - t_phase
+        _file_phase(session, tmp, record)
+        torch.cuda.synchronize()
+    finally:
+        recorder.active, recorder.keep = False, True
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    record["memory_part_s"] = memory_s
+    record["phase_s"] = time.monotonic() - t_phase
+    require(launches["K1"] > 0, "the write path did not launch K1 (MERGE's "
+            "anti join is a dense-LUT probe)")
+    require(launches["K5"] > 0, "the write path's q12 (mxu_agg = true) did "
+            "not launch K5")
+    require(session.executor.stats.pruned_decode_fallbacks == 0,
+            "a pruned decode fell back to the full decode")
+    for t in WRITE_TABLES:
+        session.execute(f"DROP TABLE memory.{TPCH_SCHEMA}.{t}")
+    require(session.executor.device.type == "cuda" and
+            session.catalog.connector("memory").table_names(
+                TPCH_SCHEMA) == [],
+            "DROP TABLE left a table behind or the executor off the card")
+    record["launches"] = launches
+    log("write path: " + json.dumps(record, default=str))
+    return launches
 
 
 K1_PATHS = ("big tiles", "small tiles")
@@ -2438,7 +2884,8 @@ def main() -> int:
              phase_ds_chunked(recorder, ds_session, ds_tables, ds_expected,
                               ds_walls),
              phase_stream_build(recorder, session),
-             phase_corpus_paths(recorder, session, tables, ds_session)]
+             phase_corpus_paths(recorder, session, tables, ds_session),
+             phase_write_path(recorder, session)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -729,3 +729,97 @@ def test_join_mark_on_card_equals_cpu():
         (gm, gt, go), (wm, wt, wo) = out
         assert int(gt) == int(wt) and int(go) == int(wo)
         assert torch.equal(gm.cpu(), wm)
+
+
+def test_mutation_cycle_on_card_equals_cpu():
+    """One write cycle on the card against the CPU: memory copies of
+    tpch.tiny's lineitem and orders, then DELETE, UPDATE (a VARCHAR value
+    new to the pool), INSERT ... SELECT and MERGE; after each, q1, q12
+    (K5 under mxu_agg = 'true') and chunked q12 twice. Reported counts,
+    rows and stored tables equal the CPU's; MERGE's anti join launches K1
+    on the card."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.ops import direct_agg as k5
+    _card()
+    q12 = QUERIES[12].replace("orders,", "memory.w.orders,").replace(
+        "lineitem\n", "memory.w.lineitem\n")
+    q1 = QUERIES[1].replace("FROM lineitem", "FROM memory.w.lineitem")
+    steps = [
+        "CREATE TABLE memory.w.lineitem AS SELECT * FROM tpch.tiny.lineitem",
+        "CREATE TABLE memory.w.orders AS SELECT * FROM tpch.tiny.orders",
+        "DELETE FROM memory.w.lineitem WHERE l_shipdate < DATE '1993-01-01'",
+        "UPDATE memory.w.lineitem SET l_extendedprice = l_extendedprice + "
+        "1.00, l_shipmode = 'DRONE' WHERE l_orderkey % 4 = 1",
+        "INSERT INTO memory.w.lineitem SELECT * FROM tpch.tiny.lineitem "
+        "WHERE l_shipdate < DATE '1992-09-01'",
+        "MERGE INTO memory.w.orders t USING (SELECT o_orderkey + 60000 * "
+        "(o_orderkey % 2) AS k, o_totalprice AS p FROM tpch.tiny.orders "
+        "WHERE o_orderkey % 10 IN (3, 4)) s ON t.o_orderkey = s.k WHEN "
+        "MATCHED THEN UPDATE SET o_totalprice = s.p * 2 WHEN NOT MATCHED "
+        "THEN INSERT (o_orderkey, o_totalprice) VALUES (s.k, s.p)"]
+    out, stored = {}, {}
+    for device in ("cuda", "cpu"):
+        s = Session(device=device)
+        rows = []
+        for i, step in enumerate(steps):
+            before = k1.gather_columns.launches
+            rows.append(s.execute(step).rows)
+            if device == "cuda" and step.startswith("MERGE"):
+                assert k1.gather_columns.launches > before
+            if i == 0:                # orders is the next statement's
+                continue
+            rows.append(s.execute(q1).rows)
+            s.execute("SET SESSION mxu_agg = 'true'")
+            before = k5.direct_group_aggregate_mxu.launches
+            rows.append(s.execute(q12).rows)
+            if device == "cuda":
+                assert k5.direct_group_aggregate_mxu.launches == before + 1
+            s.execute("SET SESSION mxu_agg = 'auto'")
+            s.execute("SET SESSION spill_chunk_rows = 8192")
+            rows += [s.execute(q12).rows for _ in range(2)]
+            s.execute("SET SESSION spill_chunk_rows = 0")
+        out[device] = rows
+        conn = s.catalog.connector("memory")
+        stored[device] = {t: conn.get_table("w", t)
+                          for t in conn.table_names("w")}
+    assert out["cuda"] == out["cpu"]
+    for t, g in stored["cuda"].items():
+        w = stored["cpu"][t]
+        assert [f.dictionary for f in g.schema.fields] == \
+            [f.dictionary for f in w.schema.fields]
+        for a, b in zip(list(g.columns) + list(g.valids or ()),
+                        list(w.columns) + list(w.valids or ())):
+            assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+@pytest.mark.parametrize("fmt", ["parquet", "orc"])
+def test_pruned_file_scan_on_card_equals_cpu(tmp_path, fmt):
+    """A Parquet / ORC table written by CTAS, scanned on the card through
+    the connector's pruned decode (its cache cold): the full scan's rows,
+    groups skipped, no fallback."""
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    from trino_tpu_torch.connectors.parquetdir import ParquetConnector
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.planner.optimizer import prune_plan
+    from trino_tpu_torch.sql.parser import parse
+    _card()
+    s = Session(device="cuda")
+    conn = ParquetConnector(str(tmp_path), row_group_rows=2000) \
+        if fmt == "parquet" else OrcConnector(str(tmp_path),
+                                               stripe_rows=2000)
+    s.catalog.register("f", conn)
+    s.execute("CREATE TABLE f.s.o AS SELECT * FROM tpch.tiny.orders")
+    sql = ("SELECT count(*), sum(o_totalprice), max(o_orderdate) FROM "
+           "f.s.o WHERE o_orderkey < 4000")
+    want = Session(s.catalog, device="cpu").execute(sql).rows
+    rel = s.planner().plan_query(parse(sql))
+    root = prune_plan(rel.node)
+    conn._cache.clear()
+    cold = Session(s.catalog, device="cuda")
+    batch = cold.executor.execute(root)
+    names, arrays, valids = cold.executor.result_to_host(root, batch)
+    assert cold.decode_rows(rel, arrays, valids) == want
+    st = cold.executor.stats
+    assert (st.pruned_decodes, st.pruned_groups_skipped,
+            st.pruned_decode_fallbacks) == (1, 7, 0)

@@ -150,13 +150,21 @@ def test_session_runs_on_cuda_unless_told_otherwise():
 ])
 def test_outside_the_slice_raises(tables, sql):
     """A window function, a set operation and a semi join raised until
-    their modules were ported; they now run to the reference's rows.
-    What is still outside the port (DDL) raises naming its ROADMAP
-    item."""
+    their modules were ported; they now run to the reference's rows. So
+    does a CTAS into the memory catalog, which raised until DDL and DML
+    were ported. What is still outside the port (`distributed = true`)
+    raises naming its ROADMAP item."""
+    from trino_tpu.connectors.memory import MemoryConnector
     js, ts = _sessions(tables)
+    js.catalog.register("memory", MemoryConnector())
     assert ts.execute(sql).rows == js.execute(sql).rows
-    with pytest.raises(NotImplementedError, match="ROADMAP: DDL and DML"):
-        ts.execute("CREATE TABLE memory.default.t AS SELECT 1 AS x")
+    ctas = "CREATE TABLE memory.default.t AS SELECT 1 AS x"
+    assert ts.execute(ctas).rows == js.execute(ctas).rows == [(1,)]
+    back = "SELECT * FROM memory.default.t"
+    assert ts.execute(back).rows == js.execute(back).rows == [(1,)]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP: the mesh tier on torch.distributed"):
+        ts.execute("SET SESSION distributed = 'true'")
 
 
 @pytest.mark.parametrize("prop,value", [("distributed", "true"),

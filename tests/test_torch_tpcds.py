@@ -71,7 +71,7 @@ def test_tpcds_datagen_byte_identical():
 
 def test_default_catalog_has_tpcds():
     s = Session(device="cpu")
-    assert sorted(s.catalog._connectors) == ["tpcds", "tpch"]
+    assert sorted(s.catalog._connectors) == ["memory", "tpcds", "tpch"]
     assert "store_sales" in [r[0] for r in s.execute(
         "SHOW TABLES FROM tpcds.tiny").rows]
 

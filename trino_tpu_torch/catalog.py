@@ -1,6 +1,5 @@
-"""Port copy of ``trino_tpu/catalog.py`` (default_catalog registers tpch and
-tpcds, not the memory connector; port_table and catalog_from_tables
-added).
+"""Port copy of ``trino_tpu/catalog.py`` (port_table and
+catalog_from_tables added).
 
 Catalog registry — maps catalog names to connectors.
 
@@ -143,11 +142,11 @@ def _strings_table(name: str, cols):
 
 
 def default_catalog() -> Catalog:
-    # port: the generator connectors only (the memory connector comes
-    # with DDL and DML)
     cat = Catalog()
     cat.register("tpch", TpchConnector())
     cat.register("tpcds", TpcdsConnector())
+    from .connectors.memory import MemoryConnector
+    cat.register("memory", MemoryConnector())
     return cat
 
 
@@ -177,10 +176,13 @@ def catalog_from_tables(tables, schema: str = "tiny",
     """A catalog whose `<catalog>.<schema>` tables (catalog `tpch` or
     `tpcds`) are `tables` (name -> generated table, from either package;
     see port_table), so both engines can run on the very same data. The
-    connector's other tables still generate on demand."""
+    connector's other tables still generate on demand; an empty `memory`
+    catalog is registered beside it, as in default_catalog."""
+    from .connectors.memory import MemoryConnector
     conn = TpchConnector() if catalog == "tpch" else TpcdsConnector()
     conn._cache.setdefault(conn.scale_for_schema(schema), {}).update(
         {name: port_table(t) for name, t in tables.items()})
     cat = Catalog()
     cat.register(catalog, conn)
+    cat.register("memory", MemoryConnector())
     return cat

@@ -19,9 +19,12 @@ functions (``ops/window.py``), unnest, sort/TopN/limit, values and
 uncorrelated scalar subqueries; chunked execution (`spill_chunk_rows`,
 ``exec/chunked.py``: fused per-chunk programs whose adapted windowed
 probes are K2, the fact-column cache, the chunk-mode LUT caches here) and
-streaming builds (`stream_build_min_kb`). Plan nodes outside the port
-(remote sources, table writes) raise NotImplementedError naming the
-ROADMAP item that ports them; a query over the memory limit fails (the
+streaming builds (`stream_build_min_kb`). Scans read a file connector's
+pruned decode when the predicate allows (`_scan_table_data`); writes run
+in the session, and `invalidate_scan_cache` drops every cached copy of a
+table after one. Plan nodes outside the port (remote sources, the
+distributed write stage) raise NotImplementedError naming the ROADMAP
+item that ports them; a query over the memory limit fails (the
 host-spill tier is not ported).
 
 The kernel gates (`auto` for K1, K3, K4 and K5) model the TPU's decision
@@ -103,6 +106,11 @@ class ExecStats:
                                      # pipeline's staging
     scan_prefetch_stalls: int = 0    # consumer waits on an unstaged chunk
     streamed_build_joins: int = 0    # joins whose build streamed (LUT)
+    # connector-side pruned decodes (Parquet row groups, ORC stripes)
+    pruned_decodes: int = 0          # scans served by get_table_pruned
+    pruned_groups_skipped: int = 0   # row groups + stripes never decoded
+    pruned_decode_fallbacks: int = 0  # pruned decodes that raised: the
+                                      # scan fell back to the full decode
 
 
 class QueryDeadlineError(RuntimeError):
@@ -263,6 +271,18 @@ class Executor:
         return (node.catalog, node.schema_name, node.table,
                 node.column_indices,
                 repr(node.predicate) if pruning else None)
+
+    def invalidate_scan_cache(self) -> None:
+        """Drop cached scans AND their byte accounting together, the prune
+        verdicts, the device-resident fact columns (they alias the same
+        tables) and the decision cache — after any write to a table."""
+        self._scan_cache.clear()
+        self._scan_cache_bytes.clear()
+        self._scan_prune_info.clear()
+        self.fact_cache.invalidate()
+        # decision values never cache for mutable catalogs, but clearing
+        # costs nothing and removes any doubt after DML
+        self._decision_cache.clear()
 
     def execute(self, root: L.OutputNode) -> Batch:
         if not isinstance(root, L.OutputNode):
@@ -478,7 +498,10 @@ class Executor:
         if isinstance(node, L.RemoteSourceNode):
             raise _not_ported("RemoteSourceNode",
                               "the mesh tier on torch.distributed")
-        raise _not_ported(type(node).__name__, "DDL and DML")
+        if isinstance(node, (L.TableWriterNode, L.TableCommitNode)):
+            # the distributed write stage (a worker task's staged write)
+            raise _not_ported(type(node).__name__, "HTTP workers")
+        raise NotImplementedError(type(node).__name__)
 
     def run_window(self, node: L.WindowNode) -> Batch:
         from ..ops.window import WinSpec, window_compute
@@ -573,8 +596,7 @@ class Executor:
             if info is not None:
                 self.strategy_decisions[f"TableScan[{node.table}]"] = info
             return hit
-        data = self.catalog.get_table(node.catalog, node.schema_name,
-                                      node.table)
+        data = self._scan_table_data(node, pruning)
         arrays = [data.columns[i] for i in node.column_indices]
         valids = None
         if data.valids is not None:
@@ -600,6 +622,45 @@ class Executor:
             if dec is not None:
                 self._scan_prune_info[key] = dec
         return batch
+
+    def _scan_table_data(self, node: L.ScanNode, pruning: bool):
+        """Fetch the table, preferring a connector-side pruned decode
+        (ORC stripe / Parquet row-group skipping) when the scan carries a
+        pushed predicate, the connector supports it, and the full table
+        is not already decoded in its cache. Dictionary-encoded scan
+        columns disqualify the pruned path: a pruned decode rebuilds
+        string pools from surviving rows only, and those codes would
+        not line up with the dictionaries the plan was analyzed against.
+        A pruned decode that raises falls back to the full decode (the
+        reference's semantics), counted in `pruned_decode_fallbacks`."""
+        if pruning:
+            try:
+                conn = self.catalog.connector(node.catalog)
+            except KeyError:
+                conn = None
+            if conn is not None and \
+                    hasattr(conn, "get_table_pruned") and \
+                    (node.schema_name, node.table) not in \
+                    getattr(conn, "_cache", {}) and \
+                    all(node.table_schema.fields[i].dictionary is None
+                        for i in node.column_indices):
+                from .zonemap import column_ranges
+                ranges = column_ranges(node.predicate, node.column_indices,
+                                       node.table_schema)
+                if ranges:
+                    try:
+                        data = conn.get_table_pruned(
+                            node.schema_name, node.table, ranges)
+                    except Exception:    # noqa: BLE001 — the full decode
+                        self.stats.pruned_decode_fallbacks += 1
+                    else:
+                        self.stats.pruned_decodes += 1
+                        self.stats.pruned_groups_skipped += \
+                            getattr(data, "skipped_row_groups", 0) + \
+                            getattr(data, "skipped_stripes", 0)
+                        return data
+        return self.catalog.get_table(node.catalog, node.schema_name,
+                                      node.table)
 
     def _prune_scan_rows(self, node: L.ScanNode, data, arrays, valids):
         """Drop row ranges the pushed predicate provably cannot match

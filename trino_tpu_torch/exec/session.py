@@ -25,8 +25,16 @@ fact-column cache on the device, with the dimension LUTs pinned; a
 query's second run adapts its packed joins to windowed probes (K2) from
 the first run's measured key spans. ``stream_build_min_kb`` streams
 Scan/Filter(Scan) build sides above that size through the dense LUT.
-``distributed`` must stay false, and DDL/DML are not ported: each raises
-NotImplementedError naming its ROADMAP item.
+
+Writes are the reference's: CREATE TABLE (and AS SELECT), INSERT, DROP
+TABLE, UPDATE, DELETE and MERGE on the memory connector (the CSV,
+Parquet and ORC connectors take CREATE, INSERT and DROP), and EXPLAIN of
+a write. A write's source query runs on the session's device and comes
+back to the host as raw codes (`query_to_columns`); every stored change
+makes a new table object and drops the executor's cached scans, fact
+columns and decisions (`Executor.invalidate_scan_cache`).
+``distributed`` must stay false: it raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..batch import decode_column, Field
@@ -267,7 +276,11 @@ class Session:
             return self.execute_show(stmt, t0)
         if isinstance(stmt, A.SetSession):
             return self.execute_set_session(stmt, t0)
-        raise _not_ported(type(stmt).__name__, "DDL and DML")
+        if isinstance(stmt, (A.Update, A.Delete, A.MergeInto)):
+            return self.execute_dml(stmt, t0)
+        if isinstance(stmt, (A.CreateTable, A.DropTable, A.InsertInto)):
+            return self.execute_ddl(stmt, t0)
+        raise NotImplementedError(type(stmt).__name__)
 
     def _apply_executor_properties(self, t0: float) -> None:
         """Push session properties into the executor for this query."""
@@ -326,9 +339,17 @@ class Session:
 
     def execute_explain(self, stmt: A.Explain, t0) -> QueryResult:
         planner = self.planner()
-        if isinstance(stmt.query, (A.InsertInto, A.CreateTable)):
-            raise _not_ported("EXPLAIN of a write", "DDL and DML")
-        rel = planner.plan_query(stmt.query)
+        # EXPLAIN over a write statement plans its source query and
+        # renders it under TableCommit/TableWriter wrapper nodes
+        wstmt = None
+        query = stmt.query
+        if isinstance(query, (A.InsertInto, A.CreateTable)):
+            if getattr(query, "query", None) is None:
+                raise ValueError("EXPLAIN of CREATE TABLE without AS "
+                                 "SELECT is not supported")
+            wstmt = query
+            query = query.query
+        rel = planner.plan_query(query)
         root = prune_plan(rel.node)
 
         def estimate(node) -> str:
@@ -344,6 +365,18 @@ class Session:
 
         annotate = estimate
         self._apply_executor_properties(t0)
+        if stmt.analyze and wstmt is not None:
+            # ANALYZE of a write really writes; the plan stays
+            # estimate-annotated
+            wres = self.execute_ddl(wstmt, t0)
+            written = wres.rows[0][0] if wres.rows else 0
+            text = explain_text(root, annotate=annotate)
+            rows = self._write_wrapper(wstmt) + \
+                [(f"    {line}",) for line in text.split("\n")]
+            rows.append((f"write: 1 partitions, 1 staged, 0 deduped, "
+                         f"{written} rows",))
+            return QueryResult(["query plan"], rows,
+                               time.monotonic() - t0)
         if stmt.analyze:
             saved = self.executor.profile
             self.executor.profile = True
@@ -362,6 +395,9 @@ class Session:
                 return f"[{s[0] * 1000:.2f}ms, {s[1]} rows] {est}"
         text = explain_text(root, annotate=annotate)
         rows = [(line,) for line in text.split("\n")]
+        if wstmt is not None:
+            rows = self._write_wrapper(wstmt) + \
+                [(f"    {r[0]}",) for r in rows]
         from .executor import explain_strategy_lines
         for line in explain_strategy_lines(rel.node, self.executor):
             rows.append((line,))
@@ -435,6 +471,280 @@ class Session:
         if len(parts) == 2:
             return self.default_cat, parts[0], parts[1]
         return self.default_cat, self.default_schema, parts[0]
+
+    def _write_wrapper(self, wstmt) -> List[tuple]:
+        """EXPLAIN's TableCommit/TableWriter rows over a write's plan."""
+        cat, sch, tbl = self.resolve_table(wstmt.table)
+        return [(f"TableCommit[{cat}.{sch}.{tbl}]",),
+                (f"  TableWriter[{cat}.{sch}.{tbl}]",)]
+
+    def _written(self) -> None:
+        """A stored table changed: bump the catalog version and drop every
+        cached copy of table data the executor holds."""
+        self.catalog.bump_version()
+        self.executor.invalidate_scan_cache()
+
+    def execute_ddl(self, stmt, t0) -> QueryResult:
+        from ..batch import Schema
+        from ..connectors.tpch.datagen import TableData
+        from ..planner.analyzer import parse_type
+
+        if isinstance(stmt, A.DropTable):
+            cat, sch, tbl = self.resolve_table(stmt.table)
+            self.catalog.connector(cat).drop_table(sch, tbl,
+                                                   stmt.if_exists)
+            self.catalog.bump_version()
+            # a fresh executor (no cached scans, builds or decisions) on
+            # the session's device; the properties pushed per query reach
+            # it on the next statement, the chunk size here
+            self.executor = type(self.executor)(self.catalog, self.device)
+            self.executor.spill_chunk_rows = \
+                self.properties["spill_chunk_rows"] or None
+            return QueryResult(["result"], [("DROP TABLE",)],
+                               time.monotonic() - t0)
+
+        if isinstance(stmt, A.CreateTable):
+            cat, sch, tbl = self.resolve_table(stmt.table)
+            conn = self.catalog.connector(cat)
+            if stmt.query is not None:     # CTAS
+                fields, arrays, valids = self.query_to_columns(stmt.query)
+                data = TableData(tbl, Schema(tuple(fields)), arrays,
+                                 valids=valids)
+                conn.create_table(sch, tbl, data, stmt.if_not_exists)
+                self.catalog.bump_version()
+                return QueryResult(["rows"], [(data.num_rows,)],
+                                   time.monotonic() - t0)
+            fields = [Field(name, parse_type(tn))
+                      for name, tn in stmt.columns]
+            arrays = [np.zeros(0, dtype=f.dtype.np_dtype) for f in fields]
+            fields = [Field(f.name, f.dtype, dictionary=()
+                            if f.dtype.kind is TypeKind.VARCHAR else None)
+                      for f in fields]
+            conn.create_table(sch, tbl,
+                              TableData(tbl, Schema(tuple(fields)),
+                                        arrays),
+                              stmt.if_not_exists)
+            self.catalog.bump_version()
+            return QueryResult(["result"], [("CREATE TABLE",)],
+                               time.monotonic() - t0)
+
+        # INSERT INTO
+        cat, sch, tbl = self.resolve_table(stmt.table)
+        fields, arrays, valids = self.query_to_columns(stmt.query)
+        n = self.catalog.connector(cat).insert(sch, tbl, arrays, valids,
+                                               fields)
+        self._written()
+        return QueryResult(["rows"], [(n,)], time.monotonic() - t0)
+
+    # ---- UPDATE / DELETE / MERGE (row-id + delete-mask scheme) ----------
+
+    def _register_shadow(self, conn, sch: str, tbl: str) -> str:
+        """Copy of the target with a hidden $rowid column, registered
+        under a reserved name: mutations are planned as ordinary queries
+        over it (the merge row-change paradigm routes rows by target row
+        id, MergeWriterOperator.java)."""
+        from ..batch import Schema
+        from ..connectors.tpch.datagen import TableData
+        from ..types import BIGINT
+        t = conn.get_table(sch, tbl)
+        cols = list(t.columns) + [np.arange(t.num_rows, dtype=np.int64)]
+        valids = None if t.valids is None else list(t.valids) + [None]
+        fields = tuple(t.schema.fields) + (Field("$rowid", BIGINT),)
+        shadow = f"{tbl}$dml"
+        conn.drop_table(sch, shadow, if_exists=True)
+        conn.create_table(sch, shadow,
+                          TableData(tbl, Schema(fields), cols,
+                                    valids=valids))
+        return shadow
+
+    def _dml_conn(self, cat: str):
+        conn = self.catalog.connector(cat)
+        if not hasattr(conn, "delete_rows"):
+            from ..planner.analyzer import AnalysisError
+            raise AnalysisError(
+                f"connector {cat!r} does not support row-level DML")
+        return conn
+
+    @staticmethod
+    def _sql_type_name(dt) -> str:
+        if dt.kind is TypeKind.DECIMAL:
+            return f"decimal({dt.precision},{dt.scale})"
+        return dt.kind.value
+
+    def _coerced_assignments(self, conn, sch, tbl, assignments):
+        """Validate assignment targets and wrap each value in a cast to
+        the column's declared type: the stored representation must be
+        the target column's, not the expression's (e.g. a scale-1
+        decimal literal written to a decimal(10,2) column)."""
+        from ..planner.analyzer import AnalysisError
+        schema = conn.get_table(sch, tbl).schema
+        names = {f.name for f in schema.fields}
+        out = []
+        for col, expr in assignments:
+            if col not in names:
+                raise AnalysisError(
+                    f"UPDATE target column {col!r} does not exist")
+            dt = schema.field(col).dtype
+            if dt.kind is not TypeKind.VARCHAR:
+                expr = A.CastExpr(expr, self._sql_type_name(dt))
+            out.append((col, expr))
+        return out
+
+    def execute_dml(self, stmt, t0) -> QueryResult:
+        if isinstance(stmt, A.MergeInto):
+            return self.execute_merge(stmt, t0)
+        cat, sch, tbl = self.resolve_table(stmt.table)
+        conn = self._dml_conn(cat)
+        assignments = self._coerced_assignments(
+            conn, sch, tbl, stmt.assignments) \
+            if isinstance(stmt, A.Update) else ()
+        shadow = self._register_shadow(conn, sch, tbl)
+        try:
+            items = [A.SelectItem(A.Identifier(("$rowid",)), "$rowid")]
+            if isinstance(stmt, A.Update):
+                for j, (_, expr) in enumerate(assignments):
+                    items.append(A.SelectItem(expr, f"$v{j}"))
+            q = A.Query(select=tuple(items), distinct=False,
+                        relation=A.TableRef((cat, sch, shadow),
+                                            alias=tbl),
+                        where=stmt.where, group_by=(), having=None,
+                        order_by=(), limit=None)
+            fields, arrays, valids = self.query_to_columns(q)
+            ids = np.asarray(arrays[0], dtype=np.int64)
+            if isinstance(stmt, A.Delete):
+                n = conn.delete_rows(sch, tbl, ids)
+            else:
+                updates = {col: (arrays[1 + j], valids[1 + j],
+                                 fields[1 + j])
+                           for j, (col, _) in enumerate(assignments)}
+                n = conn.update_rows(sch, tbl, ids, updates)
+        finally:
+            conn.drop_table(sch, shadow, if_exists=True)
+        self._written()
+        return QueryResult(["rows"], [(n,)], time.monotonic() - t0)
+
+    def execute_merge(self, stmt: "A.MergeInto", t0) -> QueryResult:
+        """MERGE: matched rows route to UPDATE/DELETE, unmatched source
+        rows to INSERT, both decided against the table as it was before
+        the merge (RowChangeProcessor semantics). Supported shape: at
+        most one WHEN MATCHED and one WHEN NOT MATCHED clause."""
+        from ..planner.analyzer import AnalysisError
+        cat, sch, tbl = self.resolve_table(stmt.target)
+        conn = self._dml_conn(cat)
+        alias = stmt.target_alias or tbl
+        matched = [c for c in stmt.clauses if c.matched]
+        unmatched = [c for c in stmt.clauses if not c.matched]
+        if len(matched) > 1 or len(unmatched) > 1:
+            raise AnalysisError(
+                "MERGE supports one WHEN MATCHED and one "
+                "WHEN NOT MATCHED clause")
+        if unmatched and unmatched[0].action != "insert":
+            raise AnalysisError("WHEN NOT MATCHED requires INSERT")
+        shadow = self._register_shadow(conn, sch, tbl)
+        n = 0
+        try:
+            tref = A.TableRef((cat, sch, shadow), alias=alias)
+            if matched:
+                mc = matched[0]
+                massign = self._coerced_assignments(
+                    conn, sch, tbl, mc.assignments)
+                items = [A.SelectItem(A.Identifier((alias, "$rowid")),
+                                      "$rowid")]
+                for j, (_, expr) in enumerate(massign):
+                    items.append(A.SelectItem(expr, f"$v{j}"))
+                q = A.Query(select=tuple(items), distinct=False,
+                            relation=A.Join("inner", stmt.source, tref,
+                                            stmt.on),
+                            where=mc.condition, group_by=(),
+                            having=None, order_by=(), limit=None)
+                fields, arrays, valids = self.query_to_columns(q)
+                ids = np.asarray(arrays[0], dtype=np.int64)
+                if len(np.unique(ids)) != len(ids):
+                    raise RuntimeError(
+                        "MERGE: one target row matched more than one "
+                        "source row")
+                if mc.action == "delete":
+                    n += conn.delete_rows(sch, tbl, ids)
+                elif mc.action == "update":
+                    updates = {col: (arrays[1 + j], valids[1 + j],
+                                     fields[1 + j])
+                               for j, (col, _) in enumerate(massign)}
+                    n += conn.update_rows(sch, tbl, ids, updates)
+                else:
+                    raise AnalysisError(
+                        "WHEN MATCHED requires UPDATE or DELETE")
+            if unmatched:
+                ic = unmatched[0]
+                sub = A.Query(select=(A.SelectItem(A.NumberLit("1"),
+                                                   "x"),),
+                              distinct=False, relation=tref,
+                              where=stmt.on, group_by=(), having=None,
+                              order_by=(), limit=None)
+                where: A.Node = A.ExistsPredicate(sub, negated=True)
+                if ic.condition is not None:
+                    where = A.BinaryOp("and", where, ic.condition)
+                # coerce each inserted value to its target column type
+                tschema = conn.get_table(sch, tbl).schema
+                inames = [c.lower() for c in ic.insert_columns] or \
+                    [f.name for f in tschema.fields]
+                if len(inames) != len(ic.insert_values):
+                    raise AnalysisError(
+                        "MERGE INSERT column/value count mismatch")
+                ivalues = []
+                for cname, e in zip(inames, ic.insert_values):
+                    if cname not in {f.name for f in tschema.fields}:
+                        raise AnalysisError(
+                            f"MERGE INSERT column {cname!r} does not "
+                            f"exist")
+                    dt = tschema.field(cname).dtype
+                    if dt.kind is not TypeKind.VARCHAR:
+                        e = A.CastExpr(e, self._sql_type_name(dt))
+                    ivalues.append(e)
+                items = tuple(A.SelectItem(e, f"$c{j}") for j, e in
+                              enumerate(ivalues))
+                q2 = A.Query(select=items, distinct=False,
+                             relation=stmt.source, where=where,
+                             group_by=(), having=None, order_by=(),
+                             limit=None)
+                fields, arrays, valids = self.query_to_columns(q2)
+                target = conn.get_table(sch, tbl)
+                by_name = dict(zip(inames, range(len(inames))))
+                n_ins = len(arrays[0]) if arrays else 0
+                full_arrays, full_valids, full_fields = [], [], []
+                for f in target.schema.fields:
+                    j = by_name.get(f.name)
+                    if j is None:     # unmentioned column: NULL
+                        full_arrays.append(
+                            np.zeros(n_ins, dtype=f.dtype.np_dtype))
+                        full_valids.append(
+                            np.zeros(n_ins, dtype=np.bool_))
+                        full_fields.append(f)
+                    else:
+                        full_arrays.append(np.asarray(arrays[j]))
+                        full_valids.append(valids[j])
+                        full_fields.append(fields[j])
+                n += conn.insert(sch, tbl, full_arrays, full_valids,
+                                 full_fields)
+        finally:
+            conn.drop_table(sch, shadow, if_exists=True)
+        self._written()
+        return QueryResult(["rows"], [(n,)], time.monotonic() - t0)
+
+    def query_to_columns(self, query):
+        """Run a query on the device and return (fields, host arrays,
+        valids): the TableWriterOperator boundary (raw codes, not decoded
+        strings)."""
+        rel = self.planner().plan_query(query)
+        root = prune_plan(rel.node)
+        batch = self.executor.execute(root)
+        names, arrays, valids = self.executor.result_to_host(root, batch)
+        fields = []
+        for sc, name in zip(rel.scope.columns, names):
+            fld = sc.field if sc.field is not None else Field(name,
+                                                              sc.dtype)
+            fields.append(Field(name, sc.dtype,
+                                dictionary=fld.dictionary))
+        return fields, list(arrays), list(valids)
 
     def decode_rows(self, rel, arrays, valids) -> List[tuple]:
         cols = []

@@ -88,6 +88,9 @@ def _to_comparable(expr: ir.Expr, data: torch.Tensor, target):
     if target.kind is TypeKind.DECIMAL:
         raise AssertionError("decimal comparisons use _decimal_compare")
     if target.kind is TypeKind.DOUBLE:
+        c = _double_literal(expr)
+        if c is not None:
+            return torch.full_like(data, c, dtype=torch.float64)
         if t.kind is TypeKind.DECIMAL:
             # mirrors XLA's rewrite of a division by a constant (reference)
             return data.to(torch.float64) * (1.0 / (10 ** t.scale))
@@ -95,6 +98,131 @@ def _to_comparable(expr: ir.Expr, data: torch.Tensor, target):
     if target.kind is TypeKind.TIMESTAMP and t.kind is TypeKind.DATE:
         return data.to(torch.int64) * 86_400_000_000
     return data
+
+
+# --------------------------------------------------------------------------
+# DOUBLE chains of products and quotients by literals, folded as XLA's
+# algebraic simplifier folds them in the reference's compiled projection
+# --------------------------------------------------------------------------
+#
+# The reference evaluates a projection inside one jit, and XLA rewrites
+# every division by a constant into a multiplication by its reciprocal and
+# folds chained constant factors into one; the port computes the same
+# folded factor on the host and multiplies once. The order of the folds
+# decides the factor's last bit, and it follows the simplifier's passes
+# (checked against the compiled HLO of the reference over random chains):
+#
+# - pass 1 sees the decimal scale's divisor as a constant (level 0) but a
+#   SQL division's divisor (`where(r == 0, 1, r)`) not yet (level 1), so
+#   the scale becomes `* (1/10^s)` at once, literal factors fold into the
+#   product below them, and a quotient of a quotient becomes one quotient
+#   by the product of the divisors (`(A/b)/c -> A/(b*c)`, level 2);
+# - a later pass turns each level-1 quotient into `* (1/b)` without
+#   folding it at once; a literal factor above it folds it then, and the
+#   result folds on down the chain;
+# - after constant folding (level 2) every factor left folds, innermost
+#   first.
+#
+# A literal operand itself is folded before XLA sees it: a decimal
+# literal's double is its value divided by 10^s, correctly rounded.
+
+
+def _double_literal(expr: ir.Expr):
+    """The double a literal operand (or a cast of one) becomes, or None."""
+    if isinstance(expr, ir.Cast) and expr.dtype.kind is TypeKind.DOUBLE:
+        expr = expr.arg
+    if not isinstance(expr, ir.Literal) or expr.value is None or \
+            isinstance(expr.value, bool):
+        return None
+    t = expr.dtype
+    if t.kind is TypeKind.DECIMAL:
+        return float(expr.value) / float(10 ** t.scale)
+    if t.kind in (TypeKind.DOUBLE, TypeKind.BIGINT, TypeKind.INTEGER):
+        return float(expr.value)
+    return None
+
+
+def _double_chain(expr: ir.Expr):
+    """`expr` as (base, ops): a non-literal term and the products and
+    quotients by literals applied to it, innermost first, as (kind,
+    constant, level). A decimal base (a CAST to double, or a decimal
+    operand of a double operation) starts with its scale's quotient."""
+    ops = []
+    e = expr
+    while isinstance(e, ir.Arith) and e.dtype.kind is TypeKind.DOUBLE and \
+            e.op in ('*', '/'):
+        rc = _double_literal(e.right)
+        if rc is not None and (e.op == '*' or rc != 0):
+            ops.append(("mul" if e.op == '*' else "div", rc, 1))
+            e = e.left
+        elif e.op == '*' and _double_literal(e.left) is not None:
+            ops.append(("mul", _double_literal(e.left), 1))
+            e = e.right
+        else:
+            break
+    if isinstance(e, ir.Cast) and e.dtype.kind is TypeKind.DOUBLE and \
+            e.arg.dtype.kind is TypeKind.DECIMAL:
+        e = e.arg
+    if e.dtype.kind is TypeKind.DECIMAL:
+        ops.append(("div", float(10 ** e.dtype.scale), 0))
+    return e, ops[::-1]
+
+
+def _fold_factor(ops):
+    """The one factor XLA leaves of `ops` (see above), or None when the
+    chain does not end as a single product."""
+    # nodes: (kind, child, constant, level, is a folded literal); a
+    # product of two constants made by a fold is an expression until the
+    # next constant folding, and only a literal below folds
+    node = None
+
+    def fold(child, k):
+        while child is not None and child[0] == "mul" and child[4]:
+            child, k = child[1], child[2] * k
+        return ("mul", child, k, 0, False)
+
+    def visit(n, stage):
+        if n is None:
+            return None
+        kind, child, k, level, lit = n
+        child = visit(child, stage)
+        if kind == "div":
+            if child is not None and child[0] == "div":
+                return ("div", child[1], child[2] * k, 2, False)
+            if level <= stage:
+                return ("mul", child, 1.0 / k, 0, True)
+            return ("div", child, k, level, lit)
+        if child is not None and child[0] == "mul" and child[4]:
+            return fold(child[1], child[2] * k)
+        return ("mul", child, k, 0, lit)
+
+    def constant_folding(n):
+        if n is None:
+            return None
+        return n[:1] + (constant_folding(n[1]),) + n[2:4] + (True,)
+
+    for kind, k, level in ops:
+        node = (kind, node, k, level, True)
+    node = visit(visit(node, 0), 1)          # the first run: two sweeps
+    for _ in range(len(ops) + 1):            # later runs, to a fixpoint
+        node = visit(constant_folding(node), 2)
+    if node is None or node[0] != "mul" or node[1] is not None:
+        return None
+    return node[2]
+
+
+def _eval_double_chain(expr: ir.Arith, batch: Batch):
+    """A DOUBLE product or quotient by literals, folded to one factor as
+    the reference's compiled code computes it; None where `expr` is not
+    such a chain."""
+    base, ops = _double_chain(expr)
+    if not ops or isinstance(base, ir.Literal):
+        return None
+    k = _fold_factor(ops)
+    if k is None:
+        return None
+    d, v = eval_expr(base, batch)
+    return d.to(torch.float64) * k, v
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +287,10 @@ def eval_expr(expr: ir.Expr, batch: Batch):
         return v, ones()
 
     if isinstance(expr, ir.Arith):
+        if expr.dtype.kind is TypeKind.DOUBLE and expr.op in ('*', '/'):
+            folded = _eval_double_chain(expr, batch)
+            if folded is not None:
+                return folded
         ld, lv = eval_expr(expr.left, batch)
         rd, rv = eval_expr(expr.right, batch)
         valid = lv & rv
@@ -302,6 +434,9 @@ def eval_expr(expr: ir.Expr, batch: Batch):
                 return half_up.to(torch.int64), v
             return d.to(torch.int64) * (10 ** dst.scale), v
         if dst.kind is TypeKind.DOUBLE:
+            c = _double_literal(expr)
+            if c is not None:
+                return torch.full_like(d, c, dtype=torch.float64), v
             if src.kind is TypeKind.DECIMAL:
                 # mirrors XLA's rewrite of a division by a constant
                 return d.to(torch.float64) * (1.0 / (10 ** src.scale)), v
