@@ -76,18 +76,22 @@ Phases, each failing the run with a non-zero exit:
    at ``tpch.sf1`` into ``memory.sf1``, DELETE (~1/7 of lineitem), UPDATE
    (~1/4: a decimal and a VARCHAR column, with a value new to the pool),
    INSERT ... SELECT (~1/10 back) and a MERGE INTO orders (~10% matched,
-   ~3% new keys; under torch.profiler), each reporting the row count of
-   a numpy replica that applies the same mutation; after each statement
-   the stored tables equal their replicas, TPC-H q1, q6 and q3 over the
-   memory tables equal the numpy oracles over the replicas (one cold,
-   two steady runs), q12 under ``mxu_agg = 'true'`` (K5) equals its
-   oracle, and q1 and q12 chunked twice equal their unchunked rows;
-   MERGE's anti join must launch K1; then CTAS of orders' first quarter
-   into a Parquet and an ORC catalog (row groups and stripes of 65,536
-   rows), read back equal to the generated table, scanned whole and
-   through the executor's pruned decode (groups skipped, no fallback),
-   and a CSV table of customer written, loaded and aggregated against a
-   numpy oracle; then DROP TABLE of the memory tables;
+   ~3% new keys), each reporting the row count of a numpy replica that
+   applies the same mutation; after each statement the stored tables
+   equal their replicas, TPC-H q1, q6 and q3 over the memory tables
+   equal the numpy oracles over the replicas (one cold, two steady
+   runs), q12 under ``mxu_agg = 'true'`` (K5) equals its oracle, and q1
+   and q12 chunked twice equal their unchunked rows; the MERGE statement
+   must launch K1 (its NOT EXISTS anti join probes a dense LUT), and
+   the same MERGE into a copy of orders runs once more under
+   torch.profiler; then, on a catalog of the phase's own, orders' first
+   sixth into a Parquet and an ORC catalog as a CTAS and INSERTs over
+   key ranges (a part file each), read back equal to the generated
+   table, scanned whole by SQL and, through a hand-driven executor call
+   with the connector's cache cleared, by the pruned decode (groups
+   skipped, no fallback), and a CSV table of customer written, loaded
+   and aggregated against a numpy oracle; then DROP TABLE of the memory
+   tables;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -1804,10 +1808,20 @@ def phase_corpus_paths(recorder, session, tables, ds_session):
 # --------------------------------------------------------------------------
 
 WRITE_TABLES = ("lineitem", "orders", "customer")
-# the file tables hold orders' first quarter (o_orderkey < FILE_KEYS): the
-# Python Parquet and ORC writers take ~3 and ~8 s a million rows
-FILE_KEYS = 1_500_000
-FILE_GROUP_ROWS = 65_536
+# the file tables hold orders' first sixth (o_orderkey < FILE_KEYS, 250,000
+# rows): the Python writers take ~3 (Parquet) and ~8 s (ORC) a million
+# rows, and each INSERT first decodes the stored table whole. Each is
+# written as a CTAS of its first FILE_PART_KEYS keys and an INSERT of each
+# later range: a part file each, with its own row-group or stripe
+# statistics for the pruned decode. o_shippriority is written as BIGINT,
+# the kind ORC reads any integer back as (an INSERT's kinds must match the
+# stored table's).
+FILE_KEYS = 1_000_000
+FILE_PART_KEYS = 250_000
+FILE_SELECT = ("SELECT o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+               "o_orderdate, o_orderpriority, o_clerk, CAST(o_shippriority "
+               "AS BIGINT) AS o_shippriority, o_comment FROM tpch.{s}.orders "
+               "WHERE o_orderkey >= {lo} AND o_orderkey < {hi}")
 # the statements, over memory.<s> and tpch.<s> for s = TPCH_SCHEMA
 DELETE_SQL = ("DELETE FROM memory.{s}.lineitem "
               "WHERE l_shipdate < DATE '1993-01-01'")
@@ -1817,7 +1831,7 @@ UPDATE_SQL = ("UPDATE memory.{s}.lineitem SET l_extendedprice = "
 INSERT_SQL = ("INSERT INTO memory.{s}.lineitem SELECT * FROM "
               "tpch.{s}.lineitem WHERE l_shipdate < DATE '1992-09-01'")
 MERGE_SQL = (
-    "MERGE INTO memory.{s}.orders t USING (SELECT CASE WHEN "
+    "MERGE INTO memory.{s}.{tbl} t USING (SELECT CASE WHEN "
     "o_orderkey % 10 = 3 THEN o_orderkey ELSE o_orderkey + 10000000 END "
     "AS k, o_custkey AS c, o_totalprice AS p, o_orderdate AS d, "
     "o_orderpriority AS pr FROM tpch.{s}.orders WHERE o_orderkey % 10 = 3 "
@@ -1978,48 +1992,63 @@ def _statement(session, sql, label, want, record):
     return wall
 
 
-def _file_phase(session, tmp, record):
-    """CTAS of orders' first quarter into a Parquet and an ORC catalog
-    (row groups and stripes of FILE_GROUP_ROWS), read back whole and
-    pruned; a CSV table of customer written here and queried."""
+def _file_phase(tpch, tmp, record):
+    """On a catalog of the phase's own (the connector `tpch` and the file
+    connectors under `tmp`): orders' first sixth into a Parquet and an
+    ORC catalog as a CTAS and INSERTs over key ranges, read back whole
+    and pruned; a CSV table of customer written here and queried. SQL
+    scans decode a file table whole (planning fills the connector's
+    cache first), so the pruned decode is reached by an executor call
+    made by hand over the planned query, the connector's cache
+    cleared."""
     import numpy as np
+    from trino_tpu_torch.catalog import Catalog
     from trino_tpu_torch.connectors.csvfile import CsvConnector
     from trino_tpu_torch.connectors.orcdir import OrcConnector
     from trino_tpu_torch.connectors.parquetdir import ParquetConnector
     from trino_tpu_torch.exec.session import Session
     from trino_tpu_torch.planner.optimizer import prune_plan
     from trino_tpu_torch.sql.parser import parse
-    cat = session.catalog
-    cat.register("pq", ParquetConnector(os.path.join(tmp, "pq"),
-                                        row_group_rows=FILE_GROUP_ROWS))
-    cat.register("orc", OrcConnector(os.path.join(tmp, "orc"),
-                                     stripe_rows=FILE_GROUP_ROWS))
+    cat = Catalog()
+    cat.register("tpch", tpch)
+    cat.register("pq", ParquetConnector(os.path.join(tmp, "pq")))
+    cat.register("orc", OrcConnector(os.path.join(tmp, "orc")))
+    session = Session(cat, default_schema=TPCH_SCHEMA)
     orders = cat.connector("tpch").get_table(TPCH_SCHEMA, "orders")
     okey = _col(orders, "o_orderkey")
     part = okey < FILE_KEYS
     n = int(part.sum())
+    bounds = list(range(0, FILE_KEYS + 1, FILE_PART_KEYS))
     pruned_sql = ("SELECT count(*), sum(o_totalprice), max(o_orderdate) "
                   "FROM {t} WHERE o_orderkey < " + str(FILE_KEYS // 5))
     want_pruned = session.execute(pruned_sql.format(
         t=f"tpch.{TPCH_SCHEMA}.orders")).rows
-    for c, skipped_attr in (("pq", "skipped_row_groups"),
-                            ("orc", "skipped_stripes")):
+    for c in ("pq", "orc"):
         conn = cat.connector(c)
-        t = time.monotonic()
         table = f"{c}.{TPCH_SCHEMA}.orders"
-        res = session.execute(
-            f"CREATE TABLE {table} AS SELECT * FROM "
-            f"tpch.{TPCH_SCHEMA}.orders WHERE o_orderkey < {FILE_KEYS}")
-        write_s = time.monotonic() - t
-        require(res.rows == [(n,)], f"{c}: CTAS reported {res.rows}")
+        t = time.monotonic()
+        written = []
+        for i, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+            select = FILE_SELECT.format(s=TPCH_SCHEMA, lo=lo, hi=hi)
+            res = session.execute(f"CREATE TABLE {table} AS {select}"
+                                  if i == 0 else
+                                  f"INSERT INTO {table} {select}")
+            want = int(((okey >= lo) & (okey < hi)).sum())
+            require(res.rows == [(want,)], f"{c}: the write of keys "
+                    f"[{lo}, {hi}) reported {res.rows}, want {want}")
+            written.append(time.monotonic() - t)
+        write_s = written[-1]
         conn._cache.clear()
         t = time.monotonic()
         back = conn.get_table(TPCH_SCHEMA, "orders")
         read_s = time.monotonic() - t
         require(back.num_rows == n, f"{c}: read back {back.num_rows} rows")
+        # both sides in key order
+        order = np.argsort(np.asarray(back.columns[0]))
+        worder = np.flatnonzero(part)[np.argsort(okey[part])]
         for i, f in enumerate(orders.schema.fields):
-            got = np.asarray(back.columns[i])
-            want = np.asarray(orders.columns[i])[part]
+            got = np.asarray(back.columns[i])[order]
+            want = np.asarray(orders.columns[i])[worder]
             if f.dictionary is not None:
                 got = np.asarray(back.schema.fields[i].dictionary,
                                  dtype=object)[got]
@@ -2029,8 +2058,9 @@ def _file_phase(session, tmp, record):
         full = session.execute(pruned_sql.format(t=table)).rows
         require(full == want_pruned, f"{c}: full scan {full} differs from "
                 f"tpch's {want_pruned}")
-        # the pruned read: the executor's scan of a connector that has not
-        # decoded the table (as a scan that did not plan the query)
+        # the pruned decode: the executor's scan of the planned query with
+        # the connector's cache cleared (a hand-driven call; no SQL
+        # statement reaches it)
         sql = pruned_sql.format(t=table)
         rel = session.planner().plan_query(parse(sql))
         root = prune_plan(rel.node)
@@ -2047,20 +2077,24 @@ def _file_phase(session, tmp, record):
                 f"{c}: the scan did not take the pruned decode ({st})")
         require(st.pruned_decode_fallbacks == 0,
                 f"{c}: the pruned decode fell back to the full decode")
-        groups = -(-n // FILE_GROUP_ROWS)
+        groups = len(bounds) - 1
         record["files"][c] = {
-            "rows": n, "groups": groups, "ctas_write_s": write_s,
-            "ctas_rows_per_s": n / write_s, "full_read_s": read_s,
-            "pruned_scan_s": pruned_s,
+            "rows": n, "parts": groups, "write_s": write_s,
+            "ctas_s": written[0], "rows_per_s": n / write_s,
+            "full_read_s": read_s,
+            "pruned_executor_call_s": pruned_s,
             "groups_skipped": st.pruned_groups_skipped,
             "pruned_decode_fallbacks": st.pruned_decode_fallbacks,
             "bytes": sum(os.path.getsize(os.path.join(d, f))
                          for d, _, fs in os.walk(os.path.join(tmp, c))
                          for f in fs)}
-        log(f"write path, {c}: CTAS {n} rows in {write_s:.4f} s "
-            f"({n / write_s:.0f} rows/s), read back in {read_s:.4f} s equal"
-            f" to tpch's orders; pruned scan {pruned_s:.4f} s skipped "
-            f"{st.pruned_groups_skipped} of {groups} groups, fallbacks 0")
+        log(f"write path, {c}: CTAS and {groups - 1} INSERTs of {n} rows "
+            f"in {write_s:.4f} s ({n / write_s:.0f} rows/s; the CTAS "
+            f"{written[0]:.4f} s), read back in {read_s:.4f} s equal to "
+            f"tpch's orders; pruned decode by a hand-driven executor call "
+            f"(connector cache cleared, not a SQL statement) "
+            f"{pruned_s:.4f} s, skipped {st.pruned_groups_skipped} of "
+            f"{groups} groups, fallbacks 0")
     # a CSV table, written here from customer and loaded by the connector
     cust = cat.connector("tpch").get_table(TPCH_SCHEMA, "customer")
     names = np.asarray(cust.schema.field("c_name").dictionary,
@@ -2094,6 +2128,8 @@ def _file_phase(session, tmp, record):
     require(one == [(int(ck[6]), float(str(_dec(int(bal[6]), 2))))],
             f"csv: the row of {names[6]} is {one}")
     record["files"]["csv"] = {"rows": len(ck), "write_load_query_s": csv_s}
+    require(session.executor.stats.pruned_decode_fallbacks == 0,
+            "a file scan's pruned decode fell back to the full decode")
     log(f"write path, csv: {len(ck)} customer rows written, loaded and "
         f"aggregated in {csv_s:.4f} s, equal to the numpy oracle")
 
@@ -2103,8 +2139,9 @@ def phase_write_path(recorder, main_session):
     sf1 into the memory catalog, then DELETE (~1/7 of lineitem), UPDATE
     (~1/4: a decimal and a VARCHAR column, with a value new to the
     pool), INSERT ... SELECT (~1/10 back) and one MERGE INTO orders (~10%
-    matched, ~3% new keys; under torch.profiler), each reporting the
-    replica's row count; after each, `_write_state`. Then the file
+    matched, ~3% new keys; it must launch K1, and runs once more into a
+    copy of orders under torch.profiler), each reporting the replica's
+    row count; after each, `_write_state`. Then the file
     connectors (`_file_phase`), and DROP TABLE of the memory tables.
     Counters set to 0 before, read after. A Session of its own over the
     same catalog, so that the writes' cache invalidations leave the other
@@ -2164,19 +2201,31 @@ def phase_write_path(recorder, main_session):
         ok = _col(src["orders"], "o_orderkey")
         matched = ok % 10 == 3
         new = np.isin(ok % 100, (7, 17, 27))
-        res, wall, acts = _profiled_run(session,
-                                        MERGE_SQL.format(s=TPCH_SCHEMA))
-        busy_ms = sum(us for _name, us in acts) / 1e3
-        prof = {"wall_ms": round(wall * 1e3, 4),
-                "device_busy_ms": round(busy_ms, 4),
-                "idle_share": round(1 - busy_ms / (wall * 1e3), 4)}
         want = int(matched.sum() + new.sum())
-        require(res.rows == [(want,)], f"MERGE reported {res.rows}, want "
-                f"{want} rows")
-        record["statements"]["MERGE"] = {"rows": want, "wall_s": wall,
-                                         "profile": prof}
-        log(f"write path: MERGE {want} rows in {wall:.4f} s; under "
-            f"torch.profiler: {json.dumps(prof)}")
+        # a copy of orders as it stands, for the profiled run below
+        session.execute(f"CREATE TABLE memory.{TPCH_SCHEMA}.orders_p AS "
+                        f"SELECT * FROM memory.{TPCH_SCHEMA}.orders")
+        k1_before = read_counts()["K1"]
+        _statement(session, MERGE_SQL.format(s=TPCH_SCHEMA, tbl="orders"),
+                   "MERGE", want, record)
+        k1_merge = read_counts()["K1"] - k1_before
+        require(k1_merge > 0, "the MERGE statement did not launch K1 (its "
+                "NOT EXISTS anti join probes a dense LUT)")
+        # the same MERGE into the copy under torch.profiler: the card's
+        # busy time and idle share (the wall above is taken without it)
+        res, pwall, acts = _profiled_run(
+            session, MERGE_SQL.format(s=TPCH_SCHEMA, tbl="orders_p"))
+        require(res.rows == [(want,)], f"the profiled MERGE reported "
+                f"{res.rows}, want {want} rows")
+        session.execute(f"DROP TABLE memory.{TPCH_SCHEMA}.orders_p")
+        busy_ms = sum(us for _name, us in acts) / 1e3
+        prof = {"profiled_wall_ms": round(pwall * 1e3, 4),
+                "device_busy_ms": round(busy_ms, 4),
+                "idle_share": round(1 - busy_ms / (pwall * 1e3), 4)}
+        record["statements"]["MERGE"].update(k1_launches=k1_merge,
+                                             profile=prof)
+        log(f"write path: MERGE launched K1 {k1_merge} times; the same "
+            f"MERGE into a copy under torch.profiler: {json.dumps(prof)}")
         hit = np.isin(od.col("o_orderkey"), ok[matched])
         od.col("o_totalprice")[hit] *= 2
         od.col("o_shippriority")[hit] = 1
@@ -2197,7 +2246,7 @@ def phase_write_path(recorder, main_session):
                   [np.full(n_new, name in add, np.bool_) for name in s])
         _write_state(session, reps, "MERGE", record)
         memory_s = time.monotonic() - t_phase
-        _file_phase(session, tmp, record)
+        _file_phase(conn, tmp, record)
         torch.cuda.synchronize()
     finally:
         recorder.active, recorder.keep = False, True
@@ -2205,8 +2254,6 @@ def phase_write_path(recorder, main_session):
     launches = read_counts()
     record["memory_part_s"] = memory_s
     record["phase_s"] = time.monotonic() - t_phase
-    require(launches["K1"] > 0, "the write path did not launch K1 (MERGE's "
-            "anti join is a dense-LUT probe)")
     require(launches["K5"] > 0, "the write path's q12 (mxu_agg = true) did "
             "not launch K5")
     require(session.executor.stats.pruned_decode_fallbacks == 0,

@@ -795,8 +795,9 @@ def test_mutation_cycle_on_card_equals_cpu():
 
 @pytest.mark.parametrize("fmt", ["parquet", "orc"])
 def test_pruned_file_scan_on_card_equals_cpu(tmp_path, fmt):
-    """A Parquet / ORC table written by CTAS, scanned on the card through
-    the connector's pruned decode (its cache cold): the full scan's rows,
+    """A Parquet / ORC table written by a CTAS and INSERTs over key
+    ranges (a part file each), scanned on the card through the
+    connector's pruned decode (its cache cold): the full scan's rows,
     groups skipped, no fallback."""
     from trino_tpu_torch.connectors.orcdir import OrcConnector
     from trino_tpu_torch.connectors.parquetdir import ParquetConnector
@@ -805,11 +806,19 @@ def test_pruned_file_scan_on_card_equals_cpu(tmp_path, fmt):
     from trino_tpu_torch.sql.parser import parse
     _card()
     s = Session(device="cuda")
-    conn = ParquetConnector(str(tmp_path), row_group_rows=2000) \
-        if fmt == "parquet" else OrcConnector(str(tmp_path),
-                                               stripe_rows=2000)
+    conn = ParquetConnector(str(tmp_path)) if fmt == "parquet" else \
+        OrcConnector(str(tmp_path))
     s.catalog.register("f", conn)
-    s.execute("CREATE TABLE f.s.o AS SELECT * FROM tpch.tiny.orders")
+    # o_shippriority as BIGINT: ORC reads any integer back as BIGINT, and
+    # an INSERT's kinds must match the stored table's
+    src = ("SELECT o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+           "o_orderdate, o_orderpriority, o_clerk, CAST(o_shippriority AS "
+           "BIGINT) AS o_shippriority, o_comment FROM tpch.tiny.orders "
+           "WHERE o_orderkey")
+    s.execute(f"CREATE TABLE f.s.o AS {src} < 7500")
+    for lo in range(7500, 60000, 7500):
+        s.execute(f"INSERT INTO f.s.o {src} >= {lo} AND o_orderkey < "
+                  f"{lo + 7500}")
     sql = ("SELECT count(*), sum(o_totalprice), max(o_orderdate) FROM "
            "f.s.o WHERE o_orderkey < 4000")
     want = Session(s.catalog, device="cpu").execute(sql).rows

@@ -29,12 +29,15 @@ from trino_tpu.connectors import orcdir as j_orc
 from trino_tpu.connectors import parquetdir as j_pq
 from trino_tpu.connectors.tpch.connector import TpchConnector
 from trino_tpu.formats import orc as j_orcfmt
+from trino_tpu.formats import parquet as j_pqfmt
 from trino_tpu.exec.session import Session as JaxSession
 from trino_tpu_torch.catalog import catalog_from_tables, port_table
 from trino_tpu_torch.connectors import csvfile as t_csv
 from trino_tpu_torch.connectors import orcdir as t_orc
 from trino_tpu_torch.connectors import parquetdir as t_pq
 from trino_tpu_torch.exec.session import Session
+from trino_tpu_torch.formats import orc as t_orcfmt
+from trino_tpu_torch.formats import parquet as t_pqfmt
 from trino_tpu_torch.planner.optimizer import prune_plan
 from trino_tpu_torch.server import writeprotocol as t_wp
 from trino_tpu_torch.sql.parser import parse
@@ -96,24 +99,31 @@ def assert_data_equal(got, want):
         assert a.tobytes() == b.tobytes()
 
 
+def _writer(fmt, **options):
+    """A writer of `fmt` for either package: the connector's exporter at
+    its defaults, else the format module's writer with `options` (row
+    groups, stripes, codecs) on the exporter's flattening."""
+    def write(pkg, data, path):
+        pq, orc = (t_pq, t_orc) if pkg == "torch" else (j_pq, j_orc)
+        if not options:
+            (pq if fmt == "parquet" else orc).export_table(data, path)
+        elif fmt == "parquet":
+            fmod = t_pqfmt if pkg == "torch" else j_pqfmt
+            fmod.write_parquet(path, *pq.flatten_table(data, "parquet"),
+                               **options)
+        else:
+            fmod = t_orcfmt if pkg == "torch" else j_orcfmt
+            fmod.write_orc(path, *pq.flatten_table(data, "ORC"), **options)
+    return write, fmt
+
+
 WRITES = {
-    "parquet": (lambda pkg, d, p: (t_pq if pkg == "torch" else j_pq)
-                .export_table(d, p), "parquet"),
-    "parquet row groups": (lambda pkg, d, p: t_pq.export_table(
-        d, p, row_group_rows=1000) if pkg == "torch" else
-        j_pq.write_parquet(p, *j_pq.flatten_table(d, "parquet"),
-                           row_group_rows=1000), "parquet"),
-    "parquet gzip": (lambda pkg, d, p: t_pq.export_table(
-        d, p, compression="gzip") if pkg == "torch" else
-        j_pq.write_parquet(p, *j_pq.flatten_table(d, "parquet"),
-                           compression="gzip"), "parquet"),
-    "orc": (lambda pkg, d, p: (t_orc if pkg == "torch" else j_orc)
-            .export_table(d, p), "orc"),
-    "orc zlib stripes": (lambda pkg, d, p: t_orc.export_table(
-        d, p, compression="zlib", stripe_rows=1000) if pkg == "torch"
-        else j_orcfmt.write_orc(p, *j_pq.flatten_table(d, "ORC"),
-                             compression="zlib", stripe_rows=1000),
-        "orc"),
+    "parquet": _writer("parquet"),
+    "parquet row groups": _writer("parquet", row_group_rows=1000),
+    "parquet gzip": _writer("parquet", compression="gzip"),
+    "orc": _writer("orc"),
+    "orc zlib stripes": _writer("orc", compression="zlib",
+                                stripe_rows=1000),
 }
 
 
@@ -138,8 +148,10 @@ def test_pyarrow_reads_port_files(tmp_path):
     pq = pytest.importorskip("pyarrow.parquet")
     po = pytest.importorskip("pyarrow.orc")
     data = _mixed_table("torch")
-    t_pq.export_table(data, str(tmp_path / "t.parquet"), row_group_rows=999)
-    t_orc.export_table(data, str(tmp_path / "t.orc"), compression="zlib")
+    _writer("parquet", row_group_rows=999)[0](
+        "torch", data, str(tmp_path / "t.parquet"))
+    _writer("orc", compression="zlib")[0](
+        "torch", data, str(tmp_path / "t.orc"))
     for tab in (pq.read_table(str(tmp_path / "t.parquet")),
                 po.read_table(str(tmp_path / "t.orc"))):
         assert tab.num_rows == data.num_rows
@@ -248,30 +260,32 @@ def test_sql_over_file_connectors_equals_reference(tables, tmp_path):
     assert t_wp.WRITE_COMMITS.value(outcome="committed") >= 5
 
 
+def ranged_writes(table, parts=8, step=7500):
+    """CTAS of tpch.tiny.orders' first `step` keys into `table`, then an
+    INSERT of each later key range: one part file each, with its own
+    row-group or stripe statistics. o_shippriority is written as BIGINT,
+    the kind ORC reads any integer back as (an INSERT's kinds must match
+    the stored table's)."""
+    cols = ("o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+            "o_orderdate, o_orderpriority, o_clerk, CAST(o_shippriority "
+            "AS BIGINT) AS o_shippriority, o_comment")
+    src = f"SELECT {cols} FROM tpch.tiny.orders WHERE o_orderkey"
+    return [f"CREATE TABLE {table} AS {src} < {step}"] + [
+        f"INSERT INTO {table} {src} >= {lo} AND o_orderkey < {lo + step}"
+        for lo in range(step, parts * step, step)]
+
+
 @pytest.mark.parametrize("fmt", ["parquet", "orc"])
 def test_pruned_decode_equals_reference(tables, tmp_path, fmt):
-    """The connector's pruned decode skips the reference's groups and
-    returns the surviving groups' rows; through the executor (its
-    connector cache cold, as a scan that did not plan the query sees it)
-    the pruned scan returns the full scan's rows."""
+    """A table written as a CTAS and INSERTs over key ranges (a part
+    each): the connector's pruned decode skips the reference's parts'
+    groups and returns the surviving groups' rows; through the executor
+    (its connector cache cold, as a scan that did not plan the query
+    sees it) the pruned scan returns the full scan's rows."""
     js, ts = _sessions(tables, str(tmp_path))
     cat = "pq" if fmt == "parquet" else "orc"
-    opt = "row_group_rows" if fmt == "parquet" else "stripe_rows"
-    ts.catalog.connector(cat).write_options = {opt: 2000}
-    ts.execute(f"CREATE TABLE {cat}.s.orders AS SELECT * FROM "
-               "tpch.tiny.orders")
-    # the reference writes the same file with the same option
-    jroot = js.catalog.connector(cat).root
-    os.makedirs(os.path.join(jroot, "s"), exist_ok=True)
-    data = js.catalog.get_table("tpch", "tiny", "orders")
-    if fmt == "parquet":
-        j_pq.write_parquet(os.path.join(jroot, "s", "orders.parquet"),
-                           *j_pq.flatten_table(data, "parquet"),
-                           row_group_rows=2000)
-    else:
-        j_orcfmt.write_orc(os.path.join(jroot, "s", "orders.orc"),
-                        *j_pq.flatten_table(data, "ORC"),
-                        stripe_rows=2000)
+    for sql in ranged_writes(f"{cat}.s.orders"):
+        assert ts.execute(sql).rows == js.execute(sql).rows, sql
     ranges = {"o_orderkey": (1, 4000)}
     tconn, jconn = ts.catalog.connector(cat), js.catalog.connector(cat)
     got = tconn.get_table_pruned("s", "orders", ranges)

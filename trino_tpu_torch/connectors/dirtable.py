@@ -1,7 +1,4 @@
-"""Port copy of ``trino_tpu/connectors/dirtable.py``. One addition: a
-connector's `write_options` (keyword arguments of its `export_table`,
-such as Parquet's `row_group_rows` or ORC's `stripe_rows`) reach every
-staged write; without them the files are the reference's, byte for byte.
+"""Port copy of ``trino_tpu/connectors/dirtable.py`` (unchanged).
 
 Directory-table support shared by the orcdir and parquetdir connectors.
 
@@ -201,9 +198,7 @@ class StagedWriteMixin:
         qid = query_id or f"local_{uuid.uuid4().hex[:12]}"
         m = wp.stage_table_data(tdir, data, qid, stage=0, partition=0,
                                 attempt="a0", fmt=self.fmt,
-                                injector=injector,
-                                options=getattr(self, "write_options",
-                                                None))
+                                injector=injector)
         stats = wp.commit(tdir, qid, [m], injector=injector)
         self._cache.pop((schema, name), None)
         return stats

@@ -1,7 +1,4 @@
-"""Port copy of ``trino_tpu/connectors/orcdir.py``. Additions:
-`export_table` takes the writer's `stripe_rows`, and the connector keeps
-`compression` and `stripe_rows` as its `write_options` (their defaults
-write the reference's file).
+"""Port copy of ``trino_tpu/connectors/orcdir.py`` (unchanged).
 
 ORC file connector.
 
@@ -88,9 +85,8 @@ class OrcConnector(StagedWriteMixin):
     ext = "orc"
     fmt = "orc"
 
-    def __init__(self, root: str, **write_options):
+    def __init__(self, root: str):
         self.root = root
-        self.write_options = write_options     # export_table's keywords
         self._cache: Dict[Tuple[str, str], TableData] = {}
         # unclean-shutdown recovery: roll forward / sweep any staged
         # write state before the first scan can observe it
@@ -133,8 +129,7 @@ class OrcConnector(StagedWriteMixin):
 
 
 def export_table(data: TableData, path: str,
-                 compression: str = "none",
-                 stripe_rows: int = 1 << 20) -> None:
+                 compression: str = "none") -> None:
     """Engine TableData -> ORC file (formats/orc.py write_orc), the
     write-parity twin of parquetdir.export_table (lib/trino-orc
     OrcWriter.java's role); flattening is shared with the parquet
@@ -142,4 +137,4 @@ def export_table(data: TableData, path: str,
     from ..formats.orc import write_orc
     from .parquetdir import flatten_table
     write_orc(path, *flatten_table(data, "ORC"),
-              compression=compression, stripe_rows=stripe_rows)
+              compression=compression)

@@ -1,7 +1,4 @@
-"""Port copy of ``trino_tpu/connectors/parquetdir.py``. Additions:
-`export_table` takes the writer's `compression` and `row_group_rows`,
-and the connector keeps them as its `write_options` (their defaults
-write the reference's file).
+"""Port copy of ``trino_tpu/connectors/parquetdir.py`` (unchanged).
 
 Parquet file connector.
 
@@ -152,12 +149,9 @@ def flatten_table(data: TableData, fmt: str):
     return names, arrays, valids, logicals
 
 
-def export_table(data: TableData, path: str, compression: str = "none",
-                 row_group_rows: Optional[int] = None) -> None:
-    """Engine TableData -> parquet file (`row_group_rows` splits it into
-    row groups, each with the statistics that pruned reads use)."""
-    write_parquet(path, *flatten_table(data, "parquet"),
-                  compression=compression, row_group_rows=row_group_rows)
+def export_table(data: TableData, path: str) -> None:
+    """Engine TableData -> parquet file."""
+    write_parquet(path, *flatten_table(data, "parquet"))
 
 
 class ParquetConnector(StagedWriteMixin):
@@ -165,9 +159,8 @@ class ParquetConnector(StagedWriteMixin):
     ext = "parquet"
     fmt = "parquet"
 
-    def __init__(self, root: str, **write_options):
+    def __init__(self, root: str):
         self.root = root
-        self.write_options = write_options     # export_table's keywords
         self._cache: Dict[Tuple[str, str], TableData] = {}
         # unclean-shutdown recovery: roll forward / sweep any staged
         # write state before the first scan can observe it

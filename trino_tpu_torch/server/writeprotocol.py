@@ -1,8 +1,7 @@
 """Port copy of ``trino_tpu/server/writeprotocol.py``. Edits: the three
 counters, the three chaos point names, the torn-append crash type and
 the CRC come from small copies at the top of this module instead of the
-reference's metrics, failureinjector and pageserde modules; and
-`stage_table_data` passes a connector's `export_table` options on.
+reference's metrics, failureinjector and pageserde modules.
 
 Exactly-once staged-write commit protocol for directory connectors.
 
@@ -152,10 +151,10 @@ def published_rows_for(table_dir: str, query_id: str):
 
 def stage_table_data(table_dir: str, data, query_id: str, stage: int,
                      partition: int, attempt: str, fmt: str,
-                     injector=None, options=None) -> dict:
+                     injector=None) -> dict:
     """Write one attempt file under `<table>/.staging/` and return its
-    manifest (path, rows, CRC, bytes, per-column zone stats). `options`
-    are the format's `export_table` keywords. Never publishes — the file is invisible to scans until the coordinator
+    manifest (path, rows, CRC, bytes, per-column zone stats). Never
+    publishes — the file is invisible to scans until the coordinator
     commits it."""
     if injector is not None:
         injector.maybe_fail(WRITE_STAGE,
@@ -169,7 +168,7 @@ def stage_table_data(table_dir: str, data, query_id: str, stage: int,
         from ..connectors.orcdir import export_table
     else:
         from ..connectors.parquetdir import export_table
-    export_table(data, path, **(options or {}))
+    export_table(data, path)
     with open(path, "rb") as f:
         body = f.read()
     WRITE_TASKS.inc()
