@@ -91,7 +91,21 @@ Phases, each failing the run with a non-zero exit:
    with the connector's cache cleared, by the pruned decode (groups
    skipped, no fallback), and a CSV table of customer written, loaded
    and aggregated against a numpy oracle; then DROP TABLE of the memory
-   tables;
+   tables; then the memory-pressure path (``phase_memory_pressure``, a
+   Session of its own per run, counters set to 0 just before and read
+   just after): JOIN_Q, GROUP BY l_orderkey, AGG_Q's sums and counts
+   under ``mxu_agg = 'true'``, AGG_Q and a TopN at ``tpch.sf1``, each
+   resident with its decisions replayed from disk (pool peak, wall, the
+   card's peak), then with the pool at a half and a quarter of that
+   peak: rows equal the resident rows and the numpy oracles, every query
+   spills at a quarter, K3 launches in the spilled GROUP BY and K5 in the
+   chunk-and-merge aggregate; JOIN_Q with every partition forced to disk
+   (``TRINO_TPU_SPILL_DIR`` in a temporary directory), and again under
+   SPOOL_WRITE faults (recovered to the RAM copy, counted); GROUP BY
+   with spill disabled at 1 MiB (it must raise, and the session must
+   answer again); and two fresh processes that run TPC-H q3 once each
+   with the port's decision file removed first: the second must sync
+   fewer times (``fetch_ints``) for the same rows;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -2269,7 +2283,334 @@ def phase_write_path(recorder, main_session):
     return launches
 
 
+# -- the memory-pressure tier (exec/spill.py) --------------------------------
+
+def oracle_join_q(orders, cust):
+    """JOIN_Q: per customer with c_acctbal > 0, its orders' count and
+    total price, the 50 largest totals."""
+    import numpy as np
+    ck = _col(cust, "c_custkey")
+    ok = np.zeros(int(ck.max()) + 1, np.bool_)
+    ok[ck[_col(cust, "c_acctbal") > 0]] = True
+    oc = _col(orders, "o_custkey")
+    m = ok[oc]
+    keys, inv = np.unique(oc[m], return_inverse=True)
+    cnt = np.bincount(inv)
+    tot = np.zeros(len(keys), np.int64)
+    np.add.at(tot, inv, _col(orders, "o_totalprice")[m])
+    order = np.lexsort((keys, -tot))[:50]
+    return [(int(keys[i]), int(cnt[i]), _dec(int(tot[i]), 2))
+            for i in order]
+
+
+def oracle_group_q(li):
+    """GROUP_Q: sum(l_quantity) per order, the 20 largest."""
+    import numpy as np
+    keys, inv = np.unique(_col(li, "l_orderkey"), return_inverse=True)
+    q = np.zeros(len(keys), np.int64)
+    np.add.at(q, inv, _col(li, "l_quantity"))
+    order = np.lexsort((keys, -q))[:20]
+    return [(int(keys[i]), _dec(int(q[i]), 2)) for i in order]
+
+
+def oracle_group_all_q(li):
+    """GROUP_ALL_Q: sum(l_quantity) of every order, by l_orderkey."""
+    import numpy as np
+    keys, inv = np.unique(_col(li, "l_orderkey"), return_inverse=True)
+    q = np.zeros(len(keys), np.int64)
+    np.add.at(q, inv, _col(li, "l_quantity"))
+    return [(int(k), _dec(int(v), 2)) for k, v in zip(keys.tolist(),
+                                                      q.tolist())]
+
+
+def oracle_sumagg_q(li):
+    """SUMAGG_Q: sum(l_quantity) and count(*) per (returnflag,
+    linestatus)."""
+    import numpy as np
+    rf, ls = _col(li, "l_returnflag"), _col(li, "l_linestatus")
+    rpool = li.schema.field("l_returnflag").dictionary
+    lpool = li.schema.field("l_linestatus").dictionary
+    out = []
+    for r in sorted(set(rf.tolist()), key=lambda c: rpool[c]):
+        for s in sorted(set(ls.tolist()), key=lambda c: lpool[c]):
+            m = (rf == r) & (ls == s)
+            if m.any():
+                out.append((rpool[r], lpool[s],
+                            _dec(int(_col(li, "l_quantity")[m].sum()), 2),
+                            int(m.sum())))
+    return out
+
+
+def oracle_sort_q(li):
+    """SORT_Q: the 100 largest l_extendedprice, ties by l_orderkey."""
+    import numpy as np
+    k, p = _col(li, "l_orderkey"), _col(li, "l_extendedprice")
+    order = np.lexsort((k, -p))[:100]
+    return [(int(k[i]), _dec(int(p[i]), 2)) for i in order]
+
+
+# a fresh interpreter that runs TPC-H q3 once, cold, at sf1 and reports
+# how many fetch_ints calls synced with the card (a call whose key the
+# decision cache already holds does not); it must import neither jax nor
+# the reference package
+_DECISION_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from trino_tpu_torch.exec.executor import Executor
+from trino_tpu_torch.exec.session import Session
+real = Executor.fetch_ints
+syncs = [0]
+
+def fetch_ints(self, node, tag, *vals):
+    hits = self.stats.decision_hits
+    out = real(self, node, tag, *vals)
+    syncs[0] += self.stats.decision_hits == hits
+    return out
+
+Executor.fetch_ints = fetch_ints
+session = Session(default_schema=sys.argv[2])
+session.catalog.connector("tpch").get_table(sys.argv[2], "lineitem")
+t = time.monotonic()
+rows = session.execute(sys.argv[3]).rows
+torch.cuda.synchronize()
+wall = time.monotonic() - t
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu"))
+print(json.dumps({"syncs": syncs[0], "wall_s": wall,
+                  "pool_peak": session.executor.pool.peak,
+                  "rows": repr(rows), "leaked": leaked,
+                  "hits": session.executor.stats.decision_hits}))
+"""
+
+
+def remove_decision_file():
+    """Delete the port's decision file, so that a run starts from the
+    same state whatever an earlier run in this checkout left."""
+    from trino_tpu_torch.connectors.diskcache import cache_root
+    from trino_tpu_torch.exec.executor import Executor
+    path = os.path.join(cache_root(), Executor._DECISION_CACHE_FILE)
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def _decision_children():
+    """Two fresh processes run TPC-H q3 once each, cold, with the port's
+    decision file removed first: the second replays the first's
+    decisions from disk, so it syncs fewer times for the same rows."""
+    remove_decision_file()
+    env = dict(os.environ, TRINO_TPU_DECISION_CACHE="1")
+    out = []
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", _DECISION_CHILD, HERE, TPCH_SCHEMA, Q3],
+            env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0,
+                f"decision child failed:\n{proc.stderr[-2000:]}")
+        out.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    first, second = out
+    require(not first["leaked"] and not second["leaked"],
+            f"a decision child imported {first['leaked'] + second['leaked']}")
+    require(second["hits"] > 0 and second["rows"] == first["rows"],
+            "the replaying child returned other rows")
+    require(second["syncs"] < first["syncs"],
+            f"the replaying child synced {second['syncs']} times, the "
+            f"cold one {first['syncs']}")
+    for rec in out:
+        rec.pop("rows")
+    return {"cold": first, "replayed": second}
+
+
+def phase_memory_pressure(recorder, main_session, tables):
+    """JOIN_Q, GROUP BY l_orderkey (K3 on each partition; its 20 largest
+    groups, and every group in order of l_orderkey), the four-group sums
+    under mxu_agg = 'true' (K5 on each chunk), AGG_Q and a TopN at
+    tpch.sf1, each resident with its decisions warm (pool peak, wall, the
+    card's peak), then at a half and a quarter of its resident pool peak:
+    rows equal the resident rows and the numpy oracles, every query spills
+    at a quarter, K3 and K5 launch there. The largest K3 launch of the
+    GROUP BYs over the whole input and of their spilled partitions are
+    kept for the timing phase, which holds them against K3's plain
+    version. Then JOIN_Q with every
+    partition forced to disk, the same under SPOOL_WRITE faults (a raise
+    and a corrupted page, twice each), GROUP BY l_orderkey with spill
+    disabled at 1 MiB (it must raise, and the session must answer again), and the decision cache
+    across two fresh processes. A Session of its own over the same
+    catalog, counters set to 0 before and read after."""
+    import shutil
+    import tempfile
+    import torch
+    from spill_queries import (AGG_Q, GROUP_ALL_Q, GROUP_Q, JOIN_Q, SORT_Q,
+                               SUMAGG_Q)
+    from trino_tpu_torch.exec.memory import ExceededMemoryLimitError
+    from trino_tpu_torch.exec import spill as spill_mod
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.exec.spill import get_spiller
+    from trino_tpu_torch.metrics import SPILL_PARTITIONS
+    from trino_tpu_torch.ops import direct_agg as k5
+    from trino_tpu_torch.ops import hashtable as ht
+    from trino_tpu_torch.server.failureinjector import FailureInjector
+    li = tables["lineitem"]
+    queries = {
+        "join": (JOIN_Q, oracle_join_q(tables["orders"], tables["customer"])),
+        "group": (GROUP_Q, oracle_group_q(li)),
+        "group_all": (GROUP_ALL_Q, oracle_group_all_q(li)),
+        "sumagg": (SUMAGG_Q, oracle_sumagg_q(li)),
+        "agg": (AGG_Q, None),
+        "sort": (SORT_Q, oracle_sort_q(li))}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    old_dir = os.environ.get("TRINO_TPU_SPILL_DIR")
+    os.environ["TRINO_TPU_SPILL_DIR"] = tmp
+
+    def fresh(name, limit=None):
+        s = Session(main_session.catalog, default_schema=TPCH_SCHEMA)
+        if name == "sumagg":
+            s.execute("SET SESSION mxu_agg = 'true'")
+        if limit is not None:
+            s.executor.pool.set_limit(limit)
+            s.properties["query_max_memory_mb"] = max(1, limit >> 20)
+        return s
+
+    def run(s, sql):
+        """Rows, wall, and the card's peak above what the process held
+        before the query (the other paths' cached tables stay resident)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        rows = s.execute(sql).rows
+        torch.cuda.synchronize()
+        return (rows, time.monotonic() - t,
+                torch.cuda.max_memory_allocated() - base)
+
+    def spill_aggregate(executor, node):
+        """The spilled partitions' K3 launches under a capture of their
+        own (the attempt over the whole input launches before it)."""
+        whole = recorder.capture
+        recorder.capture = MEMORY_K3[1] if whole else None
+        try:
+            return real_spill_aggregate(executor, node)
+        finally:
+            recorder.capture = whole
+
+    real_spill_aggregate = spill_mod.spill_aggregate
+    spill_mod.spill_aggregate = spill_aggregate
+    record = {"queries": {}}
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    t_phase = time.monotonic()
+    try:
+        for name, (sql, want) in queries.items():
+            grouped = name in ("group", "group_all")
+            recorder.capture = MEMORY_K3[0] if grouped else None
+            cold, _, _ = run(fresh(name), sql)    # records the decisions
+            s = fresh(name)                       # replays them from disk
+            rows, wall, card_peak = run(s, sql)
+            require(rows == cold and (want is None or rows == want),
+                    f"{name}: resident rows differ from the oracle:\n"
+                    f"{rows[:3]}\nvs\n{(want or [])[:3]}")
+            peak = s.executor.pool.peak
+            rec = {"resident": {"pool_peak": peak, "wall_s": wall,
+                                "card_peak_above_bytes": card_peak}}
+            for frac in (2, 4):
+                s = fresh(name, max(1, peak // frac))
+                k3n, k5n = ht.hash_insert_multi.launches, \
+                    k5.direct_group_aggregate_mxu.launches
+                p0 = SPILL_PARTITIONS.value()
+                got, wall, card_peak = run(s, sql)
+                st = s.executor.stats
+                spilled = (st.spilled_joins, st.spilled_aggregations,
+                           st.spilled_sorts)
+                sp = s.executor.spiller
+                require(got == rows, f"{name} at 1/{frac} of its peak "
+                        f"differs from its resident rows")
+                if frac == 4:
+                    require(sum(spilled) >= 1,
+                            f"{name} did not spill at 1/4 of its peak")
+                rec[f"1/{frac}"] = {
+                    "limit_bytes": s.executor.pool.limit,
+                    "pool_peak": s.executor.pool.peak, "wall_s": wall,
+                    "card_peak_above_bytes": card_peak,
+                    "spilled_joins_aggs_sorts": spilled,
+                    "partitions_spilled": SPILL_PARTITIONS.value() - p0,
+                    "bytes_spilled": sp.bytes_spilled if sp else 0,
+                    "disk_writes": sp.disk_writes if sp else 0,
+                    "k3_launches": ht.hash_insert_multi.launches - k3n,
+                    "k5_launches":
+                        k5.direct_group_aggregate_mxu.launches - k5n}
+            if grouped:
+                require(rec["1/4"]["k3_launches"] > 0, f"the spilled "
+                        f"GROUP BY l_orderkey ({name}) did not launch K3")
+            if name == "sumagg":
+                require(rec["1/4"]["k5_launches"] > 0, "the chunk-and-"
+                        "merge aggregate did not launch K5")
+            record["queries"][name] = rec
+            log(f"memory pressure {name}: " + json.dumps(rec, default=str))
+        recorder.capture = None
+        quarter = max(1, record["queries"]["join"]["resident"]["pool_peak"]
+                      // 4)
+        for label in ("forced disk", "chaos"):
+            s = fresh("join", quarter)
+            s.executor.spill_force_disk = True
+            spiller = get_spiller(s.executor)
+            require(spiller.root == tmp, "the spiller ignored "
+                    "TRINO_TPU_SPILL_DIR")
+            inj = None
+            if label == "chaos":
+                inj = FailureInjector()
+                inj.inject("SPOOL_WRITE", times=2, fault="RAISE")
+                inj.inject("SPOOL_WRITE", times=2, fault="CORRUPT")
+                spiller.injector = inj
+            rows, wall, _ = run(s, JOIN_Q)
+            require(rows == queries["join"][1], f"JOIN_Q ({label}) "
+                    f"differs from its resident rows")
+            require(spiller.disk_writes >= 1, f"{label}: no disk write")
+            if inj is not None:
+                require(spiller.write_recoveries >= 1 and
+                        inj.injected_count >= 1,
+                        "SPOOL_WRITE faults were not recovered")
+            record[label] = {"wall_s": wall,
+                             "disk_writes": spiller.disk_writes,
+                             "bytes_spilled": spiller.bytes_spilled,
+                             "write_recoveries": spiller.write_recoveries,
+                             "faults_injected":
+                                 inj.injected_count if inj else 0}
+        s = fresh("group")
+        s.execute("SET SESSION spill_enabled = false")
+        s.execute("SET SESSION query_max_memory_mb = 1")
+        try:
+            s.execute(GROUP_Q)
+            raised = False
+        except ExceededMemoryLimitError:
+            raised = True
+        require(raised, "spill disabled at 1 MiB did not raise")
+        s.execute("SET SESSION query_max_memory_mb = 65536")
+        require(s.execute(GROUP_Q).rows == queries["group"][1],
+                "the session did not answer again after the limit rose")
+        record["spill disabled"] = "raised ExceededMemoryLimitError, then " \
+            "answered at 64 GiB"
+    finally:
+        recorder.active, recorder.keep, recorder.capture = False, True, None
+        spill_mod.spill_aggregate = real_spill_aggregate
+        if old_dir is None:
+            os.environ.pop("TRINO_TPU_SPILL_DIR", None)
+        else:
+            os.environ["TRINO_TPU_SPILL_DIR"] = old_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    record["launches"] = launches
+    t_children = time.monotonic()
+    record["decision cache"] = _decision_children()
+    record["decision_children_s"] = time.monotonic() - t_children
+    record["phase_s"] = time.monotonic() - t_phase
+    log("memory pressure: " + json.dumps(record, default=str))
+    return launches
+
+
 K1_PATHS = ("big tiles", "small tiles")
+# the memory-pressure path's K3 captures (LaunchRecorder.capture)
+MEMORY_K3 = ("GROUP BY l_orderkey, whole input",
+             "GROUP BY l_orderkey, spilled partitions")
 # K3's call sites on the main paths (the innermost running one takes the
 # launch; a launch under none of them is "other hash aggregates")
 K3_SITES = {"star builds": "_multijoin_tables",
@@ -2309,6 +2650,10 @@ class LaunchRecorder:
         self.star_build = None    # the largest build_join_tables call
         self.k5 = None            # K5's largest launch: its public args
         self.k2 = None
+        # a label: count K3's launches under it and keep the largest (the
+        # memory-pressure path's resident and spilled aggregates)
+        self.capture = None
+        self.captured = {}        # label -> (largest launch, launches)
 
     def recording(self) -> bool:
         return self.active and self.keep
@@ -2377,6 +2722,12 @@ class LaunchRecorder:
             args = (key, mask, tid, planes, layout, nstates, T, G, pairs)
             if not self.active:
                 return real_k3(*args)
+            if self.capture is not None:
+                kept, n = self.captured.get(self.capture, (None, 0))
+                if kept is None or key.shape[0] * G > kept[0].shape[0] * \
+                        kept[7]:
+                    kept = args
+                self.captured[self.capture] = (kept, n + 1)
             site = self.k3_site[-1] if self.k3_site else \
                 "other hash aggregates"
             kept = self.k3.get(site)
@@ -2406,9 +2757,11 @@ def phase_timing(recorder, launches):
     require(None not in (recorder.k2, recorder.k4, recorder.k5,
                          recorder.star_build) and
             "star builds" in recorder.k3 and
-            set(recorder.k1) == set(K1_PATHS),
+            set(recorder.k1) == set(K1_PATHS) and
+            set(recorder.captured) == set(MEMORY_K3),
             f"a kernel's launch was not recorded on the main paths "
-            f"(K1: {sorted(recorder.k1)}, K3: {sorted(recorder.k3)})")
+            f"(K1: {sorted(recorder.k1)}, K3: {sorted(recorder.k3)}, "
+            f"memory pressure: {sorted(recorder.captured)})")
     require(sum(recorder.k1_launches.values()) == launches["K1"],
             "K1's launches per path do not add up")
     require(sum(recorder.k3_launches.values()) == launches["K3"],
@@ -2529,13 +2882,23 @@ def _time_k3(recorder):
         out.append(_k3_row("partitioned aggregates",
                            recorder.k3["partitioned aggregates"],
                            recorder.k3_launches["partitioned aggregates"]))
+    # the memory-pressure path's largest launches, resident and spilled
+    # (their launches are also in the per-site rows above)
+    for label in MEMORY_K3:
+        args, n = recorder.captured[label]
+        row = _k3_row(f"memory pressure, {label}", args, n)
+        row["note"] = "launches also counted in the per-site rows"
+        out.append(row)
     return out
 
 
 def _k3_row(what, args, launches, public=None):
     """K3's kernels-line row on one recorded launch: the kernel against
     its plain version (the groups of every table that did not escape, and
-    the interleaved {key, row id} table of a join build), timed; with
+    the interleaved {key, row id} table of a join build; a table where
+    only the plain version's row order ran a row out of probes against
+    the plain version over its rows in a table four times as large),
+    timed; with
     `public`, also the public call that made the launch, its torch prep
     included."""
     import torch
@@ -2553,18 +2916,37 @@ def _k3_row(what, args, launches, public=None):
     tk, st, cnt, pr = call()
     tk2, st2, cnt2, pr2 = plain()
     c, c2 = cnt.tolist(), cnt2.tolist()
-    compared = []
-    for t in range(G):
-        require((c[t][0] > 0) == (c2[t][0] > 0),
-                f"K3 ({what}) table {t}: escapes {c[t]} vs plain {c2[t]}")
-        if c[t][0]:
-            continue          # its slots depend on which racing row won
-        got = [_groups_by_key(tk[t], st[:, t])]
-        want = [_groups_by_key(tk2[t], st2[:, t])]
+
+    def groups(tk, st, pr, t):
+        out = [_groups_by_key(tk[t], st[:, t])]
         if pairs:
-            got.append(_groups_by_key(pr[t, :, 0], pr[t, :, 1][None]))
-            want.append(_groups_by_key(pr2[t, :, 0], pr2[t, :, 1][None]))
-        require(c[t][1] == c2[t][1] and all(
+            out.append(_groups_by_key(pr[t, :, 0], pr[t, :, 1][None]))
+        return out
+    compared, kernel_only, plain_only = [], [], []
+    for t in range(G):
+        if c[t][0]:
+            # discarded by the caller; its slots depend on which racing
+            # row won
+            if not c2[t][0]:
+                kernel_only.append(t)
+            continue
+        if c2[t][0]:
+            # which rows run out of probes depends on the order of
+            # insertion: the kernel placed every row where the plain
+            # version's row order did not, so hold the kernel against
+            # the plain version over this table's rows in a table four
+            # times as large, where no row escapes
+            rows = mask & (tid == t) if tid is not None else mask
+            tk3, st3, cnt3, pr3 = ht.hash_insert_multi_plain(
+                key, rows, planes, layout, ns, 4 * T, 1, None, pairs)
+            require(int(cnt3[0, 0]) == 0, f"K3 ({what}) table {t}: the "
+                    f"plain version escaped at four times the slots")
+            want, want_occ = groups(tk3, st3, pr3, 0), int(cnt3[0, 1])
+            plain_only.append(t)
+        else:
+            want, want_occ = groups(tk2, st2, pr2, t), c2[t][1]
+        got = groups(tk, st, pr, t)
+        require(c[t][1] == want_occ and all(
             torch.equal(a, b) for a, b in zip(got, want)),
             f"K3 ({what}) table {t} differs from plain")
         compared += zip(got, want)
@@ -2582,6 +2964,8 @@ def _k3_row(what, args, launches, public=None):
         f"{sum(x[1] for x in c)} escaped tables "
         f"{sum(1 for x in c if x[0] > 0)}, {G - sum(1 for x in c if x[0])}"
         f" tables compared with plain{' (groups and pairs)' if pairs else ''}"
+        f"; by insertion order, escapes of the kernel alone in tables "
+        f"{kernel_only} and of the plain version alone in {plain_only}"
         f"; kernel {ms:.4f} ms, host {host:.4f} ms per call, plain "
         f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms (bytes: "
         f"inputs read once, tables written once)")
@@ -2591,7 +2975,9 @@ def _k3_row(what, args, launches, public=None):
            "launches": launches, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes", "library_ms": None, "host_ms": host,
-           "rows": n, "tables": G}
+           "rows": n, "tables": G,
+           "escaped_kernel_only": len(kernel_only),
+           "escaped_plain_only": len(plain_only)}
     if public is not None:
         row["call_ms"] = time_cuda(public)
         row["call_device_ms"], method, parts = device_time(public)
@@ -2915,6 +3301,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))    # the query texts
     dev = torch.device("cuda")
+    # no decisions on disk at the start: the phases after the first
+    # statement replay only what this run recorded
+    remove_decision_file()
     smi = phase_card()
     phase_k1(dev)
     phase_k2(dev)
@@ -2932,7 +3321,8 @@ def main() -> int:
                               ds_walls),
              phase_stream_build(recorder, session),
              phase_corpus_paths(recorder, session, tables, ds_session),
-             phase_write_path(recorder, session)]
+             phase_write_path(recorder, session),
+             phase_memory_pressure(recorder, session, tables)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -832,3 +832,50 @@ def test_pruned_file_scan_on_card_equals_cpu(tmp_path, fmt):
     st = cold.executor.stats
     assert (st.pruned_decodes, st.pruned_groups_skipped,
             st.pruned_decode_fallbacks) == (1, 7, 0)
+
+
+def test_spilled_operators_on_card_equal_cpu(tmp_path, monkeypatch):
+    """JOIN_Q, GROUP BY l_orderkey (its 20 largest groups, and every
+    group), the four-group sums under mxu_agg and a TopN at tpch.tiny,
+    each at a quarter of its resident pool peak: the card's spilled rows
+    and spill counters equal the CPU's, every query spills, K3 launches in
+    the spilled GROUP BYs and K5 in the chunk-and-merge aggregate."""
+    from spill_queries import GROUP_ALL_Q, GROUP_Q, JOIN_Q, SORT_Q, SUMAGG_Q
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.ops import direct_agg as k5
+    _card()
+    monkeypatch.setenv("TRINO_TPU_SPILL_DIR", str(tmp_path))
+    # cold decisions in every session, as in tests/conftest.py: a replayed
+    # JOIN_Q needs 1,013,760 bytes, and a quarter of that rounds up to the
+    # session's 1 MiB
+    monkeypatch.setenv("TRINO_TPU_DECISION_CACHE", "0")
+    queries = {"join": JOIN_Q, "group": GROUP_Q, "group_all": GROUP_ALL_Q,
+               "sumagg": SUMAGG_Q, "sort": SORT_Q}
+    for name, sql in queries.items():
+        out = {}
+        for device in ("cpu", "cuda"):
+            s = Session(device=device)
+            if name == "sumagg":
+                s.execute("SET SESSION mxu_agg = 'true'")
+            resident = s.execute(sql).rows
+            limit = max(1, s.executor.pool.peak // 4)
+            s = Session(device=device)
+            if name == "sumagg":
+                s.execute("SET SESSION mxu_agg = 'true'")
+            s.executor.pool.set_limit(limit)
+            s.properties["query_max_memory_mb"] = max(1, limit >> 20)
+            k3 = ht.hash_insert_multi.launches
+            k5n = k5.direct_group_aggregate_mxu.launches
+            rows = s.execute(sql).rows
+            torch.cuda.synchronize()
+            st = s.executor.stats
+            spilled = (st.spilled_joins, st.spilled_aggregations,
+                       st.spilled_sorts)
+            assert rows == resident, (name, device)
+            assert sum(spilled) >= 1, (name, device)
+            if device == "cuda" and name in ("group", "group_all"):
+                assert ht.hash_insert_multi.launches > k3
+            if device == "cuda" and name == "sumagg":
+                assert k5.direct_group_aggregate_mxu.launches > k5n
+            out[device] = (rows, spilled)
+        assert out["cuda"] == out["cpu"], name

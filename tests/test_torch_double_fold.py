@@ -8,7 +8,13 @@ constant factors into one, in an order set by its simplifier's passes.
 The port folds the same factor on the host. Expressions run over
 `tpch.tiny` through both Sessions; rows are compared as the bytes of
 their doubles (no tolerance), and the window sum over a folded product
-as the reference's rows."""
+as the reference's rows. Long chains (up to six factors), chains through
+`round()`, a chain across two projections of one fused chunk program, and
+a seeded battery of random chains over a DECIMAL(12,2), a DOUBLE and a
+BIGINT column hold the port's replay of the simplifier
+(`ops/project._fold_factor`) to the reference's compiled bits."""
+
+import random
 
 import numpy as np
 import pytest
@@ -16,9 +22,11 @@ import torch
 
 from test_tpch_queries import TPCH_TABLES
 from trino_tpu.catalog import Catalog as JaxCatalog
+from trino_tpu.connectors.memory import MemoryConnector as JaxMemory
 from trino_tpu.connectors.tpch.connector import TpchConnector
 from trino_tpu.exec.session import Session as JaxSession
 from trino_tpu_torch.catalog import catalog_from_tables
+from trino_tpu_torch.connectors.memory import MemoryConnector
 from trino_tpu_torch.exec.session import Session
 
 # pytest-xdist runs one process per core: one torch thread each keeps
@@ -26,17 +34,36 @@ from trino_tpu_torch.exec.session import Session
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def sessions():
-    conn = TpchConnector()
-    tables = {t: conn.get_table("tiny", t) for t in TPCH_TABLES}
+def _make_sessions(tables):
     jconn = TpchConnector()
     jconn._cache[0.01] = dict(tables)
     jcat = JaxCatalog()
     jcat.register("tpch", jconn)
+    jcat.register("memory", JaxMemory())
+    tcat = catalog_from_tables(tables)
+    tcat.register("memory", MemoryConnector())
     return (JaxSession(jcat, default_schema="tiny"),
-            Session(catalog_from_tables(tables), default_schema="tiny",
-                    device="cpu"))
+            Session(tcat, default_schema="tiny", device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def tables():
+    conn = TpchConnector()
+    return {t: conn.get_table("tiny", t) for t in TPCH_TABLES}
+
+
+@pytest.fixture(scope="module")
+def sessions(tables):
+    js, ts = _make_sessions(tables)
+    # a table with a DECIMAL(12,2), a DOUBLE and a BIGINT column for the
+    # random chains (the DOUBLE is stored, so a chain over it starts at a
+    # plain double, not at a cast)
+    for s in (js, ts):
+        s.execute("CREATE TABLE memory.s.fold AS SELECT l_orderkey AS k, "
+                  "l_linenumber AS n, l_extendedprice AS p, "
+                  "CAST(l_extendedprice AS double) + 0.25 AS d "
+                  "FROM lineitem WHERE l_orderkey <= 1200")
+    return js, ts
 
 
 def _bits(rows):
@@ -89,3 +116,73 @@ def test_comparison_with_a_decimal_literal(sessions):
     sql = ("SELECT count(*) FROM lineitem WHERE "
            "CAST(l_quantity AS double) * 0.1 > 1.1")
     assert ts.execute(sql).rows == js.execute(sql).rows
+
+
+# ROADMAP Queue C 1's long chains: four and more literal factors (a
+# decimal's scale counted as one), and chains through round()
+LONG_CHAINS = [
+    "((((CAST(l_orderkey AS double)) * 13) * 1.1) * 0.07) / 9.75",
+    "(0.07 * (1.3 * (CAST(l_extendedprice AS double) / 0.3))) / 17",
+    "((CAST(l_extendedprice AS double) / 0.07) * 6) * 0.01",
+    "round(CAST(l_extendedprice AS double) * 1.1 / 7, 2) * 3",
+    "((l_extendedprice / 0.07) * 6) * 0.01",
+    "(((CAST(l_extendedprice AS double) * 0.01) / 1.7) * 7) * 0.7",
+    "((((CAST(l_quantity AS double) / 9.75) * 0.7) * 0.05) / 3) * 11",
+    "round(CAST(l_extendedprice AS double) / 7, 1)",
+    "round(CAST(l_extendedprice AS double) * 1.1, 0) / 3",
+    "CAST(CAST(l_extendedprice AS double) * 1.1 / 7 AS decimal(12,2))",
+]
+
+
+@pytest.mark.parametrize("expr", LONG_CHAINS)
+def test_long_chains_equal_reference_bits(sessions, expr):
+    js, ts = sessions
+    sql = f"SELECT l_orderkey, l_linenumber, {expr} FROM lineitem"
+    got, want = ts.execute(sql).rows, js.execute(sql).rows
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    if isinstance(want[0][-1], float):
+        assert _bits(got) == _bits(want)
+    else:
+        assert got == want
+
+
+def test_chain_across_two_projections_in_a_fused_chunk(tables):
+    """The reference compiles the whole per-chunk path as one program, so
+    a subquery's quotient and the product outside it fold as one chain;
+    the port's fused chunk program inlines the inner projection."""
+    js, ts = _make_sessions(tables)
+    for s in (js, ts):
+        s.execute("SET SESSION spill_chunk_rows = 8192")
+    sql = ("SELECT l_returnflag, max(y * 0.07 / 3), min(y * 13) FROM ("
+           "SELECT l_returnflag, CAST(l_extendedprice AS double) / 9.75 "
+           "AS y FROM lineitem WHERE l_quantity > 5) t "
+           "GROUP BY l_returnflag ORDER BY l_returnflag")
+    got, want = ts.execute(sql).rows, js.execute(sql).rows
+    assert ts.executor.stats.fused_chunk_pipelines >= 1
+    assert got == want
+    assert np.array([r[1:] for r in got]).tobytes() == \
+        np.array([r[1:] for r in want]).tobytes()
+
+
+def _random_chains(seed: int, n: int):
+    rng = random.Random(seed)
+    bases = ["CAST(p AS double)", "d", "CAST(k AS double)"]
+    lits = ["13", "1.1", "0.07", "9.75", "0.3", "1.3", "17", "6", "0.01",
+            "7", "3", "0.7", "2.5", "11", "0.05", "1.7", "100", "0.125"]
+    out = []
+    for _ in range(n):
+        e = rng.choice(bases)
+        for _ in range(rng.randint(2, 6)):
+            op, c = rng.choice(["*", "/", "l*"]), rng.choice(lits)
+            e = f"({c} * {e})" if op == "l*" else f"({e} {op} {c})"
+        out.append(e)
+    return out
+
+
+@pytest.mark.parametrize("expr", _random_chains(9, 64))
+def test_random_chain_equals_reference_bits(sessions, expr):
+    js, ts = sessions
+    sql = f"SELECT k, n, {expr} FROM memory.s.fold"
+    got, want = ts.execute(sql).rows, js.execute(sql).rows
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    assert _bits(got) == _bits(want)

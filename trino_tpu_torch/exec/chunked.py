@@ -34,6 +34,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import ir
 from ..batch import (Batch, Column, batch_from_numpy, batch_to_numpy,
                      bucket_capacity, torch_dtype)
 from ..planner import logical as L
@@ -180,7 +181,7 @@ def compile_fused_chunk(executor, target: L.PlanNode, driver: L.ScanNode,
                                  global_aggregate)
     from ..ops.join import (compact_live, dense_join_packed,
                             dense_join_packed_windowed, dense_join_with_lut)
-    from ..ops.project import apply_filter, filter_project
+    from ..ops.project import apply_filter, project
 
     joins: List[L.JoinNode] = []
     windows = (adapt or {}).get("windows", {})
@@ -197,26 +198,21 @@ def compile_fused_chunk(executor, target: L.PlanNode, driver: L.ScanNode,
             return lambda chunk, builds, luts, gp: (chunk, {
                 "escaped": zero(chunk), "overflow": zero(chunk),
                 "joins": []})
-        if isinstance(node, L.FilterNode):
-            child = emit(node.child)
+        if isinstance(node, (L.FilterNode, L.ProjectNode)):
+            base, preds, exprs = _compose_segment(executor, node, driver)
+            child = emit(base)
             if child is None:
                 return None
-            pred = executor.fold_scalars(node.predicate)
 
-            def run_filter(chunk, b, lt, g, _child=child, _pred=pred):
+            def run_segment(chunk, b, lt, g, _child=child, _preds=preds,
+                            _exprs=exprs):
                 bt, st = _child(chunk, b, lt, g)
-                return apply_filter(bt, _pred), st
-            return run_filter
-        if isinstance(node, L.ProjectNode):
-            child = emit(node.child)
-            if child is None:
-                return None
-            exprs = executor.fold_scalars_tuple(node.exprs)
-
-            def run_project(chunk, b, lt, g, _child=child, _exprs=exprs):
-                bt, st = _child(chunk, b, lt, g)
-                return filter_project(bt, None, _exprs), st
-            return run_project
+                for pred in _preds:
+                    bt = apply_filter(bt, pred)
+                if _exprs is not None:
+                    bt = project(bt, _exprs)
+                return bt, st
+            return run_segment
         if isinstance(node, L.JoinNode):
             if not _fused_join_ok(node):
                 return None
@@ -297,6 +293,35 @@ def compile_fused_chunk(executor, target: L.PlanNode, driver: L.ScanNode,
             parts.extend((span, live, zero(chunk)))
         return out, torch.stack(parts)
     return fn, joins
+
+
+def _compose_segment(executor, node: L.PlanNode, driver: L.ScanNode):
+    """A chain of Filter and Project nodes as (base, predicates, exprs):
+    the predicates, then the projection (None: none), over the base's
+    columns. The reference compiles the whole per-chunk path as one
+    program, so XLA sees a DOUBLE chain that spans two projections whole
+    and folds its factors as one (ops/project.py `_fold_factor`); the
+    port inlines each projection into the nodes above it to do the
+    same."""
+    segment = []
+    while isinstance(node, (L.FilterNode, L.ProjectNode)) and \
+            node is not driver:
+        segment.append(node)
+        node = node.child
+    preds, exprs = [], None
+
+    def inline(e):
+        if exprs is None:
+            return e
+        return ir.transform(e, lambda x: exprs[x.index]
+                            if isinstance(x, ir.ColumnRef) else None)
+    for n in reversed(segment):
+        if isinstance(n, L.FilterNode):
+            preds.append(inline(executor.fold_scalars(n.predicate)))
+        else:
+            exprs = tuple(inline(e) for e in
+                          executor.fold_scalars_tuple(n.exprs))
+    return node, preds, exprs
 
 
 def _key_span(batch: Batch, keys: tuple):
@@ -446,8 +471,7 @@ def _fused_adaptation(executor, skey, spine, specs, chunk_cap):
     measures)."""
     if skey is None:
         return None
-    rec = executor._decision_cache.get(
-        ("fusedadapt", skey, executor._decision_salt()))
+    rec = executor.decision(("fusedadapt", skey, executor._decision_salt()))
     if rec is None or len(rec) != 2 * len(spine):
         return None
     allow_compact = executor.enable_adapt_compact
@@ -481,7 +505,8 @@ def _verify_record_adaptation(executor, skey, adapt, chunk_stats) -> bool:
     re-measures)."""
     key = ("fusedadapt", skey, executor._decision_salt()) \
         if skey is not None else None
-    if adapt is None and (key is None or key in executor._decision_cache):
+    if adapt is None and (key is None or
+                          executor.decision(key) is not None):
         return True      # nothing to verify or record: skip the sync
     stk = torch.stack(chunk_stats)
     esc = stk[:, 0].sum()
@@ -501,10 +526,10 @@ def _verify_record_adaptation(executor, skey, adapt, chunk_stats) -> bool:
         # re-measures (an adapted rerun from these numbers could loop —
         # escaped rows depress the live measurement)
         if key is not None:
-            executor._decision_cache.pop(key, None)
+            executor.drop_decision(key)
         return False
     if adapt is None and key is not None:
-        executor._decision_cache[key] = tuple(measured)
+        executor.record_decision(key, tuple(measured))
     return True
 
 

@@ -24,16 +24,24 @@ pruned decode when the predicate allows (`_scan_table_data`); writes run
 in the session, and `invalidate_scan_cache` drops every cached copy of a
 table after one. Plan nodes outside the port (remote sources, the
 distributed write stage) raise NotImplementedError naming the ROADMAP
-item that ports them; a query over the memory limit fails (the
-host-spill tier is not ported).
+item that ports them.
+
+Memory pressure (``exec/memory.py``, ``exec/spill.py``): every node's
+output is reserved in the query's pool; a join, star, aggregation or
+sort whose reservation does not fit retries partition-wise through the
+host-spill tier (`_spill_retry`), unless `enable_spill` is off or the
+low-memory killer has ruled (`request_kill`).
 
 The kernel gates (`auto` for K1, K3, K4 and K5) model the TPU's decision
 on every device, so the port takes the same strategies on the CPU as the
 reference does on a TPU.
 
-The decision cache (runtime decision values keyed by plan structure) is
-in memory only. `fetch_ints` is the host sync point: one
-``torch.stack(...).tolist()`` per call, none in chunk mode's loop.
+The decision cache (runtime decision values keyed by plan structure)
+persists to ``decisions_torch.pkl`` under the data cache's root, so a
+fresh process replays a previous run's decisions (the reference's
+``decisions.pkl`` holds values of another shape and is never read).
+`fetch_ints` is the host sync point: one ``torch.cat(...).tolist()`` per
+call, none in chunk mode's loop.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import os
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -100,7 +109,13 @@ class ExecStats:
     escaped_window_reruns: int = 0   # adapted fused runs whose window or
                                      # compaction guess failed (plain rerun)
     compaction_overflows: int = 0    # in-program compaction capacity hit
-    spilled_aggregations: int = 0    # partial states moved to host pages
+    spilled_joins: int = 0           # joins retried through host-spill
+                                     # radix partitioning (exec/spill.py)
+    spilled_aggregations: int = 0    # aggregations/partial states spilled
+    spilled_sorts: int = 0           # sorts retried on host (TopN under
+                                     # pressure)
+    decision_hits: int = 0           # fetch_ints answered by the
+                                     # decision cache (no device sync)
     scan_chunks_skipped: int = 0     # chunks skipped whole by zone maps
     scan_prefetched_chunks: int = 0  # chunks served from the prefetch
                                      # pipeline's staging
@@ -117,6 +132,19 @@ class QueryDeadlineError(RuntimeError):
     """query_max_run_time_s exceeded (QUERY_MAX_RUN_TIME's role)."""
     error_name = "QUERY_EXCEEDED_RUN_TIME"
     error_code = 4
+
+
+class QueryTerminatedError(RuntimeError):
+    """request_cancel() asked the running query to stop; the executor
+    raises this at the next cooperative check point (plan-node, chunk,
+    spill-partition, or prefetch boundary). Carries USER_CANCELED
+    taxonomy."""
+    error_name = "USER_CANCELED"
+    error_code = 2
+
+
+# serializes ExecStats -> metrics snapshot diffs across threads
+_FLUSH_LOCK = threading.Lock()
 
 
 def _not_ported(what: str, item: str):
@@ -158,9 +186,17 @@ class Executor:
         self.pool = MemoryPool(parse_bytes(env_limit) if env_limit
                                else (64 << 30))
         self._node_bytes: Dict[int, int] = {}
+        # host-spill survival chain (exec/spill.py): when a join/agg/sort
+        # reservation cannot fit even after revocation, the operator
+        # retries partition-wise through the host/disk tier
+        self.enable_spill = True
+        self.spill_partitions = 8
+        self.spill_force_disk = False     # tests/chaos: all spills to disk
+        self.spiller = None               # lazy HostSpiller
+        self._kill_reason: Optional[str] = None    # low-memory killer
+        self._cancel_reason: Optional[str] = None  # request_cancel()
         # bounded-memory chunked executor (exec/chunked.py); None = off
         self.spill_chunk_rows: Optional[int] = None
-        self.spill_partitions = 8
         # chunked-driver prefetch pipeline depth: how many decoded chunks
         # may sit ahead of the device (0 = the serial loop)
         self.prefetch_depth = 2
@@ -229,9 +265,13 @@ class Executor:
         self._scan_cache_bytes: Dict[tuple, int] = {}
         self._scan_prune_info: Dict[tuple, str] = {}
         self.stream_build_bytes: Optional[int] = None
-        # cross-run DECISION cache (in memory): data-dependent host
-        # decisions of deterministic subtrees, keyed by structure
+        # cross-run DECISION cache: data-dependent host decisions of
+        # deterministic subtrees, keyed by structure. It persists to disk
+        # (keys are sha256 wire-form hashes, stable across processes), so
+        # a fresh process replays a previous run's decisions
         self._decision_cache: Dict[tuple, tuple] = {}
+        self._decision_dirty = False
+        self._decision_loaded = False
         self._skey_memo: Dict[int, tuple] = {}
 
     # ------------------------------------------------------------------
@@ -250,16 +290,34 @@ class Executor:
             freed += b
         return freed
 
+    def request_kill(self, reason: str) -> None:
+        """The low-memory killer's hook: the next plan-node boundary
+        raises MemoryKilledError (surfaced as QUERY_EXCEEDED_MEMORY)."""
+        self._kill_reason = reason
+
+    def request_cancel(self, reason: str) -> None:
+        """Cancellation's hook: the next cooperative check point raises
+        QueryTerminatedError."""
+        self._cancel_reason = reason
+
     def check_cancel(self) -> None:
-        """Deadline check between plan nodes and between driver chunks."""
+        """Cooperative kill/cancel/deadline check, called between plan
+        nodes (run()), between driver chunks (exec/chunked.py), between
+        spill partitions (exec/spill.py), and by the prefetch pipeline."""
+        if self._kill_reason is not None:
+            from .memory import MemoryKilledError
+            raise MemoryKilledError(self._kill_reason)
+        if self._cancel_reason is not None:
+            raise QueryTerminatedError(self._cancel_reason)
         if self.deadline is not None and time.monotonic() > self.deadline:
             raise QueryDeadlineError("query exceeded query_max_run_time_s")
 
     @contextlib.contextmanager
     def no_decisions(self):
         """Bypass the cross-run decision cache inside the block: a star's
-        degraded hop runs a synthesized join over batches its structure
-        key does not describe, so cached counts would poison replay."""
+        degraded hop and the spill paths run a plan node over batches its
+        structure key does not describe (a synthesized join, one
+        partition's rows), so cached counts would poison replay."""
         self._no_decisions += 1
         try:
             yield
@@ -284,9 +342,32 @@ class Executor:
         # costs nothing and removes any doubt after DML
         self._decision_cache.clear()
 
+    def flush_metrics(self) -> None:
+        """Mirror ExecStats deltas since the last flush into the process
+        metrics registry (trino_tpu_exec_events_total{event=...}).
+        ExecStats stays the cumulative in-object view; the registry gets
+        increments. Guarded by its own lock, never the query's."""
+        import dataclasses
+
+        from ..metrics import EXEC_EVENTS, OPERATOR_ROWS
+        with _FLUSH_LOCK:
+            cur = {k: v for k, v in dataclasses.asdict(self.stats).items()
+                   if isinstance(v, int)}
+            prev = getattr(self, "_stats_flushed", {})
+            for k, v in cur.items():
+                d = v - prev.get(k, 0)
+                if d:
+                    EXEC_EVENTS.inc(d, event=k)
+            d = cur["rows_scanned"] - prev.get("rows_scanned", 0)
+            if d:
+                OPERATOR_ROWS.inc(d, operator="scan")
+            self._stats_flushed = cur
+
     def execute(self, root: L.OutputNode) -> Batch:
         if not isinstance(root, L.OutputNode):
             raise TypeError("execute takes an OutputNode")
+        self._kill_reason = None
+        self._cancel_reason = None
         self.strategy_decisions = {}
         for b in self._node_bytes.values():
             self.pool.free(b)
@@ -294,25 +375,38 @@ class Executor:
         self._subst.clear()
         self._subst_opaque.clear()
         self._skey_memo.clear()
-        if self.spill_chunk_rows:
-            from .chunked import execute_chunked
-            out = execute_chunked(self, root)
-            if out is not None:
-                return out
-        return self.run(root.child)
+        try:
+            if self.spill_chunk_rows:
+                from .chunked import execute_chunked
+                out = execute_chunked(self, root)
+                if out is not None:
+                    return out
+            return self.run(root.child)
+        finally:
+            self.save_decisions()
 
     def run(self, node: L.PlanNode) -> Batch:
         sub = self._subst.get(id(node))
         if sub is not None:
             return sub
         self.check_cancel()
-        from .memory import batch_bytes
-        out = self._dispatch_timed(node)
+        from .memory import (ExceededMemoryLimitError, MemoryKilledError,
+                             batch_bytes)
+        try:
+            out = self._dispatch_timed(node)
+            b = batch_bytes(out)
+            self.pool.reserve(b)
+        except MemoryKilledError:
+            raise                         # the killer's verdict is final
+        except ExceededMemoryLimitError:
+            # memory-pressure survival: joins, aggregations and sorts
+            # retry through the host-spill radix partitioner; anything
+            # else fails cleanly as QUERY_EXCEEDED_MEMORY
+            out = self._spill_retry(node)
+            b = batch_bytes(out)
+            self.pool.reserve(b)
         # memory accounting: reserve this node's output, release the
-        # children's. Over the limit this raises (the host-spill tier
-        # that retries partition-wise is not ported).
-        b = batch_bytes(out)
-        self.pool.reserve(b)
+        # children's (their batches die once the parent has consumed them)
         self._node_bytes[id(node)] = b
         for c in L.children(node):
             if id(c) in self._subst:
@@ -320,9 +414,47 @@ class Executor:
             self.pool.free(self._node_bytes.pop(id(c), 0))
         return out
 
+    def _spill_retry(self, node: L.PlanNode) -> Batch:
+        """Retry a memory-failed Join/MultiJoin/Aggregate/Sort
+        partition-wise through the host-spill tier (exec/spill.py). The
+        innermost failing operator spills first; if its shape is
+        unsupported, the original error propagates so an enclosing
+        operator (or the query boundary) handles it."""
+        if not self.enable_spill or \
+                not isinstance(node, (L.JoinNode, L.MultiJoinNode,
+                                      L.AggregateNode, L.SortNode)):
+            raise
+        # drop this subtree's partial reservations from the failed
+        # attempt; the spill path re-executes the children bounded
+        self.release_path_reservations(node, keep=self._subst)
+        from .spill import spill_aggregate, spill_join, spill_sort
+        if isinstance(node, L.MultiJoinNode):
+            # the spill tier partitions pairwise joins: reconstruct the
+            # exact ladder the star fused and spill its top hop
+            self._note_multijoin_degrade("spill", len(node.dims))
+            out = spill_join(self, L.multijoin_to_ladder(node))
+        elif isinstance(node, L.JoinNode):
+            out = spill_join(self, node)
+        elif isinstance(node, L.AggregateNode):
+            out = spill_aggregate(self, node)
+        else:
+            out = spill_sort(self, node)
+        if out is None:
+            raise
+        return out
+
     def _dispatch_timed(self, node: L.PlanNode) -> Batch:
         if not self.profile:
-            return self.dispatch(node)
+            # always-on operator metrics: host dispatch wall only (the
+            # card's work stays asynchronous)
+            from ..metrics import OPERATOR_DISPATCHES, OPERATOR_WALL_MS
+            t0 = time.monotonic()
+            out = self.dispatch(node)
+            op = type(node).__name__
+            OPERATOR_DISPATCHES.inc(operator=op)
+            OPERATOR_WALL_MS.inc((time.monotonic() - t0) * 1000,
+                                 operator=op)
+            return out
         sync = torch.cuda.synchronize if self.device.type == "cuda" \
             else (lambda: None)
         sync()
@@ -352,6 +484,86 @@ class Executor:
                 self.hash_table_slots, self.multiway_mode() != "off",
                 self.multiway_vmem_kb)
 
+    # the port's own file: its fetch_ints values are shaped differently
+    # from the reference's (a tensor gives all of its elements), and
+    # replaying the reference's counts would hide a fault of the port
+    _DECISION_CACHE_FILE = "decisions_torch.pkl"
+
+    def _decision_path(self) -> Optional[str]:
+        if os.environ.get("TRINO_TPU_DECISION_CACHE") == "0":
+            return None
+        from ..connectors.diskcache import cache_root
+        return os.path.join(cache_root(), self._DECISION_CACHE_FILE)
+
+    def _load_decisions(self) -> None:
+        """Merge the on-disk decision cache in (once per executor).
+        Entries exist only for immutable generator catalogs, so merging
+        stale files is safe; corruption just means a cold start."""
+        self._decision_loaded = True
+        path = self._decision_path()
+        if path is None or not os.path.isfile(path):
+            return
+        import pickle
+        try:
+            with open(path, "rb") as f:
+                disk = pickle.load(f)
+            for k, v in disk.items():
+                self._decision_cache.setdefault(k, v)
+        except Exception:
+            pass
+
+    # on-disk entry cap: this session's entries always survive; older
+    # disk entries backfill up to the cap so the file can't grow without
+    # bound across workloads
+    _DECISION_FILE_MAX = 65536
+
+    def save_decisions(self) -> None:
+        """Persist new decision values (atomic tmp+rename; merge with
+        any concurrent writer's file first). The dirty flag clears only
+        after a successful write so transient disk failures retry."""
+        if not self._decision_dirty:
+            return
+        path = self._decision_path()
+        if path is None:
+            self._decision_dirty = False
+            return
+        import pickle
+        try:
+            merged = dict(self._decision_cache)
+            if os.path.isfile(path):
+                with open(path, "rb") as f:
+                    for k, v in pickle.load(f).items():
+                        if len(merged) >= self._DECISION_FILE_MAX:
+                            break
+                        merged.setdefault(k, v)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + f".tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
+                pickle.dump(merged, f)
+            os.replace(tmp, path)
+            self._decision_dirty = False
+        except Exception:
+            pass
+
+    def decision(self, key: tuple):
+        """The decision cache's value for `key`, or None; the file on disk
+        is merged in on the first lookup."""
+        if not self._decision_loaded:
+            self._load_decisions()
+        return self._decision_cache.get(key)
+
+    def record_decision(self, key: tuple, value: tuple) -> None:
+        """Record a decision value; `execute()` saves it to disk if it is
+        new (a steady run that measures the same value writes nothing)."""
+        if self._decision_cache.get(key) != value:
+            self._decision_cache[key] = value
+            self._decision_dirty = True
+
+    def drop_decision(self, key: tuple) -> None:
+        """Forget a stale decision value, on disk too at the next save."""
+        if self._decision_cache.pop(key, None) is not None:
+            self._decision_dirty = True
+
     def decisions_cacheable(self, node) -> bool:
         """May `node`'s runtime decision values go through the decision
         cache? Chunk mode bypasses (the driver chunk differs per
@@ -376,8 +588,9 @@ class Executor:
             skey = self.memo_structure_key(node)
             if skey is not None:
                 key = (tag, skey, self._decision_salt())
-                hit = self._decision_cache.get(key)
+                hit = self.decision(key)
                 if hit is not None:
+                    self.stats.decision_hits += 1
                     return hit
         out = tuple(int(v) for v in torch.cat(
             [_int_words(torch.as_tensor(v, device=self.device))
@@ -385,7 +598,7 @@ class Executor:
         if key is not None:
             if len(self._decision_cache) >= 4096:
                 self._decision_cache.clear()
-            self._decision_cache[key] = out
+            self.record_decision(key, out)
         return out
 
     def run_cached_build(self, node: L.PlanNode) -> Batch:
@@ -418,6 +631,14 @@ class Executor:
         self._build_cache[key] = out
         self._build_cache_bytes[key] = b
         return out
+
+    def release_all_reservations(self) -> None:
+        """Free every per-node reservation (a caller that runs plan nodes
+        without execute()'s per-query cleanup would otherwise leak their
+        bytes and starve later queries under a small pool)."""
+        for b in self._node_bytes.values():
+            self.pool.free(b)
+        self._node_bytes.clear()
 
     def release_path_reservations(self, node: L.PlanNode, keep) -> None:
         """Free the reservations of `node`'s subtree (chunked mode: the
@@ -785,18 +1006,21 @@ class Executor:
     def _known_groups(self, node: L.AggregateNode) -> Optional[int]:
         """The group count a previous run of this aggregate measured
         (decision cache), or None."""
+        if not self.decisions_cacheable(node):
+            return None
         skey = self.memo_structure_key(node)
         if skey is None:
             return None
-        hit = self._decision_cache.get(("aggfinal", skey,
-                                        self._decision_salt()))
+        hit = self.decision(("aggfinal", skey, self._decision_salt()))
         return None if hit is None else hit[0]
 
     def _record_groups(self, node: L.AggregateNode, n_groups: int) -> None:
+        if not self.decisions_cacheable(node):
+            return
         skey = self.memo_structure_key(node)
         if skey is not None:
-            self._decision_cache[("aggfinal", skey,
-                                  self._decision_salt())] = (n_groups,)
+            self.record_decision(("aggfinal", skey, self._decision_salt()),
+                                 (n_groups,))
 
     def aggregate_batch(self, node: L.AggregateNode, child: Batch, aggs):
         """One partial aggregation (the PARTIAL step)."""

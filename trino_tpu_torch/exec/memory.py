@@ -1,5 +1,5 @@
-"""Port copy of ``trino_tpu/exec/memory.py`` (process-metrics calls dropped;
-batch_bytes counts torch tensors).
+"""Port copy of ``trino_tpu/exec/memory.py`` (batch_bytes counts torch
+tensors).
 
 Memory accounting: pool + hierarchical contexts + revocation.
 
@@ -134,8 +134,9 @@ class MemoryPool:
     # -- user reservations -------------------------------------------------
 
     def _gauges(self) -> None:
-        # port: the process metrics registry is not ported
-        return
+        from ..metrics import MEMORY_RESERVED, MEMORY_REVOCABLE
+        MEMORY_RESERVED.set(self.reserved, pool=self.name)
+        MEMORY_REVOCABLE.set(self.revocable, pool=self.name)
 
     def reserve(self, bytes_: int, tag: Optional[str] = None) -> None:
         tag = self._current_tag if tag is None else tag
@@ -257,6 +258,8 @@ class MemoryPool:
             cbs = list(self._revocation_cbs.values())
             before = self.revocable
             self.revocations_requested += 1
+        from ..metrics import MEMORY_REVOCATIONS
+        MEMORY_REVOCATIONS.inc()
         freed = 0
         for _tag, cb in cbs:
             if freed >= target_bytes:
@@ -296,6 +299,8 @@ class MemoryPool:
     def _accounting_error(self, msg: str) -> None:
         # called under self._lock
         self.accounting_errors += 1
+        from ..metrics import MEMORY_ACCOUNTING_ERRORS
+        MEMORY_ACCOUNTING_ERRORS.inc()
         if self.strict:
             raise MemoryAccountingError(f"pool {self.name}: {msg}")
 

@@ -35,6 +35,12 @@ makes a new table object and drops the executor's cached scans, fact
 columns and decisions (`Executor.invalidate_scan_cache`).
 ``distributed`` must stay false: it raises NotImplementedError naming
 its ROADMAP item.
+
+``query_max_memory_mb`` bounds each query's pool; a join, aggregation or
+sort over it spills partition-wise to host RAM and disk
+(``TRINO_TPU_SPILL_DIR``) unless ``spill_enabled`` is false, and then
+the query raises ExceededMemoryLimitError. Every statement ends by
+flushing the executor's counters into the process metrics registry.
 """
 
 from __future__ import annotations
@@ -296,6 +302,7 @@ class Session:
         ex.enable_zone_map_pruning = \
             self.properties["enable_zone_map_pruning"]
         ex.zone_map_rows = max(1, self.properties["zone_map_rows"])
+        ex.enable_spill = self.properties["spill_enabled"]
         ex.spill_partitions = self.properties["spill_partitions"]
         ex.prefetch_depth = max(0, self.properties["prefetch_depth"])
         ex.prewarm_chunks = self.properties["prewarm_chunks"]
@@ -334,6 +341,7 @@ class Session:
         with self.tracer.span("decode", rows=len(arrays[0])
                               if arrays else 0):
             rows = self.decode_rows(rel, arrays, valids)
+        self.executor.flush_metrics()
         return QueryResult(names, rows, time.monotonic() - t0,
                            self.executor.stats)
 

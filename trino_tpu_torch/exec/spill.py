@@ -1,23 +1,167 @@
-"""Host-side radix partitioning, partition-local equi-join, and the
-chunked driver's spillable partial-aggregate state.
+"""Host-spill execution: joins, aggregations and sorts that exceed the
+pool, and the chunked driver's spillable partial-aggregate state.
 
-Port copy of what the port needs from ``trino_tpu/exec/spill.py``:
-the numpy helpers of the hash paths (``_partition_ids``,
-``_host_equi_join`` and what they call, with ``partition_assignment`` from
-``trino_tpu/server/tasks.py``), unchanged, and ``PartialState`` with
-``merge_partial_pages`` (device partials held as revocable reservations,
-moved to host pages when the pool asks, merged partition-wise when the
-concatenation would not fit). The rest of the spill tier (host/disk
-spilling of joins, aggregations and sorts under memory pressure) is not
-ported (ROADMAP).
+Port copy of ``trino_tpu/exec/spill.py`` (with ``partition_assignment``
+from ``trino_tpu/server/tasks.py``). Edits: ``partition_ids`` is the
+partitioner on the device, for the hash aggregate's escape path; a
+partition's or chunk's batch is built on ``executor.device``, so its
+aggregate runs where the query runs (K3 for a hash aggregate, K5 where
+`mxu_agg` takes it, on the card); and the reference's ``_spill_site``
+wrapper is left out: it attributes XLA compiles to a compile recorder,
+and the port compiles nothing per shape.
+
+Reference: the spilling operators — HashBuilderOperator's spill-to-disk
+partitions (operator/join/PartitionedConsumption.java), the spillable
+aggregation builder (operator/aggregation/builder/
+SpillableHashAggregationBuilder.java), and GenericPartitioningSpiller's
+radix partitioning by hash (spiller/GenericPartitioningSpiller.java:66).
+"Design Trade-offs for a Robust Dynamic Hybrid Hash Join"
+(arXiv:2112.02480) is the blueprint: graceful partition-and-spill, not a
+bigger budget, is what keeps joins correct under constrained memory.
+
+Device memory is the scarce tier, host RAM and local disk are the spill
+tiers. When an operator's reservation cannot fit the pool even after
+revocation, the executor retries it here:
+
+- both sides move to host and radix-partition by the SAME splitmix64 key
+  hash the partitioned exchange uses (partition_assignment), so
+  co-partitioned rows always land together;
+- partitions persist through HostSpiller — host RAM for small partitions,
+  disk containers with the exchange-spool framing + per-page CRC32C for
+  large ones (a corrupt or failed write degrades to the RAM copy, never
+  to wrong answers);
+- each partition then joins/aggregates alone, bounded by partition size,
+  and the outputs concatenate. Equality classes never straddle a hash
+  partition, and stable partitioning preserves within-group row order,
+  so results are bit-exact vs the resident kernels (modulo row order,
+  which no operator here guarantees anyway).
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 import threading
-from typing import List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..batch import batch_from_numpy, batch_to_numpy, bucket_capacity
+from ..planner import logical as L
+
+
+class SpillReadError(RuntimeError):
+    """A spilled partition could not be read back (both the disk
+    container and the RAM fallback are gone) — retryable at query level."""
+
+
+class HostSpiller:
+    """Two-tier partition store: host RAM first, disk (exchange-spool
+    framing, CRC32C-verified) for partitions past `disk_min_bytes`.
+
+    Disk writes are verified by immediate read-back: a failed or corrupt
+    write (chaos SPOOL_WRITE faults, disk full) keeps the RAM copy and
+    counts trino_tpu_spill_retries_total — the spill tier can lose
+    durability, never correctness."""
+
+    def __init__(self, root: Optional[str] = None, injector=None,
+                 disk_min_bytes: int = 4 << 20, force_disk: bool = False):
+        from ..server.exchange_spool import ExchangeSpool
+        self.root = root or os.environ.get("TRINO_TPU_SPILL_DIR") or \
+            tempfile.mkdtemp(prefix="trino_tpu_spill_")
+        self.spool = ExchangeSpool(root=self.root, injector=injector)
+        self.disk_min_bytes = disk_min_bytes
+        self.force_disk = force_disk
+        self._ram: Dict[str, bytes] = {}
+        self.bytes_spilled = 0
+        self.disk_writes = 0
+        self.write_recoveries = 0
+        self._seq = 0
+
+    @property
+    def injector(self):
+        return self.spool.injector
+
+    @injector.setter
+    def injector(self, inj) -> None:
+        self.spool.injector = inj
+
+    def next_key(self, hint: str) -> str:
+        self._seq += 1
+        return f"spill-{hint}-{self._seq}"
+
+    def put(self, key: str, arrays: List[np.ndarray],
+            valids: List[np.ndarray]) -> None:
+        from ..metrics import SPILL_BYTES, SPILL_PARTITIONS, SPILL_RETRIES
+        from ..server.pageserde import encode_page
+        page = encode_page(arrays, valids)
+        self.bytes_spilled += len(page)
+        SPILL_BYTES.inc(len(page))
+        SPILL_PARTITIONS.inc()
+        if not self.force_disk and len(page) < self.disk_min_bytes:
+            self._ram[key] = page
+            return
+        self.spool.put(key, [page])
+        self.disk_writes += 1
+        back = self.spool.get(key)        # read-back verify (CRC32C)
+        if back is None or back != [page]:
+            # write failed or the container came back corrupt: the RAM
+            # copy stays authoritative — retryable, no wrong answer
+            self.write_recoveries += 1
+            SPILL_RETRIES.inc()
+            self.spool.delete(key)
+            self._ram[key] = page
+
+    def get(self, key: str) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """Read one partition back, verified; the entry is consumed."""
+        from ..server.pageserde import decode_page
+        page = self._ram.pop(key, None)
+        if page is None:
+            pages = self.spool.get(key)
+            self.spool.delete(key)
+            if not pages:
+                raise SpillReadError(f"spilled partition {key} lost")
+            page = pages[0]
+        return decode_page(page)
+
+    def discard(self, keys) -> None:
+        for k in keys:
+            self._ram.pop(k, None)
+            self.spool.delete(k)
+
+    def clear(self) -> None:
+        self._ram.clear()
+        self.spool.clear()
+
+
+def get_spiller(executor) -> HostSpiller:
+    if executor.spiller is None:
+        executor.spiller = HostSpiller(force_disk=executor.spill_force_disk)
+    return executor.spiller
+
+
+# --------------------------------------------------------------------------
+# host-side helpers
+# --------------------------------------------------------------------------
+
+def _side_to_host(executor, child: L.PlanNode) -> tuple:
+    """Run a child subtree and move its LIVE rows to host, releasing the
+    device reservations. The transient device batch runs under the
+    pool's grace window (its bytes are revocable in spirit: the next
+    statement revokes them to host)."""
+    with executor.pool.grace():
+        batch = executor.run(child)
+        arrs, vals = batch_to_numpy(batch)
+    executor.release_path_reservations(child, keep=executor._subst)
+    return arrs, vals
+
+
+def _integer_keys(output, idxs) -> bool:
+    for k in idxs:
+        dt = np.dtype(output[k][1].np_dtype)
+        if not (np.issubdtype(dt, np.integer) or dt == np.bool_):
+            return False
+    return True
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
@@ -217,6 +361,221 @@ def _pick_partitions(executor, total_bytes: int) -> int:
     return p
 
 
+def _spill_partitions(executor, hint: str, arrays, valids, key_idxs,
+                      count: int) -> List[str]:
+    """Radix-partition a host column set and spill each partition; the
+    source arrays can be dropped by the caller afterwards. np boolean
+    take keeps within-partition row order (stable), which is what makes
+    per-group float sums bit-exact on read-back."""
+    spiller = get_spiller(executor)
+    part = _partition_ids(arrays, valids, key_idxs, count)
+    keys = []
+    for p in range(count):
+        m = part == p
+        keys.append(spiller.next_key(f"{hint}-p{p}"))
+        spiller.put(keys[-1], [a[m] for a in arrays],
+                    [v[m] for v in valids])
+    return keys
+
+
+def _concat_pages(outs, outs_v, device):
+    ncols = len(outs[0])
+    return batch_from_numpy(
+        [np.concatenate([p[j] for p in outs]) for j in range(ncols)],
+        valids=[np.concatenate([p[j] for p in outs_v])
+                for j in range(ncols)], device=device)
+
+
+# --------------------------------------------------------------------------
+# operator-level spill entry points (called from Executor.run's
+# ExceededMemoryLimitError fallback)
+# --------------------------------------------------------------------------
+
+def spill_join(executor, node: L.JoinNode):
+    """Radix-partitioned host join for a JoinNode whose working set blew
+    the pool. None = shape unsupported (caller re-raises the original
+    memory error — a clean QUERY_EXCEEDED_MEMORY, never a crash)."""
+    if node.kind not in ("inner", "left", "semi", "anti", "mark") or \
+            node.null_aware or node.residual is not None:
+        return None
+    if not _integer_keys(node.left.output, node.left_keys) or \
+            not _integer_keys(node.right.output, node.right_keys):
+        return None
+    parrs, pvalids = _side_to_host(executor, node.left)
+    barrs, bvalids = _side_to_host(executor, node.right)
+    total = _host_bytes(parrs, pvalids) + _host_bytes(barrs, bvalids)
+    count = _pick_partitions(executor, total)
+    pkeys_files = _spill_partitions(executor, "join-probe", parrs,
+                                    pvalids, node.left_keys, count)
+    bkeys_files = _spill_partitions(executor, "join-build", barrs,
+                                    bvalids, node.right_keys, count)
+    del parrs, pvalids, barrs, bvalids
+    spiller = get_spiller(executor)
+    out_arrays: List[list] = []
+    out_valids: List[list] = []
+    for pf, bf in zip(pkeys_files, bkeys_files):
+        # partition-boundary cooperative cancel (terminate()/deadline)
+        executor.check_cancel()
+        pa, pv = spiller.get(pf)
+        ba, bv = spiller.get(bf)
+        arrs, vals = _host_equi_join(pa, pv, ba, bv, node.left_keys,
+                                     node.right_keys, node.kind)
+        if arrs and len(arrs[0]):
+            out_arrays.append(arrs)
+            out_valids.append(vals)
+    executor.stats.spilled_joins += 1
+    if not out_arrays:
+        return _empty_output(executor, node)
+    return _concat_pages(out_arrays, out_valids, executor.device)
+
+
+def _empty_output(executor, node: L.PlanNode):
+    arrs = [np.zeros(0, dtype=np.dtype(dt.np_dtype))
+            for _, dt in node.output]
+    return batch_from_numpy(arrs,
+                            valids=[np.zeros(0, np.bool_) for _ in arrs],
+                            device=executor.device)
+
+
+def spill_aggregate(executor, node: L.AggregateNode):
+    """Spillable aggregation, two strategies (the hash-vs-sort group-by
+    study's trade-off, arXiv:2411.13245):
+
+    - radix partitioning by group-key hash when the largest partition
+      fits the pool: every group is wholly inside one partition and
+      stable partitioning preserves row order within a group, so the
+      result matches the resident kernel bit for bit;
+    - chunk-and-merge partial states when the keys are too low-
+      cardinality to partition (a 4-group GROUP BY hashes everything
+      into 4 partitions): fixed-size row chunks aggregate to partial
+      states that merge with sum/min/max — exact for integer/decimal
+      accumulators, same ULP caveat as the chunked driver for floats.
+
+    Each partition's and chunk's batch is built on the executor's device,
+    so its aggregate runs there (K3, K5 on the card). None = shape
+    unsupported (caller fails cleanly)."""
+    if not node.group_keys or \
+            not _integer_keys(node.child.output, node.group_keys):
+        return None
+    from ..ops.aggregate import AggSpec
+    from .chunked import MERGE_FUNC
+    from .memory import batch_bytes
+    aggs = tuple(AggSpec(a.func,
+                         a.arg.index if a.arg is not None else None,
+                         a.distinct)
+                 for a in node.aggs)
+    mergeable = not any(a.distinct for a in node.aggs) and \
+        all(a.func in MERGE_FUNC for a in node.aggs)
+    arrs, vals = _side_to_host(executor, node.child)
+    total = _host_bytes(arrs, vals)
+    count = _pick_partitions(executor, total)
+    n = len(arrs[0]) if arrs else 0
+    row_bytes = max(1, total // max(1, n))
+    part = _partition_ids(arrs, vals, node.group_keys, count)
+    biggest = int(np.bincount(part, minlength=count).max()) if n else 0
+    if biggest * row_bytes * 2 > executor.pool.limit:
+        # skewed/low-cardinality keys: partitioning cannot shrink the
+        # working set — chunk-and-merge instead (or give up cleanly)
+        if not mergeable:
+            return None
+        return _chunked_partial_aggregate(executor, node, arrs, vals)
+    files = _spill_partitions(executor, "agg", arrs, vals,
+                              node.group_keys, count)
+    del arrs, vals
+    spiller = get_spiller(executor)
+    outs: List[list] = []
+    outs_v: List[list] = []
+    with executor.no_decisions():
+        for f in files:
+            # partition-boundary cooperative cancel
+            executor.check_cancel()
+            pa, pv = spiller.get(f)
+            pb = batch_from_numpy(pa, valids=pv, device=executor.device)
+            executor.pool.reserve(batch_bytes(pb))
+            try:
+                out = executor.aggregate_batch(node, pb, aggs)
+                oa, ov = batch_to_numpy(out)
+            finally:
+                executor.pool.free(batch_bytes(pb))
+            if oa and len(oa[0]):
+                outs.append(oa)
+                outs_v.append(ov)
+    executor.stats.spilled_aggregations += 1
+    if not outs:
+        return _empty_output(executor, node)
+    return _concat_pages(outs, outs_v, executor.device)
+
+
+def spill_sort(executor, node: L.SortNode):
+    """Host-side ORDER BY fallback: when the device sort's batch cannot
+    fit the pool, sort the live rows on host with the same key
+    semantics as the scheduler's n-way run merge (rank codes below a
+    null-rank level, np.lexsort's stability preserving input order on
+    ties) and apply the TopN limit before anything rematerializes."""
+    arrs, vals = _side_to_host(executor, node.child)
+    n = len(arrs[0]) if arrs else 0
+    levels = []
+    for k in reversed(node.keys):
+        ok = np.asarray(vals[k.index], np.bool_)
+        codes = np.unique(arrs[k.index],
+                          return_inverse=True)[1].astype(np.int64)
+        if not k.ascending:
+            codes = -codes
+        codes = np.where(ok, codes, 0)
+        nr = np.where(ok, 1 if k.nulls_first else 0,
+                      0 if k.nulls_first else 1).astype(np.int8)
+        levels.append(codes)
+        levels.append(nr)
+    order = np.lexsort(levels) if levels else np.arange(n)
+    if node.limit is not None:
+        order = order[:node.limit]
+    executor.stats.spilled_sorts += 1
+    return batch_from_numpy([a[order] for a in arrs],
+                            valids=[v[order] for v in vals],
+                            device=executor.device)
+
+
+def _chunked_partial_aggregate(executor, node: L.AggregateNode,
+                               arrs, vals):
+    """Bounded aggregation over host rows in fixed chunks: each chunk
+    runs the node's own aggregation on the executor's device (its output
+    IS the partial-state layout: keys, then mergeable states), chunk
+    outputs spill through the host spiller, and merge_partial_pages
+    re-aggregates them."""
+    from ..ops.aggregate import AggSpec
+    from .memory import batch_bytes
+    aggs = tuple(AggSpec(a.func,
+                         a.arg.index if a.arg is not None else None)
+                 for a in node.aggs)
+    n = len(arrs[0]) if arrs else 0
+    total = _host_bytes(arrs, vals)
+    row_bytes = max(1, total // max(1, n))
+    # a third of the pool per chunk (input + kernel scratch + partial
+    # output share it); the floor only guards against degenerate limits
+    budget = max(64 << 10, executor.pool.limit // 3)
+    chunk_rows = max(1024, budget // row_bytes)
+    spiller = get_spiller(executor)
+    keys = []
+    with executor.no_decisions():
+        for start in range(0, max(n, 1), chunk_rows):
+            chunk = batch_from_numpy(
+                [a[start:start + chunk_rows] for a in arrs],
+                valids=[v[start:start + chunk_rows] for v in vals],
+                device=executor.device)
+            executor.pool.reserve(batch_bytes(chunk))
+            try:
+                out = executor.aggregate_batch(node, chunk, aggs)
+                oa, ov = batch_to_numpy(out)
+            finally:
+                executor.pool.free(batch_bytes(chunk))
+            key = spiller.next_key("aggchunk")
+            spiller.put(key, oa, ov)
+            keys.append(key)
+    pages = [spiller.get(k) for k in keys]
+    executor.stats.spilled_aggregations += 1
+    return merge_partial_pages(executor, node, pages)
+
+
 # --------------------------------------------------------------------------
 # spillable partial-aggregation state (exec/chunked.py's accumulator)
 # --------------------------------------------------------------------------
@@ -233,6 +592,7 @@ class PartialState:
         self.device: List[object] = []
         self._device_bytes: List[int] = []
         self.host: List[tuple] = []          # (arrays, valids)
+        self.spilled_rounds = 0
         # revocation may fire from another thread while the chunk loop
         # appends — the lists move together
         self._lock = threading.Lock()
@@ -250,7 +610,6 @@ class PartialState:
     def _revoke(self, target_bytes: int) -> int:
         """Revocation callback: move device partials to host until the
         target is met (oldest first — they are coldest)."""
-        from ..batch import batch_to_numpy
         freed = 0
         while freed < target_bytes:
             with self._lock:
@@ -262,6 +621,7 @@ class PartialState:
             self.executor.pool.free_revocable(b, tag=self.tag)
             freed += b
         if freed:
+            self.spilled_rounds += 1
             self.executor.stats.spilled_aggregations += 1
         return freed
 
@@ -283,7 +643,6 @@ class PartialState:
         """FINAL step over mixed device/host partials: all-resident
         partials merge on the device in one concat; once anything
         spilled, everything merges through host pages."""
-        from ..batch import batch_to_numpy
         from .chunked import merge_partials
         # drop the callback first so revocation cannot race the merge
         self.executor.pool.unregister_revocation(self._handle)
@@ -304,7 +663,6 @@ def merge_partial_pages(executor, node, pages: List[tuple]):
     Otherwise radix-partition the concatenated states by group key and
     merge each partition alone (a group's states share a partition, so
     the merge is exact)."""
-    from ..batch import batch_from_numpy, batch_to_numpy, bucket_capacity
     from ..ops.aggregate import AggSpec, global_aggregate
     from .chunked import MERGE_FUNC
     from .memory import batch_bytes

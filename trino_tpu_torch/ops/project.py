@@ -109,22 +109,35 @@ def _to_comparable(expr: ir.Expr, data: torch.Tensor, target):
 # every division by a constant into a multiplication by its reciprocal and
 # folds chained constant factors into one; the port computes the same
 # folded factor on the host and multiplies once. The order of the folds
-# decides the factor's last bit, and it follows the simplifier's passes
-# (checked against the compiled HLO of the reference over random chains):
+# decides the factor's last bit, so `_fold_factor` replays the simplifier
+# on the chain's HLO (read from the reference's pass dumps and its
+# `algebraic_simplifier` log, and checked against the compiled reference
+# over random chains of up to six factors):
 #
-# - pass 1 sees the decimal scale's divisor as a constant (level 0) but a
-#   SQL division's divisor (`where(r == 0, 1, r)`) not yet (level 1), so
-#   the scale becomes `* (1/10^s)` at once, literal factors fold into the
-#   product below them, and a quotient of a quotient becomes one quotient
-#   by the product of the divisors (`(A/b)/c -> A/(b*c)`, level 2);
-# - a later pass turns each level-1 quotient into `* (1/b)` without
-#   folding it at once; a literal factor above it folds it then, and the
-#   result folds on down the chain;
-# - after constant folding (level 2) every factor left folds, innermost
-#   first.
+# - a sweep visits every instruction once, operands first; what a rewrite
+#   makes is visited in the next sweep. Sweeps repeat until nothing
+#   changes, then constant folding runs, and the pair repeats until the
+#   module is stable;
+# - `A / broadcast(c)` becomes `A * broadcast(1/c)` (a new constant);
+#   `(A / B) / C` becomes `A / (B * C)`; `A * 1` and `A / 1` become `A`;
+# - `(A * c1) * c2` becomes `A * (c1 * c2)`, on vectors and on scalars,
+#   where c1 and c2 are constants; the product is an expression, not a
+#   constant, until the next constant folding;
+# - `(A * c) * broadcast(s)`, s a scalar expression, becomes
+#   `A * broadcast(s * c)`;
+# - an elementwise op whose operands are all broadcasts is sunk below one
+#   broadcast;
+# - a SQL division's divisor is `where(r == 0, 1, r)`: the select sinks
+#   below its broadcast in one sweep, its scalar operands lose their
+#   broadcasts in the next and it becomes the constant in the third, so a
+#   divide by it folds two sweeps after a divide by a plain constant (a
+#   decimal scale, `round`'s factor).
 #
 # A literal operand itself is folded before XLA sees it: a decimal
 # literal's double is its value divided by 10^s, correctly rounded.
+
+# ops of a chain, innermost first: (kind, constant, level); kind "mul" or
+# "div", level 0 for a plain constant, 1 for a SQL divisor (the select)
 
 
 def _double_literal(expr: ir.Expr):
@@ -142,21 +155,31 @@ def _double_literal(expr: ir.Expr):
     return None
 
 
+def _round_of_double(e: ir.Expr):
+    """`round(x, d)` of a non-decimal x (the double rounding), or None."""
+    if isinstance(e, ir.ScalarFunc) and e.name == "round" and \
+            e.args[0].dtype.kind is not TypeKind.DECIMAL and \
+            e.dtype.kind is TypeKind.DOUBLE:
+        return e
+    return None
+
+
 def _double_chain(expr: ir.Expr):
     """`expr` as (base, ops): a non-literal term and the products and
-    quotients by literals applied to it, innermost first, as (kind,
-    constant, level). A decimal base (a CAST to double, or a decimal
-    operand of a double operation) starts with its scale's quotient."""
+    quotients by literals applied to it, innermost first. A decimal base
+    (a CAST to double, or a decimal operand of a double operation) starts
+    with its scale's quotient; a `round` of a double ends its own chain
+    with the quotient by its factor."""
     ops = []
     e = expr
     while isinstance(e, ir.Arith) and e.dtype.kind is TypeKind.DOUBLE and \
             e.op in ('*', '/'):
         rc = _double_literal(e.right)
         if rc is not None and (e.op == '*' or rc != 0):
-            ops.append(("mul" if e.op == '*' else "div", rc, 1))
+            ops.append(("mul", rc, 0) if e.op == '*' else ("div", rc, 1))
             e = e.left
         elif e.op == '*' and _double_literal(e.left) is not None:
-            ops.append(("mul", _double_literal(e.left), 1))
+            ops.append(("mul", _double_literal(e.left), 0))
             e = e.right
         else:
             break
@@ -165,64 +188,165 @@ def _double_chain(expr: ir.Expr):
         e = e.arg
     if e.dtype.kind is TypeKind.DECIMAL:
         ops.append(("div", float(10 ** e.dtype.scale), 0))
+    elif _round_of_double(e) is not None:
+        ops.append(("div", _round_factor(e), 0))
     return e, ops[::-1]
+
+
+def _round_factor(e: ir.ScalarFunc) -> float:
+    return 10.0 ** (e.params[0] if e.params else 0)
+
+
+def _is_const(n) -> bool:
+    """A broadcast of a scalar constant (`m::Broadcast(m::ConstantScalar)`)
+    or, on scalars, the constant itself."""
+    return n[0] == "c" or (n[0] == "bc" and n[1][0] == "c")
+
+
+def _sweep(n, changed):
+    """One visit of the simplifier over the HLO node `n`, operands first;
+    sets changed[0] when a rewrite fires. Nodes: ("x",) the base; ("bc",
+    s) a broadcast of scalar s; ("mul", a, b) and ("div", a, b) on
+    vectors; ("c", v) a scalar constant; ("smul", a, b) a scalar product;
+    ("vsel", v) and ("ssel", v, t) the SQL divisor's select before and
+    after it sinks below its broadcast."""
+    kind = n[0]
+    if kind in ("x", "c"):
+        return n
+    if kind == "vsel":
+        changed[0] = True
+        return ("bc", ("ssel", n[1], 0))
+    if kind == "ssel":
+        changed[0] = True
+        return ("c", n[1]) if n[2] >= 1 else ("ssel", n[1], n[2] + 1)
+    if kind == "bc":
+        return ("bc", _sweep(n[1], changed))
+    a, b = _sweep(n[1], changed), _sweep(n[2], changed)
+    if kind == "smul":
+        for inner, c2 in ((a, b), (b, a)):
+            if inner[0] != "smul" or c2[0] != "c":
+                continue
+            for base, c1 in ((inner[1], inner[2]), (inner[2], inner[1])):
+                if base[0] != "c" and c1[0] == "c":
+                    changed[0] = True
+                    return ("smul", base, ("smul", c1, c2))
+        return ("smul", a, b)
+    out = _rewrite(kind, a, b)
+    if out is None:
+        return (kind, a, b)
+    changed[0] = True
+    return out
+
+
+def _rewrite(kind: str, a, b):
+    """The rewrite the simplifier makes of the vector `a * b` or `a / b`
+    whose operands were already visited, or None."""
+    if kind == "mul":
+        for one, other in ((a, b), (b, a)):
+            if _is_const(one) and one[1][1] == 1.0:
+                return other
+    elif _is_const(b) and b[1][1] == 1.0:
+        return a
+    if a[0] == "bc" and b[0] == "bc":           # sink the broadcasts
+        return ("bc", ("smul", a[1], b[1]))
+    if kind == "div":
+        if a[0] == "div":
+            return ("div", a[1], ("mul", a[2], b))
+        if _is_const(b):
+            return ("mul", a, ("bc", ("c", 1.0 / b[1][1])))
+        return None
+    for inner, other in ((a, b), (b, a)):
+        if inner[0] != "mul" or other[0] != "bc":
+            continue
+        for base, c in ((inner[1], inner[2]), (inner[2], inner[1])):
+            if _is_const(base) or not _is_const(c):
+                continue
+            if _is_const(other):
+                return ("mul", base, ("bc", ("smul", c[1], other[1])))
+            return ("mul", base, ("bc", ("smul", other[1], c[1])))
+    return None
+
+
+def _constant_fold(n):
+    """XLA's constant folding: scalar products of constants, and a
+    sunk select, become constants."""
+    kind = n[0]
+    if kind == "ssel":
+        return ("c", n[1])
+    if kind == "smul":
+        a, b = _constant_fold(n[1]), _constant_fold(n[2])
+        if a[0] == "c" and b[0] == "c":
+            return ("c", a[1] * b[1])
+        return ("smul", a, b)
+    if kind == "bc":
+        return ("bc", _constant_fold(n[1]))
+    if kind in ("mul", "div"):
+        return (kind, _constant_fold(n[1]), _constant_fold(n[2]))
+    return n
 
 
 def _fold_factor(ops):
     """The one factor XLA leaves of `ops` (see above), or None when the
-    chain does not end as a single product."""
-    # nodes: (kind, child, constant, level, is a folded literal); a
-    # product of two constants made by a fold is an expression until the
-    # next constant folding, and only a literal below folds
-    node = None
-
-    def fold(child, k):
-        while child is not None and child[0] == "mul" and child[4]:
-            child, k = child[1], child[2] * k
-        return ("mul", child, k, 0, False)
-
-    def visit(n, stage):
-        if n is None:
-            return None
-        kind, child, k, level, lit = n
-        child = visit(child, stage)
-        if kind == "div":
-            if child is not None and child[0] == "div":
-                return ("div", child[1], child[2] * k, 2, False)
-            if level <= stage:
-                return ("mul", child, 1.0 / k, 0, True)
-            return ("div", child, k, level, lit)
-        if child is not None and child[0] == "mul" and child[4]:
-            return fold(child[1], child[2] * k)
-        return ("mul", child, k, 0, lit)
-
-    def constant_folding(n):
-        if n is None:
-            return None
-        return n[:1] + (constant_folding(n[1]),) + n[2:4] + (True,)
-
+    chain does not end as a single product of the base."""
+    node = ("x",)
     for kind, k, level in ops:
-        node = (kind, node, k, level, True)
-    node = visit(visit(node, 0), 1)          # the first run: two sweeps
-    for _ in range(len(ops) + 1):            # later runs, to a fixpoint
-        node = visit(constant_folding(node), 2)
-    if node is None or node[0] != "mul" or node[1] is not None:
-        return None
-    return node[2]
+        if kind == "mul":
+            node = ("mul", node, ("bc", ("c", k)))
+        else:
+            node = ("div", node, ("vsel", k) if level else ("bc", ("c", k)))
+    for _ in range(64):                      # the simplification pipeline
+        before = node
+        for _ in range(64):                  # algsimp: sweeps to a fixpoint
+            changed = [False]
+            node = _sweep(node, changed)
+            if not changed[0]:
+                break
+        node = _constant_fold(node)
+        if node == before:
+            break
+    if node == ("x",):
+        return 1.0
+    if node[0] == "mul":
+        for base, c in ((node[1], node[2]), (node[2], node[1])):
+            if base == ("x",) and _is_const(c):
+                return c[1][1]
+    return None
 
 
-def _eval_double_chain(expr: ir.Arith, batch: Batch):
-    """A DOUBLE product or quotient by literals, folded to one factor as
-    the reference's compiled code computes it; None where `expr` is not
-    such a chain."""
+def _eval_chain(expr: ir.Expr, batch: Batch, extra=()):
+    """`expr` followed by the products and quotients `extra`, as a float64
+    tensor folded as the reference's compiled code computes it; None
+    where the chain does not fold to one product."""
     base, ops = _double_chain(expr)
+    ops = ops + list(extra)
     if not ops or isinstance(base, ir.Literal):
         return None
     k = _fold_factor(ops)
     if k is None:
         return None
-    d, v = eval_expr(base, batch)
-    return d.to(torch.float64) * k, v
+    rnd = _round_of_double(base)
+    if rnd is not None:
+        d, v = _eval_round_half_up(rnd, batch)
+    else:
+        d, v = eval_expr(base, batch)
+    d = d.to(torch.float64)
+    return (d if k == 1.0 else d * k), v
+
+
+def _eval_round_half_up(expr: ir.ScalarFunc, batch: Batch):
+    """`round(x, d)` of a double before its quotient by 10^d: x's chain
+    with the product by 10^d folded in, rounded half away from zero."""
+    factor = _round_factor(expr)
+    arg = expr.args[0]
+    folded = _eval_chain(arg, batch, [("mul", factor, 0)])
+    if folded is not None:
+        xs, v = folded
+    else:
+        d, v = eval_expr(arg, batch)
+        xs = d.to(torch.float64) * factor
+    half_up = torch.where(xs >= 0, torch.floor(xs + 0.5),
+                          torch.ceil(xs - 0.5))
+    return half_up, v
 
 
 # --------------------------------------------------------------------------
@@ -288,7 +412,7 @@ def eval_expr(expr: ir.Expr, batch: Batch):
 
     if isinstance(expr, ir.Arith):
         if expr.dtype.kind is TypeKind.DOUBLE and expr.op in ('*', '/'):
-            folded = _eval_double_chain(expr, batch)
+            folded = _eval_chain(expr, batch)
             if folded is not None:
                 return folded
         ld, lv = eval_expr(expr.left, batch)
@@ -427,8 +551,12 @@ def eval_expr(expr: ir.Expr, batch: Batch):
             if src.kind is TypeKind.DECIMAL:
                 return rescale(d, src.scale, dst.scale), v
             if src.kind is TypeKind.DOUBLE:
-                # HALF_UP (away from zero), matching rescale()
-                xs = d.to(torch.float64) * (10 ** dst.scale)
+                # HALF_UP (away from zero), matching rescale(); the
+                # product by 10^s folds into the argument's chain
+                folded = _eval_chain(expr.arg, batch,
+                                     [("mul", float(10 ** dst.scale), 0)])
+                xs = folded[0] if folded is not None else \
+                    d.to(torch.float64) * (10 ** dst.scale)
                 half_up = torch.where(xs >= 0, torch.floor(xs + 0.5),
                                       torch.ceil(xs - 0.5))
                 return half_up.to(torch.int64), v
@@ -544,6 +672,8 @@ def _shr_logical(x: torch.Tensor, s: int) -> torch.Tensor:
 def eval_scalar_func(expr: ir.ScalarFunc, batch: Batch):
     """Built-in scalar functions, branch-free with three-valued logic."""
     name = expr.name
+    if _round_of_double(expr) is not None:
+        return _eval_chain(expr, batch)
     parts = [eval_expr(a, batch) for a in expr.args]
     tdt = _tdt(expr.dtype) if expr.dtype.kind is not TypeKind.ARRAY \
         else None
@@ -584,7 +714,6 @@ def eval_scalar_func(expr: ir.ScalarFunc, batch: Batch):
         xs = d.to(torch.float64) * factor
         half_up = torch.where(xs >= 0, torch.floor(xs + 0.5),
                               torch.ceil(xs - 0.5))
-        # mirrors XLA's rewrite of a division by a constant (reference)
         return half_up * (1.0 / factor), v
     if name in ("floor", "ceil"):
         if t.kind is TypeKind.DECIMAL:

@@ -1,7 +1,5 @@
-"""Port copy of ``trino_tpu/server/writeprotocol.py``. Edits: the three
-counters, the three chaos point names, the torn-append crash type and
-the CRC come from small copies at the top of this module instead of the
-reference's metrics, failureinjector and pageserde modules.
+"""Port copy of ``trino_tpu/server/writeprotocol.py`` (no edits beyond
+the logger's name).
 
 Exactly-once staged-write commit protocol for directory connectors.
 
@@ -34,61 +32,12 @@ import logging
 import os
 import re
 import struct
-import zlib
 
+from ..metrics import WRITE_COMMITS, WRITE_ORPHANS_SWEPT, WRITE_TASKS
 from ..utils.atomicio import fsync_dir
 from ..utils.log import query_context
-
-# ---- the port's own copies of what the protocol takes from the
-# reference's server modules (metrics, failureinjector, pageserde) -------
-
-# chaos points (server/failureinjector.py's names): a caller's injector
-# is asked at each through its `maybe_fail(point, key)` hook
-WRITE_STAGE = "WRITE_STAGE"            # write task staging an attempt file
-WRITE_COMMIT = "WRITE_COMMIT"          # coordinator journaling the commit
-WRITE_PUBLISH = "WRITE_PUBLISH"        # per-file atomic rename publish
-
-
-class InjectedCrash(Exception):
-    """A torn journal append injected by a CORRUPT fault at
-    WRITE_COMMIT (the injector's own crash type in the reference)."""
-
-
-class _Counter:
-    """Process-wide event counter (metrics.REGISTRY.counter's role, with
-    optional labels); `value(**labels)` reads it."""
-
-    def __init__(self):
-        self._values = {}
-
-    def inc(self, n: int = 1, **labels) -> None:
-        key = tuple(sorted(labels.items()))
-        self._values[key] = self._values.get(key, 0) + n
-
-    def value(self, **labels) -> int:
-        return self._values.get(tuple(sorted(labels.items())), 0)
-
-
-WRITE_TASKS = _Counter()           # staged attempt files written
-WRITE_COMMITS = _Counter()         # commit outcomes, by `outcome`
-WRITE_ORPHANS_SWEPT = _Counter()   # staging files / journals swept
-
-try:                                  # server/pageserde.py's checksum
-    import google_crc32c as _gcrc
-
-    def _crc32c(*chunks) -> int:
-        c = 0
-        for ch in chunks:
-            c = _gcrc.extend(c, bytes(ch))
-        return c
-except Exception:                    # pragma: no cover — lib absent
-    # zlib's CRC-32 as a stand-in: same 32-bit guarantees, another
-    # polynomial; frames never cross builds, so only consistency matters
-    def _crc32c(*chunks) -> int:
-        c = 0
-        for ch in chunks:
-            c = zlib.crc32(ch, c)
-        return c & 0xFFFFFFFF
+from .failureinjector import WRITE_COMMIT, WRITE_PUBLISH, WRITE_STAGE
+from .pageserde import _crc32c
 
 log = logging.getLogger("trino_tpu_torch.write")
 
@@ -233,6 +182,7 @@ def append_journal(path: str, rec: dict, injector=None,
         os.fsync(f.fileno())
     fsync_dir(os.path.dirname(os.path.abspath(path)))
     if torn:
+        from .failureinjector import InjectedCrash
         raise InjectedCrash(f"torn journal append at {path}")
 
 
