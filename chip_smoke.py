@@ -105,7 +105,25 @@ Phases, each failing the run with a non-zero exit:
    with spill disabled at 1 MiB (it must raise, and the session must
    answer again); and two fresh processes that run TPC-H q3 once each
    with the port's decision file removed first: the second must sync
-   fewer times (``fetch_ints``) for the same rows;
+   fewer times (``fetch_ints``) for the same rows; then SQL over HTTP
+   (``phase_http_path``: a port ``CoordinatorServer`` over a CUDA Session
+   of its own at ``tpch.sf1``, history in a fresh file, talked to only
+   through the port's Client, counters set to 0 just before and read just
+   after): TPC-H q1, q6 and q3 (one cold, three steady; rows equal the
+   oracles and the in-process rows, route ``device``, K1 and K3 launch)
+   beside the in-process walls, q12 under ``mxu_agg = 'true'`` (K5), a
+   120,000-row result over many nextUri pages, the host/device crossover
+   (a filter and count/sum/min/max over region, nation, supplier,
+   customer, orders and lineitem under ``routing_mode = 'host'`` and
+   ``'device'``, rows equal between routes, the host route launching
+   nothing), q6 ten times under history routing (each route, reason and
+   wall printed), 64 host-routed point queries from 16 threads beside a
+   q3 on the card, 32 concurrent point queries on orders through the
+   micro-batcher, a result-cache hit with no launch, a DELETE of a
+   running q3 (USER_CANCELED) and q3 under a 1 ms budget
+   (QUERY_EXCEEDED_RUN_TIME), each followed by a correct q6, and the
+   read-backs (EXPLAIN's routing line, /v1/metrics, the ``cuda_build.*``
+   sites of /v1/jit, ``system.runtime.queries``);
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -2607,6 +2625,524 @@ def phase_memory_pressure(recorder, main_session, tables):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# SQL over HTTP: the port's coordinator, serving layer and router
+# ---------------------------------------------------------------------------
+
+# rows of the paged result (orders' smallest keys)
+PAGED_ROWS = 120_000
+# the crossover's tables, each with its key column and a decimal column
+CROSSOVER = (("region", "r_regionkey", None),
+             ("nation", "n_nationkey", None),
+             ("supplier", "s_suppkey", "s_acctbal"),
+             ("customer", "c_custkey", "c_acctbal"),
+             ("orders", "o_orderkey", "o_totalprice"),
+             ("lineitem", "l_orderkey", "l_extendedprice"))
+
+
+def _crossover_sql(table, data, key, dec):
+    """A filter and a global count/sum/min/max over an integer and a
+    decimal column: host-eligible, and free of doubles, so both routes
+    give the same bits. The filter keeps the keys up to the median."""
+    import numpy as np
+    bound = int(np.median(_col(data, key)))
+    cols = [key] + ([dec] if dec else [])
+    aggs = ", ".join(f"sum({c}), min({c}), max({c})" for c in cols)
+    return (f"SELECT count(*), {aggs} FROM {table} "
+            f"WHERE {key} <= {bound}")
+
+
+class HttpProbe:
+    """The phase's client side: every statement goes through the port's
+    Client, and each run reports its rows, its /v1/query info and its
+    wall as the client saw it."""
+
+    def __init__(self, uri):
+        import threading
+        from trino_tpu_torch.client.client import Client
+        self.uri = uri
+        self.client = Client(uri, user="chip", poll_interval_s=0.001)
+        self.statements = 0       # statements sent, from every thread
+        self._lock = threading.Lock()
+
+    def count(self):
+        with self._lock:
+            self.statements += 1
+
+    def new_client(self, user):
+        from trino_tpu_torch.client.client import Client
+        return Client(self.uri, user=user, poll_interval_s=0.001)
+
+    def run(self, sql, client=None):
+        """(rows, info, wall s). The rows are decoded on the host when
+        the last page arrives, so the wall needs no device sync (a sync
+        would also wait for other queries' work on the card)."""
+        cl = client or self.client
+        t = time.monotonic()
+        res = cl.execute(sql)
+        wall = time.monotonic() - t
+        self.count()
+        return res.rows, cl.query_info(res.query_id), wall
+
+    def set(self, name, value):
+        self.client.execute(f"SET SESSION {name} = '{value}'")
+        self.count()
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.uri + path, timeout=60) as resp:
+            return resp.read().decode()
+
+
+def phase_http_path(recorder, main_session, tables):
+    """SQL over HTTP on the card: a port CoordinatorServer over its own
+    CUDA Session at tpch.sf1 (the tables already generated), talked to
+    only through the port's Client, counters set to 0 just before and
+    read just after. TPC-H q1/q6/q3 (K1, K3) and q12 under mxu_agg =
+    'true' (K5) against the oracles and the in-process rows, a paged
+    result of PAGED_ROWS rows, the host/device crossover over six tables,
+    history routing of q6, host-routed point queries beside a q3 on the
+    card, the micro-batcher, the result cache, cancel and deadline, and
+    the read-backs (EXPLAIN's routing line, /v1/metrics, /v1/jit,
+    system.runtime.queries)."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from tpch_full import QUERIES
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.client.client import QueryError
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.metrics import (MICROBATCH_BATCHES,
+                                         MICROBATCH_QUERIES)
+    from trino_tpu_torch.server.coordinator import (CoordinatorServer,
+                                                    _rows_json)
+    t_phase = time.monotonic()
+    conn = main_session.catalog.connector("tpch")
+    cat = Catalog()
+    cat.register("tpch", conn)
+    cat.register("memory", MemoryConnector())
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-http-")
+    saved = {k: os.environ.get(k) for k in ("TRINO_TPU_HISTORY_PATH",
+                                            "TRINO_TPU_QUERY_HISTORY")}
+    # every run starts with no history; the tracker keeps every query of
+    # the phase, so system.runtime.queries can count them
+    os.environ["TRINO_TPU_HISTORY_PATH"] = os.path.join(tmp, "h.jsonl")
+    os.environ["TRINO_TPU_QUERY_HISTORY"] = "100000"
+    session = Session(cat, default_schema=TPCH_SCHEMA)
+    require(session.device.type == "cuda", "the coordinator's Session() "
+            "is not on cuda")
+    coord = CoordinatorServer(session, max_concurrency=16).start()
+    lock = coord.state.dispatcher.exec_lock
+    probe = HttpProbe(coord.uri)
+    record = {}
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+
+    def in_process(sql, runs):
+        with lock:
+            rows, walls = _timed_runs(session, sql, runs)
+        return _rows_json(rows), walls
+
+    def counts_during(fn):
+        before = read_counts()
+        out = fn()
+        after = read_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    try:
+        orders = conn.get_table(TPCH_SCHEMA, "orders")
+        expected = {
+            "q1": oracle_q1(tables["lineitem"]),
+            "q6": oracle_q6(tables["lineitem"]),
+            "q3": oracle_q3(tables["customer"], orders,
+                            tables["lineitem"]),
+            "q12": oracle_q12(orders, tables["lineitem"])}
+        expected = {k: _rows_json(v) for k, v in expected.items()}
+        # 1. q1, q6, q3: one cold and three steady runs each
+        per_query = {}
+        for name, sql in (("q1", Q1), ("q6", Q6), ("q3", Q3)):
+            def runs(sql=sql):
+                return [probe.run(sql) for _ in range(4)]
+            out, delta = counts_during(runs)
+            local_rows, local_walls = in_process(sql, 4)
+            for rows, info, _wall in out:
+                require(rows == expected[name] == local_rows,
+                        f"{name} over HTTP differs from the oracle or the "
+                        f"in-process rows:\n{rows[:3]}\nvs\n"
+                        f"{expected[name][:3]}")
+                require(info["route"] == "device", f"{name} routed "
+                        f"{info['route']} ({info['routeReason']})")
+            walls = [w for _r, _i, w in out]
+            per_query[name] = {
+                "walls_s": walls, "in_process_walls_s": local_walls,
+                "steady_median_s": statistics.median(walls[1:]),
+                "in_process_steady_median_s":
+                    statistics.median(local_walls[1:]),
+                "route_reason": out[-1][1]["routeReason"],
+                "launches": delta}
+            per_query[name]["protocol_cost_s"] = \
+                per_query[name]["steady_median_s"] - \
+                per_query[name]["in_process_steady_median_s"]
+            log(f"http {name}: rows match the oracle and the in-process "
+                f"rows; walls {[round(w, 4) for w in walls]} s over HTTP, "
+                f"{[round(w, 4) for w in local_walls]} s in process "
+                f"(steady medians {per_query[name]['steady_median_s']:.4f}"
+                f" / {per_query[name]['in_process_steady_median_s']:.4f}"
+                f" s); route device ({out[-1][1]['routeReason']}); "
+                f"launches {delta}")
+        require(per_query["q3"]["launches"]["K1"] > 0 and
+                per_query["q3"]["launches"]["K3"] > 0,
+                "q3 over HTTP did not launch K1 and K3")
+        record["tpch"] = per_query
+        # 2. q12 under mxu_agg = 'true'
+        probe.set("mxu_agg", "true")
+        (rows, info, wall), delta = counts_during(
+            lambda: probe.run(QUERIES[12]))
+        probe.set("mxu_agg", "auto")
+        require(rows == expected["q12"], f"q12 over HTTP differs from the "
+                f"oracle:\n{rows}\nvs\n{expected['q12']}")
+        require(delta["K5"] >= 1 and info["route"] == "device",
+                f"q12 under mxu_agg = 'true' launched K5 {delta['K5']} "
+                f"times, route {info['route']}")
+        record["q12"] = {"wall_s": wall, "launches": delta}
+        log(f"http q12 (mxu_agg = true): rows match the oracle; wall "
+            f"{wall:.4f} s; launches {delta}")
+        # 3. a result of 120,000 rows over many pages
+        okey = np.sort(_col(orders, "o_orderkey"))
+        big_sql = (f"SELECT o_orderkey, o_totalprice FROM orders WHERE "
+                   f"o_orderkey <= {int(okey[PAGED_ROWS - 1])} "
+                   f"ORDER BY o_orderkey")
+        doc = json.loads(_http_post(coord.uri, big_sql))
+        pages, n_rows, t = 0, 0, time.monotonic()
+        big_rows = []
+        while "nextUri" in doc:
+            doc = json.loads(probe.get(doc["nextUri"][len(coord.uri):]))
+            if "data" in doc:
+                pages += 1
+                big_rows.extend(doc["data"])
+        probe.count()
+        paged_s = time.monotonic() - t
+        local_rows, _w = in_process(big_sql, 1)
+        require(big_rows == local_rows and len(big_rows) == PAGED_ROWS,
+                f"the paged result ({len(big_rows)} rows) differs from "
+                f"the in-process rows ({len(local_rows)})")
+        record["paged"] = {"rows": len(big_rows), "pages": pages,
+                           "wall_s": paged_s}
+        log(f"http paging: {len(big_rows)} rows over {pages} nextUri "
+            f"pages in {paged_s:.4f} s, equal to the in-process rows")
+        # 4. the host/device crossover
+        crossover = []
+        for table, key, dec in CROSSOVER:
+            data = conn.get_table(TPCH_SCHEMA, table)
+            sql = _crossover_sql(table, data, key, dec)
+            per_mode, rows_of = {}, {}
+            for mode in ("host", "device"):
+                probe.set("routing_mode", mode)
+                out, delta = counts_during(
+                    lambda sql=sql: [probe.run(sql) for _ in range(4)])
+                for rows, info, _w in out:
+                    require(info["route"] == mode, f"{table} under "
+                            f"routing_mode = {mode} routed "
+                            f"{info['route']} ({info['routeReason']})")
+                    require(rows == out[0][0], f"{table}: a rerun "
+                            f"returned other rows")
+                if mode == "host":
+                    require(not any(delta.values()), f"{table}: the host "
+                            f"route launched kernels {delta}")
+                rows_of[mode] = out[0][0]
+                per_mode[mode] = {
+                    "walls_s": [w for _r, _i, w in out],
+                    "elapsed_s": [i["elapsedSeconds"] for _r, i, _w
+                                  in out]}
+            probe.set("routing_mode", "auto")
+            require(rows_of["host"] == rows_of["device"],
+                    f"{table}: host rows {rows_of['host']} differ from "
+                    f"device rows {rows_of['device']}")
+            entry = {"table": table, "rows": data.num_rows, "sql": sql}
+            for mode in ("host", "device"):
+                entry[f"{mode}_steady_median_s"] = statistics.median(
+                    per_mode[mode]["elapsed_s"][1:])
+                entry[f"{mode}_steady_wall_median_s"] = statistics.median(
+                    per_mode[mode]["walls_s"][1:])
+                entry[f"{mode}_cold_s"] = per_mode[mode]["elapsed_s"][0]
+            crossover.append(entry)
+            log(f"http crossover {table} ({data.num_rows} rows): steady "
+                f"medians host {entry['host_steady_median_s']:.5f} s, "
+                f"device {entry['device_steady_median_s']:.5f} s "
+                f"(server elapsed; client walls "
+                f"{entry['host_steady_wall_median_s']:.5f} / "
+                f"{entry['device_steady_wall_median_s']:.5f} s); rows "
+                f"equal between routes")
+        # where a device run's host time goes on the table whose device
+        # median sits furthest above its host median
+        worst = max(crossover, key=lambda e: e["device_steady_median_s"] /
+                    e["host_steady_median_s"])
+        with lock:
+            record["crossover_device_profile"] = {
+                "table": worst["table"],
+                **_host_profile(session, worst["sql"], top=8)}
+        log("http crossover: a device run of the " + worst["table"] +
+            " statement under cProfile: " +
+            json.dumps(record["crossover_device_profile"]))
+        wins = [e["rows"] for e in crossover
+                if e["device_steady_median_s"] < e["host_steady_median_s"]]
+        record["crossover"] = crossover
+        record["device_wins_from_rows"] = min(wins) if wins else None
+        log(f"http crossover: the device wins from {min(wins) if wins else None}"
+            f" rows on (router_host_max_rows = 200,000)")
+        # 5. history routing of q6 on the card's timings
+        history = []
+        for _ in range(10):
+            rows, info, wall = probe.run(Q6)
+            require(rows == expected["q6"], f"q6 ({info['route']}) "
+                    f"differs from the oracle: {rows}")
+            history.append({"route": info["route"],
+                            "reason": info["routeReason"],
+                            "wall_s": wall,
+                            "elapsed_s": info["elapsedSeconds"]})
+        record["history_q6"] = history
+        log("http history routing, q6 ten times: " + json.dumps(history))
+        # 6. host routes run beside a q3 that holds the card
+        nation_sql = ("SELECT n_name, n_regionkey FROM nation "
+                      "WHERE n_nationkey = {}")
+        point_rows = {k: in_process(nation_sql.format(k), 1)[0]
+                      for k in range(25)}
+        out, delta = counts_during(
+            lambda: [probe.run(nation_sql.format(k)) for k in range(8)])
+        require(not any(delta.values()) and
+                all(i["route"] == "host" for _r, i, _w in out),
+                f"host-routed point queries launched kernels {delta}")
+        alone_walls = sorted(w for _r, _i, w in out)
+        q3_done = {}
+
+        def run_q3():
+            rows, info, wall = probe.run(Q3, probe.new_client("q3"))
+            q3_done.update(rows=rows, info=info, at=time.monotonic(),
+                           wall=wall)
+        q3_thread = threading.Thread(target=run_q3)
+        q3_thread.start()
+        _wait_running(coord, Q3)
+        done, errors = [], []
+        done_lock = threading.Lock()
+
+        def points(t):
+            cl = probe.new_client(f"point{t}")
+            for i in range(4):
+                k = (4 * t + i) % 25
+                rows, info, wall = probe.run(nation_sql.format(k), cl)
+                with done_lock:
+                    if rows != point_rows[k] or info["route"] != "host":
+                        errors.append((k, rows, info["route"]))
+                    done.append((time.monotonic(), wall))
+        threads = [threading.Thread(target=points, args=(t,))
+                   for t in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        q3_thread.join(timeout=120)
+        require(not errors and len(done) == 64,
+                f"point queries beside q3: {len(done)} done, errors "
+                f"{errors[:3]}")
+        require(q3_done.get("rows") == expected["q3"],
+                "q3 beside the point queries differs from the oracle")
+        point_walls = sorted(w for _at, w in done)
+        record["host_beside_q3"] = {
+            "p50_s": point_walls[len(point_walls) // 2],
+            "p99_s": point_walls[min(63, int(0.99 * 64))],
+            "before_q3": sum(at < q3_done["at"] for at, _w in done),
+            "q3_route": q3_done["info"]["route"],
+            "q3_wall_s": q3_done["wall"],
+            "alone_p50_s": alone_walls[len(alone_walls) // 2]}
+        log("http host routes beside q3: "
+            + json.dumps(record["host_beside_q3"]))
+        # 7. the micro-batcher: 32 point queries on orders at once
+        keys = okey[np.linspace(0, len(okey) - 1, 32).astype(np.int64)]
+        row_of = {int(k): i for i, k in
+                  enumerate(_col(orders, "o_orderkey"))}
+        custkey, price = _col(orders, "o_custkey"), \
+            _col(orders, "o_totalprice")
+        mb_expected = {int(k): _rows_json([(int(custkey[row_of[int(k)]]),
+                                            _dec(price[row_of[int(k)]],
+                                                 2))])
+                       for k in keys}
+        probe.set("enable_microbatch", "true")
+        probe.set("microbatch_window_ms", "40")
+        q0, b0 = MICROBATCH_QUERIES.value(), MICROBATCH_BATCHES.value()
+        mb_out, mb_err = {}, []
+        barrier = threading.Barrier(32)
+
+        def point_order(k):
+            cl = probe.new_client(f"mb{k}")
+            barrier.wait()
+            try:
+                mb_out[k] = probe.run(
+                    f"SELECT o_custkey, o_totalprice FROM orders "
+                    f"WHERE o_orderkey = {k}", cl)
+            except Exception as e:  # noqa: BLE001 — reported below
+                mb_err.append((k, repr(e)))
+        (_, delta) = counts_during(lambda: _join_all(
+            [threading.Thread(target=point_order, args=(int(k),))
+             for k in keys]))
+        probe.set("enable_microbatch", "false")
+        probe.set("microbatch_window_ms", "4")
+        dq = MICROBATCH_QUERIES.value() - q0
+        db = MICROBATCH_BATCHES.value() - b0
+        require(not mb_err, f"micro-batched point queries failed: "
+                f"{mb_err[:3]}")
+        for k, (rows, info, _w) in mb_out.items():
+            require(rows == mb_expected[k], f"o_orderkey = {k}: {rows} vs "
+                    f"{mb_expected[k]}")
+        routes = sorted({i["route"] for _r, i, _w in mb_out.values()})
+        require(db >= 1 and dq > db, f"no coalescing: {dq} queries in "
+                f"{db} micro-batches")
+        record["microbatch"] = {"queries": dq, "batches": db,
+                                "routes": routes, "launches": delta,
+                                "walls_s": sorted(w for _r, _i, w in
+                                                  mb_out.values())}
+        log(f"http micro-batcher: 32 point queries on orders, each its own "
+            f"row; {dq} queries in {db} batches; routes {routes}; launches "
+            f"{delta}")
+        # 8. the result cache
+        probe.set("enable_result_cache", "true")
+        first = probe.run(Q6)
+        second, delta = counts_during(lambda: probe.run(Q6))
+        probe.set("enable_result_cache", "false")
+        require(second[1]["route"] == "cache" and
+                not any(delta.values()) and
+                second[0] == first[0] == expected["q6"],
+                f"result cache: route {second[1]['route']}, launches "
+                f"{delta}")
+        record["result_cache"] = {"first_route": first[1]["route"],
+                                  "first_wall_s": first[2],
+                                  "hit_wall_s": second[2]}
+        log(f"http result cache: q6 {first[1]['route']} {first[2]:.4f} s, "
+            f"then a hit in {second[2]:.4f} s with no launch")
+        # 9. cancel and deadline
+        doc = json.loads(_http_post(coord.uri, Q3))
+        probe.count()
+        _wait_state(coord, doc["id"], "RUNNING")
+        # the DELETE should land while the executor runs q3 on the card
+        pool = coord.state.dispatcher.session.executor.pool
+        t = time.monotonic()
+        while pool._current_tag != doc["id"] and time.monotonic() - t < 5:
+            time.sleep(0.0005)
+        executing = pool._current_tag == doc["id"]
+        _http_delete(coord.uri + f"/v1/statement/executing/{doc['id']}/0")
+        while "nextUri" in doc:
+            doc = json.loads(probe.get(doc["nextUri"][len(coord.uri):]))
+        cancel_name = doc.get("error", {}).get("errorName")
+        require(cancel_name == "USER_CANCELED", f"DELETE of a running q3 "
+                f"ended {doc.get('stats', {}).get('state')} "
+                f"({cancel_name})")
+        rows, _i, _w = probe.run(Q6)
+        require(rows == expected["q6"], "q6 after the cancel")
+        probe.set("query_max_run_time_s", "0.001")
+        try:
+            probe.run(Q3)
+            deadline_name = None
+        except QueryError as e:
+            deadline_name = e.error_name
+        with lock:
+            # not through the protocol: the SET itself would run under
+            # the 1 ms budget
+            session.execute("SET SESSION query_max_run_time_s = 0")
+        require(deadline_name == "QUERY_EXCEEDED_RUN_TIME",
+                f"q3 under a 1 ms budget: {deadline_name}")
+        rows, _i, _w = probe.run(Q6)
+        require(rows == expected["q6"], "q6 after the deadline")
+        record["cancel"] = {"error": cancel_name,
+                            "canceled_while_executing": executing,
+                            "deadline_error": deadline_name}
+        log("http cancel and deadline: " + json.dumps(record["cancel"]))
+        # 10. read-backs
+        rows, _i, _w = probe.run("EXPLAIN " + Q6)
+        routing = [r[0] for r in rows if r[0].startswith("routing: ")]
+        require(len(routing) == 1, "EXPLAIN q6 has no routing line")
+        metrics = probe.get("/v1/metrics")
+        require("trino_tpu_http_requests_total" in metrics and
+                "trino_tpu_plan_cache_hits_total" in metrics and
+                "trino_tpu_plan_cache_misses_total" in metrics,
+                "/v1/metrics lacks the HTTP or plan-cache counters")
+        jit = json.loads(probe.get("/v1/jit"))
+        sites = sorted({e["site"] for e in jit["entries"]})
+        require({"cuda_build.gather", "cuda_build.hash_insert",
+                 "cuda_build.direct_agg"} <= set(sites),
+                f"/v1/jit lists {sites}")
+        ran = probe.statements + 1
+        rows, _i, _w = probe.run("SELECT count(*) FROM system.runtime.queries")
+        require(rows[0][0] >= ran, f"system.runtime.queries counts "
+                f"{rows[0][0]} < {ran} statements")
+        record["readbacks"] = {"routing": routing[0], "jit_sites": sites,
+                               "jit_totals": jit["totals"],
+                               "queries_counted": rows[0][0],
+                               "statements": probe.statements}
+        log("http read-backs: " + json.dumps(record["readbacks"]))
+    finally:
+        recorder.active, recorder.keep = False, True
+        coord.stop()
+        coord.state.dispatcher.pool.shutdown(wait=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    require(launches["K1"] > 0 and launches["K3"] > 0 and
+            launches["K5"] > 0, f"the HTTP path launched {launches}")
+    record["launches"] = launches
+    record["phase_s"] = time.monotonic() - t_phase
+    log("http path: " + json.dumps(record, default=str))
+    return launches
+
+
+def _http_post(uri, sql):
+    import urllib.request
+    req = urllib.request.Request(uri + "/v1/statement", data=sql.encode(),
+                                 method="POST",
+                                 headers={"X-Trino-User": "chip"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def _http_delete(url):
+    import urllib.request
+    req = urllib.request.Request(url, method="DELETE",
+                                 headers={"X-Trino-User": "chip"})
+    urllib.request.urlopen(req, timeout=60).close()
+
+
+def _wait_state(coord, qid, state, timeout_s=60.0):
+    t = time.monotonic()
+    while time.monotonic() - t < timeout_s:
+        if coord.state.tracker.get(qid).state == state:
+            return
+        time.sleep(0.0005)
+    raise SmokeFailure(f"{qid} never reached {state}")
+
+
+def _wait_running(coord, sql, timeout_s=60.0):
+    """Wait until a tracked query with this text is RUNNING."""
+    t = time.monotonic()
+    while time.monotonic() - t < timeout_s:
+        if any(q.sql == sql and q.state == "RUNNING"
+               for q in coord.state.tracker.all()):
+            return
+        time.sleep(0.0005)
+    raise SmokeFailure("the query never started")
+
+
+def _join_all(threads):
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+
+
 K1_PATHS = ("big tiles", "small tiles")
 # the memory-pressure path's K3 captures (LaunchRecorder.capture)
 MEMORY_K3 = ("GROUP BY l_orderkey, whole input",
@@ -3322,7 +3858,8 @@ def main() -> int:
              phase_stream_build(recorder, session),
              phase_corpus_paths(recorder, session, tables, ds_session),
              phase_write_path(recorder, session),
-             phase_memory_pressure(recorder, session, tables)]
+             phase_memory_pressure(recorder, session, tables),
+             phase_http_path(recorder, session, tables)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -879,3 +879,32 @@ def test_spilled_operators_on_card_equal_cpu(tmp_path, monkeypatch):
                 assert k5.direct_group_aggregate_mxu.launches > k5n
             out[device] = (rows, spilled)
         assert out["cuda"] == out["cpu"], name
+
+
+def test_http_q3_on_card_equals_cpu_coordinator(tmp_path, monkeypatch):
+    """TPC-H q3 over HTTP at tpch.tiny: a coordinator over a CUDA Session
+    routes it to the card and answers the CPU coordinator's rows, route
+    and reason. Its aggregate takes the hash strategy (K3) under
+    hash_agg_min_groups = 1 (at tiny the default picks the sort one)."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    _card()
+    monkeypatch.setenv("TRINO_TPU_HISTORY_PATH", str(tmp_path / "h.jsonl"))
+    out = {}
+    for device in ("cpu", "cuda"):
+        coord = CoordinatorServer(Session(device=device)).start()
+        try:
+            client = Client(coord.uri, user="t", poll_interval_s=0.005)
+            client.execute("SET SESSION hash_agg_min_groups = 1")
+            k3 = ht.hash_insert_multi.launches
+            res = client.execute(QUERIES[3])
+            info = client.query_info(res.query_id)
+            launched = ht.hash_insert_multi.launches - k3
+            out[device] = (res.rows, info["route"], info["routeReason"])
+        finally:
+            coord.stop()
+        assert (launched > 0) == (device == "cuda"), (device, launched)
+    assert out["cuda"] == out["cpu"] and out["cuda"][1] == "device"
+    assert out["cuda"][0]

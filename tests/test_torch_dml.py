@@ -10,8 +10,7 @@ Three groups:
   VARCHAR pools) and their rows equal sqlite's;
 - CREATE TABLE (AS SELECT), INSERT VALUES / SELECT, DROP TABLE,
   IF [NOT] EXISTS, the reference's error cases and EXPLAIN of a write,
-  with the texts equal to the reference's (its routing line aside: the
-  port has no router);
+  with the texts equal to the reference's, the routing line included;
 - stale state on `tpch.tiny` copied into memory tables: a query, a
   mutation, the query again with the scan cache warm and under
   `spill_chunk_rows` (the fact-column cache), each time equal to the JAX
@@ -286,10 +285,6 @@ def test_write_errors_as_reference(tables, what):
     assert_tables_equal(js.catalog, ts.catalog, "memory", "w")
 
 
-def _plan_rows(rows):
-    return [r for r in rows if not r[0].startswith("routing:")]
-
-
 @pytest.mark.parametrize("sql", [
     "EXPLAIN CREATE TABLE memory.w.x AS SELECT o_orderstatus, count(*) "
     "FROM tpch.tiny.orders GROUP BY o_orderstatus",
@@ -306,7 +301,7 @@ def test_explain_write_equals_reference(tables, sql):
     js.execute(setup)
     got = ts.execute(sql).rows
     assert got[0][0].startswith("TableCommit[memory.w.")
-    assert _plan_rows(got) == _plan_rows(js.execute(sql).rows)
+    assert got == js.execute(sql).rows
     assert_tables_equal(js.catalog, ts.catalog, "memory", "w")
 
 

@@ -193,15 +193,14 @@ def test_unported_options_raise(tables, oracle, prop, value):
 def test_multiway_join_plans_as_reference(tables, qnum, k):
     """`enable_multiway_join = 'true'` plans what the reference plans —
     q3's spine is a chain, so neither side fuses it; q5 fuses a k=2
-    star — with plan texts equal apart from the reference's routing line,
+    star — with plan texts equal, the routing line included,
     and the query runs to the reference's rows (q5 through K4's plain
     version here, the interpreted TPU kernel there)."""
     js, ts = _sessions(tables, (("enable_multiway_join", "true"),))
     sql = H_QUERIES[qnum]
 
     def plan(s):
-        return [r[0] for r in s.execute("EXPLAIN " + sql).rows
-                if not r[0].startswith("routing:")]
+        return [r[0] for r in s.execute("EXPLAIN " + sql).rows]
     got = plan(ts)
     assert got == plan(js)
     assert any("MultiJoin[" in ln for ln in got) == (k is not None)

@@ -418,6 +418,12 @@ class Session:
                 unit = "zones" if kind == "zone-pruned" else "chunks"
                 rows.append((f"scan {op[10:-1]}: {total} {unit}, "
                              f"{pruned} pruned by zone maps",))
+        # the host/device verdict (exec/router.py): what the serving
+        # layer would do with this plan, and why
+        from .router import decide_route
+        dec = decide_route(planner, root, self.properties,
+                           history=getattr(self, "history_store", None))
+        rows.append((f"routing: {dec.target} ({dec.reason})",))
         return QueryResult(["query plan"], rows, time.monotonic() - t0)
 
     def execute_show(self, stmt, t0) -> QueryResult:

@@ -16,6 +16,11 @@ source rebuilds and an unchanged one loads from ``_build/`` (listed in
 Every C entry's signature stands in ``SIGNATURES`` and is bound once, when
 its library loads; ``library`` takes its lock only to build or load, so a
 launch pays one dict lookup for its entry.
+
+Each load is recorded in the compile recorder (``exec/profiler.RECORDER``)
+as site ``cuda_build.<kernel>`` with the source digest as fingerprint: a
+library this process built is a compile with its nvcc seconds, one found
+already built is a hit.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# library -> nvcc seconds of a build this process made and has not loaded
+_built_s: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -76,10 +83,13 @@ def nvcc_path() -> str:
                        "kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _digest(name: str) -> str:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)[:16]}.so"
 
 
 def _start_build(name: str):
@@ -94,16 +104,17 @@ def _start_build(name: str):
            str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.monotonic()
 
 
 def _finish_build(name: str, started) -> None:
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    _built_s[name] = time.monotonic() - t0
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> float:
@@ -137,7 +148,21 @@ def library(name: str) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _libs[name] = lib
-        return lib
+        built_s = _built_s.pop(name, None)
+    from ..exec.profiler import RECORDER
+    RECORDER.record(f"cuda_build.{name}", _digest(name)[:16],
+                    built_s or 0.0, hit=built_s is None)
+    return lib
+
+
+def load_all(names: Iterable[str] = KERNEL_SOURCES) -> int:
+    """Build (all nvcc processes together) and load every named kernel
+    library; returns how many were loaded by this call."""
+    names = [n for n in names if n not in _libs]
+    build_all(names)
+    for n in names:
+        library(n)
+    return len(names)
 
 
 def raw_stream(device) -> int:
