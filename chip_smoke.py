@@ -77,7 +77,8 @@ Phases, each failing the run with a non-zero exit:
    (~1/4: a decimal and a VARCHAR column, with a value new to the pool),
    INSERT ... SELECT (~1/10 back) and a MERGE INTO orders (~10% matched,
    ~3% new keys), each reporting the row count of a numpy replica that
-   applies the same mutation; after each statement the stored tables
+   applies the same mutation; after the CTAS and the MERGE (whose state
+   holds the DELETE, the UPDATE and the INSERT) the stored tables
    equal their replicas, TPC-H q1, q6 and q3 over the memory tables
    equal the numpy oracles over the replicas (one cold, two steady
    runs), q12 under ``mxu_agg = 'true'`` (K5) equals its oracle, and q1
@@ -96,9 +97,8 @@ Phases, each failing the run with a non-zero exit:
    just after): JOIN_Q, GROUP BY l_orderkey, AGG_Q's sums and counts
    under ``mxu_agg = 'true'``, AGG_Q and a TopN at ``tpch.sf1``, each
    resident with its decisions replayed from disk (pool peak, wall, the
-   card's peak), then with the pool at a half and a quarter of that
-   peak: rows equal the resident rows and the numpy oracles, every query
-   spills at a quarter, K3 launches in the spilled GROUP BY and K5 in the
+   card's peak), then with the pool at a quarter of that peak: rows
+   equal the resident rows and the numpy oracles, every query spills, K3 launches in the spilled GROUP BY and K5 in the
    chunk-and-merge aggregate; JOIN_Q with every partition forced to disk
    (``TRINO_TPU_SPILL_DIR`` in a temporary directory), and again under
    SPOOL_WRITE faults (recovered to the RAM copy, counted); GROUP BY
@@ -123,7 +123,29 @@ Phases, each failing the run with a non-zero exit:
    running q3 (USER_CANCELED) and q3 under a 1 ms budget
    (QUERY_EXCEEDED_RUN_TIME), each followed by a correct q6, and the
    read-backs (EXPLAIN's routing line, /v1/metrics, the ``cuda_build.*``
-   sites of /v1/jit, ``system.runtime.queries``);
+   sites of /v1/jit, ``system.runtime.queries``); then the cluster
+   (``phase_cluster_path``: a port coordinator over a CUDA Session of its
+   own at ``tpch.sf1`` schedules stages onto two port ``WorkerServer``s
+   in this process, each with its own CUDA executor on the one card,
+   with a heartbeat failure detector and ``split_rows`` 250,000, the
+   spool cleared before every run, counters set to 0 just before and
+   read just after): TPC-H q1, q6, q3 and q12 (``mxu_agg = 'true'`` on
+   the coordinator and the workers' executors: K5 a split), one cold and
+   three steady runs each, every run distributed with tasks on both
+   workers and rows equal to the oracles, the in-process rows and the
+   same coordinator running them itself over HTTP (the three walls
+   printed with tasks, splits and page bytes); K1, K3 and K5 must
+   launch; one traced q1 (its spans summed by name); EXPLAIN ANALYZE of
+   q3 (a ``Stage source: tasks=`` line); q3 with a third worker killed
+   while its task hangs and q1 with a worker drained under it
+   (DRAINING, DRAINED, LEFT), both exact; a distributed CTAS of orders'
+   first 250,000 keys into ORC (committed by the workers' staged writes)
+   and a CTAS of orders into memory (run by the coordinator, as in the
+   reference), each equal to its source; the port verifier over TPC-H
+   q1, q3, q6, q12 and q14 at ``tpch.tiny`` on the card against sqlite;
+   and, after the counts are read, the rows of lineitem where the card's
+   ln and power (its own `log`, `pow`) and exp and sqrt (the CPU's
+   replay; these must agree) differ from the port's CPU result;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -172,6 +194,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # the H100's data-sheet memory rate (SXM part), bytes/s
@@ -2173,7 +2196,8 @@ def phase_write_path(recorder, main_session):
     pool), INSERT ... SELECT (~1/10 back) and one MERGE INTO orders (~10%
     matched, ~3% new keys; it must launch K1, and runs once more into a
     copy of orders under torch.profiler), each reporting the replica's
-    row count; after each, `_write_state`. Then the file
+    row count; after the CTAS and the MERGE, `_write_state` (the MERGE's
+    state holds the DELETE, the UPDATE and the INSERT). Then the file
     connectors (`_file_phase`), and DROP TABLE of the memory tables.
     Counters set to 0 before, read after. A Session of its own over the
     same catalog, so that the writes' cache invalidations leave the other
@@ -2207,14 +2231,15 @@ def phase_write_path(recorder, main_session):
         _statement(session, DELETE_SQL.format(s=TPCH_SCHEMA),
                    "DELETE", int(m.sum()), record)
         li.keep(~m)
-        _write_state(session, reps, "DELETE", record)
 
         m = li.col("l_orderkey") % 4 == 1
         _statement(session, UPDATE_SQL.format(s=TPCH_SCHEMA),
                    "UPDATE", int(m.sum()), record)
         li.col("l_extendedprice")[m] += 100
         li.col("l_shipmode")[m] = li.add_string("l_shipmode", "DRONE")
-        _write_state(session, reps, "UPDATE", record)
+        # the DELETE, the UPDATE and the INSERT are checked in the state
+        # after the MERGE (which leaves lineitem as they left it): a check
+        # of its own after each would hold the script over its time
 
         orig = src["lineitem"]
         m = _col(orig, "l_shipdate") < _days("1992-09-01")
@@ -2227,7 +2252,6 @@ def phase_write_path(recorder, main_session):
                             orig.schema.fields[i].dictionary],
                            np.int32)[cols[i]]
         li.append(cols, [np.ones(int(m.sum()), np.bool_)] * len(cols))
-        _write_state(session, reps, "INSERT", record)
 
         od = reps["orders"]
         ok = _col(src["orders"], "o_orderkey")
@@ -2444,9 +2468,9 @@ def phase_memory_pressure(recorder, main_session, tables):
     groups, and every group in order of l_orderkey), the four-group sums
     under mxu_agg = 'true' (K5 on each chunk), AGG_Q and a TopN at
     tpch.sf1, each resident with its decisions warm (pool peak, wall, the
-    card's peak), then at a half and a quarter of its resident pool peak:
-    rows equal the resident rows and the numpy oracles, every query spills
-    at a quarter, K3 and K5 launch there. The largest K3 launch of the
+    card's peak), then at a quarter of its resident pool peak: rows equal
+    the resident rows and the numpy oracles, every query spills, K3 and
+    K5 launch there. The largest K3 launch of the
     GROUP BYs over the whole input and of their spilled partitions are
     kept for the timing phase, which holds them against K3's plain
     version. Then JOIN_Q with every
@@ -2530,7 +2554,7 @@ def phase_memory_pressure(recorder, main_session, tables):
             peak = s.executor.pool.peak
             rec = {"resident": {"pool_peak": peak, "wall_s": wall,
                                 "card_peak_above_bytes": card_peak}}
-            for frac in (2, 4):
+            for frac in (4,):
                 s = fresh(name, max(1, peak // frac))
                 k3n, k5n = ht.hash_insert_multi.launches, \
                     k5.direct_group_aggregate_mxu.launches
@@ -3143,6 +3167,480 @@ def _join_all(threads):
         th.join(timeout=120)
 
 
+# the cluster path's statements: a distributed CTAS of orders' first
+# CLUSTER_ORC_ROWS keys into ORC (a staged write on the workers) and of
+# all of orders into the memory connector (which stages no writes: the
+# coordinator runs it, as the reference's does)
+CLUSTER_ORC_ROWS = 250_000
+# the reference's default split size: lineitem at sf1 in 25 splits
+CLUSTER_SPLIT_ROWS = 250_000
+CLUSTER_ORC_SQL = ("CREATE TABLE orc.out.orders_c AS SELECT o_orderkey, "
+                   "o_custkey, o_orderstatus, o_totalprice FROM orders "
+                   "WHERE o_orderkey <= {bound}")
+CLUSTER_MEMORY_SQL = "CREATE TABLE memory.sf1.orders_c AS SELECT * FROM orders"
+VERIFY_QUERIES = (1, 3, 6, 12, 14)
+
+
+def _put_state(uri, state):
+    import urllib.request
+    from trino_tpu_torch.server.security import internal_headers
+    req = urllib.request.Request(
+        uri + "/v1/info/state", data=json.dumps({"state": state}).encode(),
+        method="PUT", headers={"Content-Type": "application/json",
+                               **internal_headers()})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status
+
+
+def _wait_for(cond, what, timeout_s=60.0):
+    t = time.monotonic()
+    while time.monotonic() - t < timeout_s:
+        if cond():
+            return
+        time.sleep(0.002)
+    raise SmokeFailure(f"timed out waiting for {what}")
+
+
+def _decoded(data, name):
+    """A column's values as the user sees them (pool strings for VARCHAR
+    codes) with NULLs as None-free zeros, for comparing tables whose
+    pools may be numbered apart."""
+    import numpy as np
+    i = data.schema.index_of(name)
+    col = np.asarray(data.columns[i])
+    pool = data.schema.fields[i].dictionary
+    return np.array(pool, dtype=object)[col] if pool else col
+
+
+def _math_card_counts(tables):
+    """Rows of lineitem where the card's sqrt, exp, ln and power differ
+    from the port's CPU result (ops/project.py *_like_reference): the CPU
+    rounds as the reference's compiled code does (sqrt correctly rounded,
+    exp replayed, ln and power through glibc); the card runs the same
+    sqrt and exp replay and its own log and pow. The arguments are the
+    SQL statements' (ROADMAP Queue C 2): ln(l_extendedprice) and
+    sqrt(l_quantity) take the unscaled decimal, power(CAST(l_quantity AS
+    double), 1.5) the double, exp(CAST(l_extendedprice AS double) / 1000)
+    a spread of 0.9 to 105."""
+    import numpy as np
+    import torch
+    from trino_tpu_torch.ops import project as P
+    li = tables["lineitem"]
+    price = _col(li, "l_extendedprice").astype(np.float64)
+    qty = _col(li, "l_quantity").astype(np.float64)
+    cases = {
+        "ln": (P.log_like_reference, (price,)),
+        "power": (P.pow_like_reference,
+                  (qty * (1.0 / 100), np.full(len(qty), 1.5))),
+        "exp": (P.exp_like_reference, (price * (1.0 / 100) / 1000,)),
+        "sqrt": (P.sqrt_like_reference, (qty,))}
+    out = {}
+    for name, (fn, args) in cases.items():
+        t = time.monotonic()
+        # each function is elementwise and only its first argument
+        # varies: the CPU computes each distinct argument once (glibc a
+        # call at a time) and spreads it over the rows; the card computes
+        # every row
+        uniq, inv = np.unique(args[0], return_inverse=True)
+        rest = (a[:len(uniq)] for a in args[1:])
+        cpu = fn(torch.from_numpy(uniq),
+                 *(torch.from_numpy(a) for a in rest)).numpy()[inv]
+        cpu_s = time.monotonic() - t
+        card = fn(*(torch.from_numpy(a).cuda() for a in args)).cpu().numpy()
+        differ = int((cpu.view(np.int64) != card.view(np.int64)).sum())
+        out[name] = {"rows": len(cpu), "distinct": len(uniq),
+                     "differ": differ, "cpu_s": round(cpu_s, 3)}
+    require(out["exp"]["differ"] == 0 and out["sqrt"]["differ"] == 0,
+            f"the card's exp replay or sqrt differs from the CPU's: {out}")
+    return out
+
+
+def _task_profile(worker, probe, sched, sql, top=15):
+    """Where a worker task's host time goes: run `sql` on the cluster
+    once, keep the first task with splits that `worker` received, and run
+    that task again on this thread under cProfile (one thread: cProfile's
+    times stay whole), through the worker's own TaskManager. Its wall, its
+    splits, and the `top` functions by cumulative host seconds, as
+    [file:function, s, calls]."""
+    import cProfile
+    import pstats
+    import torch
+    from trino_tpu_torch.server.tasks import WorkerTask
+    tm = worker.task_manager
+    seen = []
+    real = tm.create_or_update
+
+    def capture(task_id, fragment_blob, splits, *args, **kwargs):
+        if splits and not seen:
+            seen.append((fragment_blob, list(splits)))
+        return real(task_id, fragment_blob, splits, *args, **kwargs)
+    tm.create_or_update = capture
+    try:
+        sched.spool.clear()
+        probe.run(sql)
+    finally:
+        del tm.create_or_update
+    require(seen, f"{worker.node_id} received no task with splits")
+    task = WorkerTask("profiled-task", *seen[0])
+    pr = cProfile.Profile()
+    t = time.monotonic()
+    pr.enable()
+    tm._run(task)
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.monotonic() - t
+    require(task.state == "FINISHED", f"the profiled task ended "
+            f"{task.state}: {task.error[:300]}")
+    stats = pstats.Stats(pr).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][3])[:top]
+    return {"wall_s": wall, "splits": len(task.splits), "top": [
+        [f"{os.path.basename(f)}:{fn}", round(ct, 4), nc]
+        for (f, _line, fn), (_cc, nc, _tt, ct, _callers) in rows]}
+
+
+def phase_cluster_path(recorder, main_session, tables):
+    """The cluster on the card: a port CoordinatorServer over its own CUDA
+    Session at tpch.sf1 schedules stages onto two port WorkerServers in
+    this process, each with its own CUDA executor on the one card (HTTP
+    workers share no communicator), with a HeartbeatFailureDetector and
+    the reference's default split_rows (250,000: lineitem in 25 splits).
+    Counters set to 0 just before and read just after; the spool cleared
+    before every run, since a spooled fragment replays without dispatch.
+    TPC-H q1, q6, q3 and q12 (K5 under mxu_agg = 'true') one cold and
+    three steady runs each, every run distributed (no fallback reason)
+    with tasks on both workers and rows equal to the oracles and the
+    in-process rows, beside the in-process walls and the same coordinator
+    running them itself over HTTP; EXPLAIN ANALYZE of q3 (its stage
+    line); q3 with a third worker killed while its task hangs; q1 with a
+    worker drained under it (DRAINING -> DRAINED -> LEFT); a distributed
+    CTAS of orders' first 250,000 keys into ORC and a CTAS of orders into
+    memory, each equal to its source; the port verifier over TPC-H q1,
+    q3, q6, q12 and q14 at tpch.tiny on the card against sqlite; and the
+    card's ln and power against the CPU's over lineitem."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    from tpch_full import QUERIES
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    from trino_tpu_torch.connectors.tpch.connector import TABLE_NAMES
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import (CoordinatorServer,
+                                                    _rows_json)
+    from trino_tpu_torch.server.failuredetector import \
+        HeartbeatFailureDetector
+    from trino_tpu_torch.server.failureinjector import (DELAY, HANG,
+                                                        FailureInjector)
+    from trino_tpu_torch.server.worker import WorkerServer
+    from trino_tpu_torch.verifier import Verifier
+    t_phase = time.monotonic()
+    conn = main_session.catalog.connector("tpch")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    os.makedirs(os.path.join(tmp, "orc", "out"))
+    cat = Catalog()
+    cat.register("tpch", conn)
+    cat.register("memory", MemoryConnector())
+    cat.register("orc", OrcConnector(os.path.join(tmp, "orc")))
+    saved = os.environ.get("TRINO_TPU_HISTORY_PATH")
+    os.environ["TRINO_TPU_HISTORY_PATH"] = os.path.join(tmp, "h.jsonl")
+    session = Session(cat, default_schema=TPCH_SCHEMA)
+    require(session.device.type == "cuda", "the coordinator's Session() "
+            "is not on cuda")
+    coord = CoordinatorServer(session, max_concurrency=16).start()
+    sched = coord.state.scheduler
+    sched.split_rows = split_rows = CLUSTER_SPLIT_ROWS
+    workers = [WorkerServer(f"chip-w{i}", coord.uri, announce_interval_s=0.1,
+                            catalog=cat).start() for i in range(2)]
+    extra = []
+    detector = HeartbeatFailureDetector(coord.state, interval_s=0.2).start()
+    lock = coord.state.dispatcher.exec_lock
+    probe = HttpProbe(coord.uri)
+    record = {}
+    try:
+        _wait_for(lambda: len(coord.state.active_nodes()) == 2,
+                  "two workers to announce")
+        for w in workers:
+            require(w.task_manager.device.type == "cuda",
+                    f"{w.node_id} runs on {w.task_manager.device}")
+        reset_counts()
+        recorder.active, recorder.keep = True, False
+        stats0 = dict(sched.stats)
+        orders = conn.get_table(TPCH_SCHEMA, "orders")
+        expected = {
+            "q1": oracle_q1(tables["lineitem"]),
+            "q6": oracle_q6(tables["lineitem"]),
+            "q3": oracle_q3(tables["customer"], orders,
+                            tables["lineitem"]),
+            "q12": oracle_q12(orders, tables["lineitem"])}
+        expected = {k: _rows_json(v) for k, v in expected.items()}
+
+        def cluster_run(sql):
+            sched.spool.clear()
+            rows, info, wall = probe.run(sql)
+            tasks = (sched.last_query or {}).get("tasks", [])
+            return rows, info, wall, {
+                "tasks": len(tasks),
+                "splits": sum(t["splits"] for t in tasks),
+                "page_bytes": sum(t["bytes"] for t in tasks),
+                "nodes": sorted({t["node"] for t in tasks})}
+
+        def in_process(sql, runs):
+            with lock:
+                rows, walls = _timed_runs(session, sql, runs)
+            return _rows_json(rows), walls
+
+        def local_http(sql, runs):
+            """The same coordinator runs the statement itself: no scan is
+            larger than split_rows, so the scheduler declines it."""
+            sched.split_rows = 1 << 62
+            try:
+                out = [probe.run(sql) for _ in range(runs)]
+            finally:
+                sched.split_rows = split_rows
+            for _rows, info, _w in out:
+                require(info["fallbackReason"] is not None,
+                        "the single-coordinator run went distributed")
+            return [r for r, _i, _w in out], [w for _r, _i, w in out]
+
+        # 1. q1, q6, q3, then q12 under mxu_agg = 'true' (the workers'
+        # executors too: a task's fragment carries no session property,
+        # in the reference as here)
+        per_query = {}
+        for name, sql in (("q1", Q1), ("q6", Q6), ("q3", Q3),
+                          ("q12", QUERIES[12])):
+            if name == "q12":
+                probe.set("mxu_agg", "true")
+                for w in workers:
+                    w.task_manager._executor.enable_mxu_agg = "true"
+            before = read_counts()
+            out = [cluster_run(sql) for _ in range(4)]
+            after = read_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            local_rows, local_walls = in_process(sql, 4)
+            http_rows, http_walls = local_http(sql, 4)
+            if name == "q12":
+                probe.set("mxu_agg", "auto")
+                for w in workers:
+                    w.task_manager._executor.enable_mxu_agg = "auto"
+            for rows, info, _w, st in out:
+                require(rows == expected[name] == local_rows and
+                        all(r == rows for r in http_rows),
+                        f"{name} on the cluster differs from the oracle, "
+                        f"the in-process or the local HTTP rows:\n"
+                        f"{rows[:3]}\nvs\n{expected[name][:3]}")
+                require(info["fallbackReason"] is None,
+                        f"{name} did not run distributed: "
+                        f"{info['fallbackReason']}")
+                require(st["nodes"] == sorted(w.node_id for w in workers),
+                        f"{name}: tasks ran on {st['nodes']}")
+            walls = [w for _r, _i, w, _s in out]
+            per_query[name] = {
+                "walls_s": walls, "in_process_walls_s": local_walls,
+                "local_http_walls_s": http_walls,
+                "steady_median_s": statistics.median(walls[1:]),
+                "in_process_steady_median_s":
+                    statistics.median(local_walls[1:]),
+                "local_http_steady_median_s":
+                    statistics.median(http_walls[1:]),
+                "tasks": out[-1][3]["tasks"],
+                "splits": out[-1][3]["splits"],
+                "page_bytes": out[-1][3]["page_bytes"],
+                "launches": delta}
+            log(f"cluster {name}: rows match the oracle, the in-process "
+                f"and the local HTTP rows; steady medians cluster "
+                f"{per_query[name]['steady_median_s']:.4f} s, in process "
+                f"{per_query[name]['in_process_steady_median_s']:.4f} s, "
+                f"one coordinator over HTTP "
+                f"{per_query[name]['local_http_steady_median_s']:.4f} s; "
+                f"cluster walls {[round(w, 4) for w in walls]}; "
+                f"{out[-1][3]}; launches {delta}")
+        require(per_query["q3"]["launches"]["K1"] > 0 and
+                per_query["q3"]["launches"]["K3"] > 0,
+                f"q3 on the cluster launched {per_query['q3']['launches']}")
+        require(per_query["q12"]["launches"]["K5"] > 0,
+                f"q12 on the cluster launched "
+                f"{per_query['q12']['launches']}")
+        record["tpch"] = per_query
+        record["busy_ms"] = {w.node_id: w.task_manager.busy_ms()
+                             for w in workers}
+        # where a cluster run's time goes: one traced q1, its spans summed
+        # by name (under tracing the workers time each operator, with a
+        # device sync a node, so its walls are an upper bound)
+        probe.set("enable_tracing", "true")
+        sched.spool.clear()
+        rows, info, wall = probe.run(Q1)
+        probe.set("enable_tracing", "false")
+        require(rows == expected["q1"], "the traced q1 differs")
+        spans = json.loads(probe.get(
+            f"/v1/query/{info['queryId']}/trace"))["spans"]
+        by_name = {}
+        for sp in spans:
+            agg = by_name.setdefault(sp["name"], [0, 0.0, 0.0])
+            agg[0] += 1
+            agg[1] += sp.get("durationMs", 0.0)
+            agg[2] = max(agg[2], sp.get("durationMs", 0.0))
+        record["q1_trace"] = {"wall_s": wall, "spans": {
+            k: {"count": c, "total_ms": round(t, 3), "max_ms": round(m, 3)}
+            for k, (c, t, m) in sorted(by_name.items())}}
+        log("cluster q1 traced, spans by name: " +
+            json.dumps(record["q1_trace"]))
+        record["q1_task_profile"] = _task_profile(workers[0], probe,
+                                                  sched, Q1)
+        log("cluster q1, one worker task again under cProfile: " +
+            json.dumps(record["q1_task_profile"]))
+        log("cluster workers' busy ms (device / host): "
+            + json.dumps(record["busy_ms"]))
+        # 2. EXPLAIN ANALYZE of q3
+        sched.spool.clear()
+        rows, info, _w = probe.run("EXPLAIN ANALYZE " + Q3)
+        text = "\n".join(r[0] for r in rows)
+        require("Stage source: tasks=" in text, "EXPLAIN ANALYZE of q3 "
+                "has no `Stage source: tasks=` line")
+        record["explain_analyze"] = [line for line in text.splitlines()
+                                     if line.lstrip().startswith("Stage")]
+        log("cluster EXPLAIN ANALYZE q3: " +
+            json.dumps(record["explain_analyze"]))
+        # 3. q3 with a third worker killed while its task hangs
+        doomed = WorkerServer("chip-doomed", coord.uri,
+                              announce_interval_s=0.1, catalog=cat).start()
+        extra.append(doomed)
+        _wait_for(lambda: len(coord.state.active_nodes()) == 3,
+                  "the third worker to announce")
+        hang = FailureInjector(seed=11)
+        hang.inject("WORKER_TASK_RUN", times=1, fault=HANG, delay_s=120.0)
+        doomed.task_manager.injector = hang
+        redone = sched.stats["task_retries"] + sched.stats["hedged_tasks"]
+        done = {}
+
+        def run(sql, key):
+            sched.spool.clear()
+            try:
+                done[key] = probe.run(sql)
+            except Exception as e:  # noqa: BLE001 — reported below
+                done[key] = e
+        th = threading.Thread(target=run, args=(Q3, "killed"))
+        th.start()
+        _wait_for(lambda: doomed.task_manager.inflight(),
+                  "a task on the third worker")
+        t_kill = time.monotonic()
+        doomed.kill()
+        th.join(timeout=300)
+        hang.clear()                  # the dead worker's thread ends
+        killed = done.get("killed")
+        require(isinstance(killed, tuple), f"q3 with a killed worker: "
+                f"{killed!r}")
+        require(killed[0] == expected["q3"] and
+                killed[1]["fallbackReason"] is None,
+                f"q3 with a killed worker: {killed[1]['fallbackReason']}, "
+                f"rows {killed[0][:2]}")
+        record["killed"] = {"wall_s": killed[2],
+                            "after_kill_s": time.monotonic() - t_kill,
+                            "retried_or_hedged":
+                                sched.stats["task_retries"] +
+                                sched.stats["hedged_tasks"] - redone}
+        require(record["killed"]["retried_or_hedged"] > 0, "no task was "
+                "retried or hedged after the kill")
+        log("cluster q3 with a worker killed mid-query: rows match the "
+            "oracle; " + json.dumps(record["killed"]))
+        # 4. q1 with a worker drained under it
+        drainer = workers[1]
+        slow = FailureInjector(seed=12)
+        slow.inject("WORKER_TASK_RUN", times=1, fault=DELAY, delay_s=1.0)
+        drainer.task_manager.injector = slow
+        th = threading.Thread(target=run, args=(Q1, "drained"))
+        th.start()
+        _wait_for(lambda: drainer.task_manager.inflight(),
+                  "a task on the worker to drain")
+        status = _put_state(drainer.uri, "DRAINING")
+        th.join(timeout=300)
+        drained = done.get("drained")
+        require(isinstance(drained, tuple) and
+                drained[0] == expected["q1"] and
+                drained[1]["fallbackReason"] is None,
+                f"q1 under a drain: {drained!r}"[:400])
+        _wait_for(drainer.drained, "DRAINING -> DRAINED -> LEFT")
+        _wait_for(lambda: drainer.node_id not in coord.state.nodes,
+                  "the drained worker to deregister")
+        require(drainer.task_manager.inflight() == [],
+                "the drained worker still has tasks")
+        record["drained"] = {"status": status, "wall_s": drained[2]}
+        log("cluster q1 under a drain: rows match the oracle; the worker "
+            "walked to LEFT; " + json.dumps(record["drained"]))
+        # 5. CTAS into ORC (distributed) and into memory (the coordinator)
+        okey = np.sort(_col(orders, "o_orderkey"))
+        bound = int(okey[CLUSTER_ORC_ROWS - 1])
+        sched.spool.clear()
+        rows, info, wall = probe.run(CLUSTER_ORC_SQL.format(bound=bound))
+        write = (sched.last_query or {}).get("write") or {}
+        require(rows == [[CLUSTER_ORC_ROWS]] and
+                info["fallbackReason"] is None and
+                write.get("phase") == "committed",
+                f"ORC CTAS: {rows}, {info['fallbackReason']}, {write}")
+        got = cat.connector("orc").get_table("out", "orders_c")
+        keep = _col(orders, "o_orderkey") <= bound
+        go = np.argsort(_col(got, "o_orderkey"), kind="stable")
+        so = np.argsort(_col(orders, "o_orderkey")[keep], kind="stable")
+        for name in ("o_orderkey", "o_custkey", "o_orderstatus",
+                     "o_totalprice"):
+            require(np.array_equal(_decoded(got, name)[go],
+                                   _decoded(orders, name)[keep][so]),
+                    f"orc.out.orders_c.{name} differs from orders")
+        record["ctas_orc"] = {"rows": CLUSTER_ORC_ROWS, "wall_s": wall,
+                              "write": write}
+        rows, info, wall = probe.run(CLUSTER_MEMORY_SQL)
+        require(rows == [[orders.num_rows]], f"memory CTAS: {rows}")
+        rep = Replica(orders)
+        rep.name = "orders_c"
+        _check_stored(session, rep, ["o_orderkey"])
+        record["ctas_memory"] = {"rows": orders.num_rows, "wall_s": wall,
+                                 "fallback": info["fallbackReason"]}
+        log("cluster CTAS: " + json.dumps({k: record[k] for k in
+                                           ("ctas_orc", "ctas_memory")},
+                                          default=str))
+        # 6. the verifier on the card at tpch.tiny against sqlite
+        t = time.monotonic()
+        verifier = Verifier(Session(default_schema="tiny"),
+                            list(TABLE_NAMES))
+        results = verifier.run_suite({q: QUERIES[q] for q in VERIFY_QUERIES})
+        bad = [(r.name, r.status, r.detail) for r in results
+               if r.status != "MATCH"]
+        require(not bad, f"verifier: {bad}")
+        record["verifier"] = {"queries": [r.name for r in results],
+                              "wall_s": time.monotonic() - t}
+        log("cluster verifier on the card: every query MATCH; " +
+            json.dumps(record["verifier"]))
+        stats = {k: sched.stats.get(k, 0) - stats0.get(k, 0)
+                 for k in ("tasks", "task_retries", "hedged_tasks",
+                           "hedge_wins", "spool_hits", "splits_migrated")}
+        record["scheduler"] = stats
+        log("cluster scheduler: " + json.dumps(stats))
+    finally:
+        recorder.active, recorder.keep = False, True
+        detector.stop()
+        for w in workers + extra:
+            w.stop(graceful=False)
+        coord.stop()
+        coord.state.dispatcher.pool.shutdown(wait=True)
+        if saved is None:
+            os.environ.pop("TRINO_TPU_HISTORY_PATH", None)
+        else:
+            os.environ["TRINO_TPU_HISTORY_PATH"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    require(launches["K1"] > 0 and launches["K3"] > 0 and
+            launches["K5"] > 0, f"the cluster path launched {launches}")
+    record["launches"] = launches
+    # not a main-path measurement: after the counts are read
+    record["math_card_vs_cpu"] = _math_card_counts(tables)
+    log("cluster ln/power/exp/sqrt, card against CPU over lineitem: " +
+        json.dumps(record["math_card_vs_cpu"]))
+    record["phase_s"] = time.monotonic() - t_phase
+    log("cluster path: " + json.dumps(record, default=str))
+    return launches
+
+
 K1_PATHS = ("big tiles", "small tiles")
 # the memory-pressure path's K3 captures (LaunchRecorder.capture)
 MEMORY_K3 = ("GROUP BY l_orderkey, whole input",
@@ -3181,7 +3679,12 @@ class LaunchRecorder:
         self.k1_launches = {}     # K1's main-path launches per path
         self.k3 = {}              # K3's largest launch per call site
         self.k3_launches = {}     # K3's main-path launches per call site
-        self.k3_site = []         # the executor methods being run
+        # the executor methods being run, per thread (the cluster path's
+        # workers launch from threads of their own)
+        self._sites = threading.local()
+        # K1's per-path count reads the wrappers' counter around a launch:
+        # one launch at a time, or two workers' launches mix
+        self._k1_lock = threading.Lock()
         self.k4 = None
         self.star_build = None    # the largest build_join_tables call
         self.k5 = None            # K5's largest launch: its public args
@@ -3193,6 +3696,11 @@ class LaunchRecorder:
 
     def recording(self) -> bool:
         return self.active and self.keep
+
+    def k3_site(self) -> list:
+        if not hasattr(self._sites, "stack"):
+            self._sites.stack = []
+        return self._sites.stack
 
     def install(self):
         from trino_tpu_torch.ops import direct_agg as k5
@@ -3247,10 +3755,11 @@ class LaunchRecorder:
             if self.keep and (kept is None or
                               idx.shape[0] > kept[1].shape[0]):
                 self.k1[path] = (list(tables), idx, list(fills))
-            before = k1.gather_columns.launches
-            out = real_k1(tables, idx, fills)
-            self.k1_launches[path] = self.k1_launches.get(path, 0) + \
-                k1.gather_columns.launches - before
+            with self._k1_lock:
+                before = k1.gather_columns.launches
+                out = real_k1(tables, idx, fills)
+                self.k1_launches[path] = self.k1_launches.get(path, 0) + \
+                    k1.gather_columns.launches - before
             return out
 
         def k3_launch(key, mask, tid, planes, layout, nstates, T, G,
@@ -3264,8 +3773,8 @@ class LaunchRecorder:
                         kept[7]:
                     kept = args
                 self.captured[self.capture] = (kept, n + 1)
-            site = self.k3_site[-1] if self.k3_site else \
-                "other hash aggregates"
+            sites = self.k3_site()
+            site = sites[-1] if sites else "other hash aggregates"
             kept = self.k3.get(site)
             if self.keep and (kept is None or key.shape[0] * G >
                               kept[0].shape[0] * kept[7]):
@@ -3275,11 +3784,11 @@ class LaunchRecorder:
 
         def at_site(name, method):
             def run(*args, **kwargs):
-                self.k3_site.append(name)
+                self.k3_site().append(name)
                 try:
                     return method(*args, **kwargs)
                 finally:
-                    self.k3_site.pop()
+                    self.k3_site().pop()
             return run
 
         for name, method in K3_SITES.items():
@@ -3859,7 +4368,8 @@ def main() -> int:
              phase_corpus_paths(recorder, session, tables, ds_session),
              phase_write_path(recorder, session),
              phase_memory_pressure(recorder, session, tables),
-             phase_http_path(recorder, session, tables)]
+             phase_http_path(recorder, session, tables),
+             phase_cluster_path(recorder, session, tables)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

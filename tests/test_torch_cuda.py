@@ -908,3 +908,49 @@ def test_http_q3_on_card_equals_cpu_coordinator(tmp_path, monkeypatch):
         assert (launched > 0) == (device == "cuda"), (device, launched)
     assert out["cuda"] == out["cpu"] and out["cuda"][1] == "device"
     assert out["cuda"][0]
+
+
+def test_cluster_q3_on_card_equals_cpu_cluster(tmp_path, monkeypatch):
+    """TPC-H q3 at tpch.tiny on a cluster (a coordinator and two workers,
+    split_rows 8192): on the card every task runs on a CUDA executor
+    (K1 or K3 launch in the workers), and the rows, the fallback verdict
+    (none: it ran distributed) and the workers that took tasks equal a
+    CPU cluster's."""
+    import time
+    from tpch_full import QUERIES
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer
+    _card()
+    monkeypatch.setenv("TRINO_TPU_HISTORY_PATH", str(tmp_path / "h.jsonl"))
+    out = {}
+    for device in ("cpu", "cuda"):
+        coord = CoordinatorServer(Session(device=device)).start()
+        coord.state.scheduler.split_rows = 8192
+        workers = [WorkerServer(f"w{i}", coord.uri, announce_interval_s=0.05,
+                                device=device).start() for i in range(2)]
+        try:
+            deadline = time.time() + 30
+            while len(coord.state.active_nodes()) < 2 and \
+                    time.time() < deadline:
+                time.sleep(0.02)
+            client = Client(coord.uri, user="t", poll_interval_s=0.005)
+            before = (k1.gather_columns.launches,
+                      ht.hash_insert_multi.launches)
+            res = client.execute(QUERIES[3])
+            launched = (k1.gather_columns.launches - before[0] +
+                        ht.hash_insert_multi.launches - before[1])
+            info = client.query_info(res.query_id)
+            out[device] = (res.rows, info.get("fallbackReason"),
+                           [w.task_manager.tasks_run > 0 for w in workers])
+            assert all(w.task_manager.device.type == device
+                       for w in workers)
+        finally:
+            for w in workers:
+                w.stop(graceful=False)
+            coord.stop()
+        assert (launched > 0) == (device == "cuda"), (device, launched)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] and out["cuda"][1] is None
+    assert out["cuda"][2] == [True, True]

@@ -1,6 +1,8 @@
-"""The port stands alone: importing trino_tpu_torch and running a query
-loads neither jax nor the reference package (checked in a fresh
-interpreter), and no module of the port or chip_smoke.py imports them."""
+"""The port stands alone: importing trino_tpu_torch and running a query,
+in process or on a port cluster (coordinator, stage scheduler, worker,
+failure detector, verifier), loads neither jax nor the reference package
+(checked in fresh interpreters), and no module of the port or
+chip_smoke.py imports them."""
 
 import ast
 import os
@@ -24,14 +26,57 @@ print("LEAKED", bad)
 """
 
 
-def test_fresh_interpreter_loads_no_jax_or_reference():
+_CLUSTER_PROBE = """
+import sys, time
+from trino_tpu_torch import verifier
+from trino_tpu_torch.client.client import Client
+from trino_tpu_torch.exec.session import Session
+from trino_tpu_torch.server.coordinator import CoordinatorServer
+from trino_tpu_torch.server.failuredetector import HeartbeatFailureDetector
+from trino_tpu_torch.server.worker import WorkerServer
+coord = CoordinatorServer(Session(device="cpu")).start()
+coord.state.scheduler.split_rows = 8192
+worker = WorkerServer("w0", coord.uri, announce_interval_s=0.05,
+                      device="cpu").start()
+detector = HeartbeatFailureDetector(coord.state, interval_s=0.05).start()
+deadline = time.time() + 20
+while not coord.state.active_nodes() and time.time() < deadline:
+    time.sleep(0.02)
+client = Client(coord.uri, user="probe")
+r = client.execute("SELECT count(*) FROM lineitem WHERE l_quantity < 10")
+assert r.rows and r.rows[0][0] > 0, r.rows
+assert client.query_info(r.query_id).get("fallbackReason") is None
+assert worker.task_manager.tasks_run > 0
+detector.stop(); worker.stop(graceful=False); coord.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu"))
+print("LEAKED", bad)
+"""
+
+
+def _run_probe(probe):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout, out.stdout[-2000:]
+
+
+def test_fresh_interpreter_loads_no_jax_or_reference():
+    _run_probe(_PROBE)
+
+
+def test_fresh_interpreter_cluster_loads_no_jax_or_reference():
+    _run_probe(_CLUSTER_PROBE)
+
+
+def test_cluster_modules_are_checked():
+    paths = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for m in ("server/tasks.py", "server/worker.py", "server/scheduler.py",
+              "server/failuredetector.py", "verifier.py"):
+        assert os.path.join("trino_tpu_torch", m) in paths
 
 
 def _port_sources():

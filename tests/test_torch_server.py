@@ -1,7 +1,7 @@
 """The port's coordinator over HTTP (tpch.tiny, on the CPU): the
 statement protocol, query info, failures, cancel and deadlines,
-admission, authentication, the CLI, the ledger across a restart, and the
-refusal of worker announces. Error names and rows are held to the
+admission, authentication, the CLI, the ledger across a restart, and
+worker announces. Error names and rows are held to the
 reference's coordinator, which gets the same statements."""
 
 import io
@@ -253,14 +253,20 @@ def test_ledger_restart_restores_finished_query(monkeypatch, tmp_path):
 
 
 def test_announce_is_refused_naming_its_roadmap_item(servers):
-    srv = servers[1]
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        srv.state.announce("w1", "http://127.0.0.1:1")
-    body = json.dumps({"nodeId": "w1", "uri": "http://127.0.0.1:1"})
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _http("POST", srv.uri + "/v1/announce", body.encode())
-    assert e.value.code == 501
-    err = json.loads(e.value.read())["error"]
-    assert err["errorName"] == "NOT_SUPPORTED" and "Queue A 3" in \
-        err["message"]
-    assert srv.state.nodes == {}
+    """Announces were refused (501) until the workers were ported; now
+    both coordinators accept one (202), list the node, and drop it again
+    on its LEFT announce. The node announces DRAINED, so no split of
+    another test is ever placed on it."""
+    for srv in servers:
+        for state in ("DRAINED", "LEFT"):
+            body = json.dumps({"nodeId": "w1", "uri": "http://127.0.0.1:1",
+                               "state": state})
+            req = urllib.request.Request(
+                srv.uri + "/v1/announce", data=body.encode(),
+                method="POST", headers={"X-Trino-User": "t"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                assert resp.status == 202
+            if state == "DRAINED":
+                assert srv.state.nodes["w1"].state == "DRAINED"
+                assert srv.state.active_nodes() == []
+        assert srv.state.nodes == {}

@@ -538,11 +538,16 @@ class ChunkAnalysis:
 
     def __init__(self, driver: L.ScanNode,
                  merge_agg: Optional[L.AggregateNode],
-                 build_roots: List[L.PlanNode], driver_rows: int):
+                 build_roots: List[L.PlanNode], driver_rows: int,
+                 merge_sort: Optional["L.SortNode"] = None):
         self.driver = driver
         self.merge_agg = merge_agg          # None = concat at root
         self.build_roots = build_roots      # pinned once, reused per chunk
         self.driver_rows = driver_rows
+        # distributed ORDER BY: the fragment's top Sort; per-split
+        # outputs are sorted RUNS the consumer merges order-preservingly
+        # (MergeOperator.java's role); only the scheduler opts in
+        self.merge_sort = merge_sort
 
 
 def _scan_rows(catalog, node: L.ScanNode) -> int:
@@ -550,9 +555,13 @@ def _scan_rows(catalog, node: L.ScanNode) -> int:
                              node.table).num_rows
 
 
-def analyze(root: L.OutputNode, catalog,
-            chunk_rows: int) -> Optional[ChunkAnalysis]:
-    """Pick the driver scan and validate the path up to the merge point."""
+def analyze(root: L.OutputNode, catalog, chunk_rows: int,
+            allow_sort_merge: bool = False) -> Optional[ChunkAnalysis]:
+    """Pick the driver scan and validate the path up to the merge point.
+    With allow_sort_merge, a Sort directly below the output becomes the
+    fragment top: per-split outputs are sorted runs for an
+    order-preserving merge (the distributed scheduler's MergeOperator
+    path; the local chunked driver keeps its re-sort semantics)."""
     parents: Dict[int, L.PlanNode] = {}
 
     def walk(node):
@@ -571,6 +580,7 @@ def analyze(root: L.OutputNode, catalog,
 
     build_roots: List[L.PlanNode] = []
     merge_agg: Optional[L.AggregateNode] = None
+    merge_sort: Optional[L.SortNode] = None
     node: L.PlanNode = driver
     while True:
         parent = parents.get(id(node))
@@ -598,10 +608,15 @@ def analyze(root: L.OutputNode, catalog,
             break
         elif isinstance(parent, L.OutputNode):
             break                 # concat mode
+        elif allow_sort_merge and isinstance(parent, L.SortNode) and \
+                isinstance(parents.get(id(parent)), L.OutputNode):
+            merge_sort = parent
+            break
         else:
             return None           # Sort/Window/SetOp/Limit below merge point
         node = parent
-    return ChunkAnalysis(driver, merge_agg, build_roots, driver_rows)
+    return ChunkAnalysis(driver, merge_agg, build_roots, driver_rows,
+                         merge_sort=merge_sort)
 
 
 class _PrefetchPipeline:

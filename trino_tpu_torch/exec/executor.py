@@ -719,9 +719,6 @@ class Executor:
         if isinstance(node, L.RemoteSourceNode):
             raise _not_ported("RemoteSourceNode",
                               "the mesh tier on torch.distributed")
-        if isinstance(node, (L.TableWriterNode, L.TableCommitNode)):
-            # the distributed write stage (a worker task's staged write)
-            raise _not_ported(type(node).__name__, "HTTP workers")
         raise NotImplementedError(type(node).__name__)
 
     def run_window(self, node: L.WindowNode) -> Batch:

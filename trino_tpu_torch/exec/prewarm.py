@@ -103,8 +103,7 @@ class PrewarmEngine:
     `mark_warm` around device runs. Worker wiring (server/worker.py):
     a joining worker builds a detached engine, pulls the coordinator's
     `manifest()` over GET /v1/prewarm, and runs `warm_shapes` before
-    its first ACTIVE announce (workers are not ported yet: ROADMAP
-    Queue A 3)."""
+    its first ACTIVE announce."""
 
     def __init__(self, session=None, history=None,
                  exec_lock: Optional[threading.Lock] = None,

@@ -13,6 +13,12 @@ HALF_UP (away from zero) rescaling, exactly as the reference.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import dataclasses
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -313,10 +319,10 @@ def _fold_factor(ops):
     return None
 
 
-def _eval_chain(expr: ir.Expr, batch: Batch, extra=()):
-    """`expr` followed by the products and quotients `extra`, as a float64
-    tensor folded as the reference's compiled code computes it; None
-    where the chain does not fold to one product."""
+def _chain_factor(expr: ir.Expr, batch: Batch, extra=()):
+    """`expr` followed by the products and quotients `extra` as (base, k,
+    valid): the float64 base and the one factor XLA leaves; None where the
+    chain does not fold to one product."""
     base, ops = _double_chain(expr)
     ops = ops + list(extra)
     if not ops or isinstance(base, ir.Literal):
@@ -329,8 +335,110 @@ def _eval_chain(expr: ir.Expr, batch: Batch, extra=()):
         d, v = _eval_round_half_up(rnd, batch)
     else:
         d, v = eval_expr(base, batch)
-    d = d.to(torch.float64)
+    return d.to(torch.float64), k, v
+
+
+def _eval_chain(expr: ir.Expr, batch: Batch, extra=()):
+    """`expr` followed by the products and quotients `extra`, as a float64
+    tensor folded as the reference's compiled code computes it; None
+    where the chain does not fold to one product."""
+    folded = _chain_factor(expr, batch, extra)
+    if folded is None:
+        return None
+    d, k, v = folded
     return (d if k == 1.0 else d * k), v
+
+
+def _children(e: ir.Expr):
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, ir.Expr):
+            yield v
+        elif isinstance(v, tuple):
+            yield from (x for x in v if isinstance(x, ir.Expr))
+
+
+def _load_order(e: ir.Expr, order: dict) -> dict:
+    """Column loads numbered in the order the compiled loop first reads
+    them: operands left to right, depth first."""
+    if isinstance(e, ir.ColumnRef):
+        order.setdefault(e.index, len(order) + 1)
+    for c in _children(e):
+        _load_order(c, order)
+    return order
+
+
+def _ir_rank(e: ir.Expr, order: dict) -> int:
+    """LLVM Reassociate's rank of `e`'s value in the compiled loop: a load
+    ranks by its order, an instruction one above its highest operand, a
+    constant (and a subtree of constants, which XLA folds) 0."""
+    if isinstance(e, ir.ColumnRef):
+        return order[e.index]
+    r = max((_ir_rank(c, order) for c in _children(e)), default=0)
+    return r + 1 if r else 0
+
+
+def _product_rank(side: ir.Expr, order: dict):
+    """The rank of `side` when the compiled code can fuse it into an add
+    as a product: a chain folded to one factor, or a product of two
+    DOUBLE terms; None otherwise. Constant subtrees are folded by XLA,
+    never fused."""
+    if side.dtype.kind not in (TypeKind.DOUBLE, TypeKind.DECIMAL) or \
+            _ir_rank(side, order) == 0:
+        return None
+    base, ops = _double_chain(side)
+    if ops and not isinstance(base, ir.Literal):
+        k = _fold_factor(ops)
+        if k is not None and k != 1.0:
+            return _ir_rank(base, order) + \
+                (base.dtype.kind is not TypeKind.DOUBLE) + 1
+        return None
+    if isinstance(side, ir.Arith) and side.op == '*' and \
+            side.dtype.kind is TypeKind.DOUBLE:
+        return 1 + max(_ir_rank(t, order) +
+                       (t.dtype.kind is not TypeKind.DOUBLE)
+                       for t in (side.left, side.right))
+    return None
+
+
+def _product_terms(side: ir.Expr, batch: Batch):
+    """(x, k, valid) of a side `_product_rank` accepted: x * k is its
+    value before rounding."""
+    folded = _chain_factor(side, batch)
+    if folded is not None:
+        return folded
+    (ad, av), (bd, bv) = (eval_expr(side.left, batch),
+                          eval_expr(side.right, batch))
+    return (_to_comparable(side.left, ad, side.dtype),
+            _to_comparable(side.right, bd, side.dtype), av & bv)
+
+
+def _eval_contracted(expr: ir.Arith, batch: Batch):
+    """A DOUBLE `L + R` or `L - R` with a product operand (a chain folded
+    to one factor: a decimal operand's scale, products and quotients by
+    literals; or a product of two DOUBLE terms), as one fused
+    multiply-add: the reference's compiled code contracts it so. LLVM's
+    combine fuses the first operand's product when it can; Reassociate
+    first puts the lower-ranked operand of an add first, while a subtract
+    keeps its order (`R - x*k` becomes `fma(-x, k, R)`). None when neither
+    operand is a product."""
+    order = _load_order(expr, {})
+    left = _product_rank(expr.left, order)
+    right = _product_rank(expr.right, order) \
+        if left is None or expr.op == '+' else None
+    if left is None and right is None:
+        return None
+    use_left = right is None or (left is not None and left <= right)
+    side, other = (expr.left, expr.right) if use_left \
+        else (expr.right, expr.left)
+    x, k, xv = _product_terms(side, batch)
+    od, ov = eval_expr(other, batch)
+    z = _to_comparable(other, od, expr.dtype)
+    if use_left:
+        z = z if expr.op == '+' else -z
+    elif expr.op == '-':
+        x = -x
+    return fma_like_reference(x, k, z), xv & ov
 
 
 def _eval_round_half_up(expr: ir.ScalarFunc, batch: Batch):
@@ -415,6 +523,10 @@ def eval_expr(expr: ir.Expr, batch: Batch):
             folded = _eval_chain(expr, batch)
             if folded is not None:
                 return folded
+        if expr.dtype.kind is TypeKind.DOUBLE and expr.op in ('+', '-'):
+            fused = _eval_contracted(expr, batch)
+            if fused is not None:
+                return fused
         ld, lv = eval_expr(expr.left, batch)
         rd, rv = eval_expr(expr.right, batch)
         valid = lv & rv
@@ -665,6 +777,147 @@ def eval_expr(expr: ir.Expr, batch: Batch):
     raise NotImplementedError(f"eval of {type(expr).__name__}")
 
 
+# --------------------------------------------------------------------------
+# sqrt, exp, ln and power as the reference's compiled CPU code rounds them
+# --------------------------------------------------------------------------
+#
+# XLA's CPU backend lowers sqrt to the correctly rounded instruction, ln and
+# power to glibc's `log` and `pow`, and exp to its own `xla.exp.f64`: a clamp,
+# a rounded exponent, a Padé form of exp on the reduced argument and a
+# two-step scale by 2^n. LLVM then contracts every add or subtract whose
+# operand is a product used once into a fused multiply-add, and the compiled
+# code runs with subnormals flushed to zero, on input and on output. The
+# port rounds as it does: sqrt through numpy's correctly rounded sqrt on the
+# CPU (CUDA's double sqrt is IEEE already), ln and power through glibc on the
+# CPU, and exp by replaying `xla.exp.f64` op by op, its contractions through
+# `fma_like_reference`, on every device. On a CUDA tensor ln and power are
+# the card's own `log` and `pow`, which need not round as glibc does.
+
+_MIN_NORMAL = 2.2250738585072014e-308
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal becomes a zero of its sign, as under FTZ and DAZ."""
+    return torch.where(x.abs() < _MIN_NORMAL, x * 0.0, x)
+
+
+def _split(a: torch.Tensor):
+    t = a * 134217729.0                       # 2^27 + 1: Veltkamp's split
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma_like_reference(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once, as the fused multiply-add rounds it, from
+    float64 operations that each round on their own (Boldo and Melquiond's
+    emulation: an exact product, an exact sum, a sum rounded to odd, a last
+    sum rounded to nearest). Exact when no step overflows or underflows."""
+    a, b, c = torch.broadcast_tensors(*(torch.as_tensor(
+        v, dtype=torch.float64,
+        device=next(t.device for t in (a, b, c) if torch.is_tensor(t)))
+        for v in (a, b, c)))
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    odd = (v.view(torch.int64) & 1) == 1
+    toward = torch.where(err > 0, math.inf, -math.inf).to(v.dtype)
+    v = torch.where((err != 0) & ~odd, torch.nextafter(v, toward), v)
+    out = th + v
+    plain = uh + c
+    return torch.where(torch.isfinite(out), out, plain)
+
+
+_EXP_LO = float.fromhex("-0x1.6232bdd7abcd2p+9")      # below: 0
+_EXP_HI = float.fromhex("0x1.62e42fefa39efp+9")       # above: inf
+_EXP_LOG2E = float.fromhex("0x1.71547652b82fep+0")
+_EXP_LN2_HI = float.fromhex("0x1.62e4000000000p-1")
+_EXP_LN2_LO = float.fromhex("0x1.7f7d1cf79abcap-20")
+_EXP_P = (float.fromhex("0x1.089cdd5e44be8p-13"),
+          float.fromhex("0x1.f06d10cca2c7ep-6"))
+_EXP_Q = (float.fromhex("0x1.92eb6bc365fa0p-19"),
+          float.fromhex("0x1.4ae39b508b6c0p-9"),
+          float.fromhex("0x1.d17099887e074p-3"))
+_EXP_N_MAX = 2099
+_ONE_BITS = 0x3FF0000000000000
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k as a double built from its exponent bits (k an int64 tensor)."""
+    return (k * (1 << 52) + _ONE_BITS).view(torch.float64)
+
+
+def exp_like_reference(x: torch.Tensor) -> torch.Tensor:
+    """XLA's `xla.exp.f64` as compiled for the CPU."""
+    x = flush_subnormal(x)
+    fma = fma_like_reference
+    c = torch.maximum(torch.minimum(x, torch.full_like(x, _EXP_HI)),
+                      torch.full_like(x, _EXP_LO))
+    n = torch.floor(fma(c, _EXP_LOG2E, 0.5))
+    g = fma(-n, _EXP_LN2_LO, fma(-n, _EXP_LN2_HI, c))
+    g2 = g * g
+    p = fma(fma(g2, _EXP_P[0], _EXP_P[1]), g2, 1.0) * g
+    q = fma(fma(fma(g2, _EXP_Q[0], _EXP_Q[1]), g2, _EXP_Q[2]), g2, 2.0)
+    e = (p / (q - p)) * 2.0 + 1.0
+    ni = torch.nan_to_num(n, nan=0.0).to(torch.int64) \
+        .clamp(-_EXP_N_MAX, _EXP_N_MAX)
+    b = ni >> 2
+    f1 = _pow2(b)
+    out = flush_subnormal(((e * f1) * f1) * f1 * _pow2(ni - 3 * b))
+    out = torch.where(x < _EXP_LO, torch.zeros_like(out), out)
+    return torch.where(x > _EXP_HI, torch.full_like(out, math.inf), out)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for fn, nargs in (("log", 1), ("pow", 2)):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_double
+        f.argtypes = [ctypes.c_double] * nargs
+    return lib
+
+
+def _glibc(fn: str, *xs: torch.Tensor) -> torch.Tensor:
+    """glibc's `fn` element by element over CPU float64 tensors."""
+    arrays = torch.broadcast_tensors(*xs)
+    f = np.frompyfunc(getattr(_libm(), fn), len(arrays), 1)
+    with np.errstate(all="ignore"):
+        out = f(*(a.contiguous().numpy() for a in arrays))
+    return torch.from_numpy(np.asarray(out, dtype=np.float64).copy()) \
+        .reshape(arrays[0].shape)
+
+
+def sqrt_like_reference(x: torch.Tensor) -> torch.Tensor:
+    x = flush_subnormal(x)
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.contiguous().numpy()))
+    return torch.sqrt(x)
+
+
+def log_like_reference(x: torch.Tensor) -> torch.Tensor:
+    x = flush_subnormal(x)
+    return _glibc("log", x) if x.device.type == "cpu" else torch.log(x)
+
+
+def pow_like_reference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    # glibc settles a negative base (from the exponent's integrality) and
+    # an exponent below 2^-65 (the answer is 1) from their bits before any
+    # arithmetic; only past those does a subnormal base read as zero
+    x = torch.where((x < 0) | (y.abs() < 2.0 ** -65), x, flush_subnormal(x))
+    out = _glibc("pow", x, y) if x.device.type == "cpu" \
+        else torch.pow(x, y)
+    return flush_subnormal(out)
+
+
 def _shr_logical(x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & ((1 << (64 - s)) - 1)
 
@@ -739,16 +992,17 @@ def eval_scalar_func(expr: ir.ScalarFunc, batch: Batch):
             res = torch.where(rem == 0, rem, res)
         return res, v & parts[1][1] & (rd != 0)
     if name == "sqrt":
-        x = d.to(torch.float64)
-        return torch.sqrt(torch.abs(x)), v & (x >= 0)
+        x = flush_subnormal(d.to(torch.float64))
+        return sqrt_like_reference(torch.abs(x)), v & (x >= 0)
     if name == "power":
         (rd, rv) = parts[1]
-        return torch.pow(d.to(torch.float64), rd.to(torch.float64)), v & rv
+        return pow_like_reference(d.to(torch.float64),
+                                  rd.to(torch.float64)), v & rv
     if name == "exp":
-        return torch.exp(d.to(torch.float64)), v
+        return exp_like_reference(d.to(torch.float64)), v
     if name == "ln":
-        x = d.to(torch.float64)
-        return torch.log(torch.where(x > 0, x, 1.0)), v & (x > 0)
+        x = flush_subnormal(d.to(torch.float64))
+        return log_like_reference(torch.where(x > 0, x, 1.0)), v & (x > 0)
 
     # ---- two-limb decimal accumulation (sum over DECIMAL) ------------
     if name == "$limb_hi":

@@ -3,25 +3,23 @@
 Port of ``trino_tpu/server/coordinator.py``: the queued->executing REST
 protocol (``POST /v1/statement``, ``nextUri`` paging, ``DELETE`` to
 cancel), query info at /v1/query/{id}, /v1/info, /v1/status, /v1/metrics
-and /v1/jit, the dispatcher's admission, resource groups, deadlines and
-QUERY retries, the serving layer (plan cache, result cache, host/device
-router, micro-batcher) and the durable query ledger with its restart
-replay and admin promotion.
-
-The coordinator runs every statement itself. The reference's stage
-scheduler and HTTP workers are not ported yet (ROADMAP Queue A 3):
-``CoordinatorState.scheduler`` stays None, a worker announce is
-answered with NOT_SUPPORTED, and a query's ``fallbackReason`` is the
-reference's own verdict for a coordinator without workers, "no active
-workers". Without a session, ``CoordinatorServer`` builds ``Session()``,
-which runs on the card: a device-routed statement runs on CUDA or fails
-with its error on the protocol.
+and /v1/jit, the node inventory fed by worker announcements, the stage
+scheduler that runs distributable statements on the announced workers,
+the dispatcher's admission, resource groups, deadlines and QUERY retries,
+the serving layer (plan cache, result cache, host/device router,
+micro-batcher), the durable query ledger with its restart replay and admin
+promotion, and the warm standby that watches a primary. Without a session,
+``CoordinatorServer`` builds ``Session()``, which runs on the card: a
+device-routed statement runs on CUDA or fails with its error on the
+protocol. With no active worker a statement runs on the coordinator and
+reports ``fallbackReason = "no active workers"``, as the reference's does.
 
 stdlib http.server only: the protocol layer is the host-side control
 plane. Routes live in the ROUTES table (server/routes.py) so every
-request lands in trino_tpu_http_requests_total; `enable_tracing`
-sessions run each query under a propagating tracer served at GET
-/v1/query/{id}/trace.
+request lands in trino_tpu_http_requests_total; /v1/metrics serves the
+process registry in Prometheus text; `enable_tracing` sessions run each
+query under a propagating tracer whose stitched trace (coordinator +
+worker spans) is served at GET /v1/query/{id}/trace.
 """
 
 from __future__ import annotations
@@ -34,7 +32,6 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
-from ..exec.executor import _not_ported
 from ..exec.session import Session
 from .routes import STAR, dispatch, register_routes
 from .statemachine import QueryStateMachine, QueryTracker, TrackedQuery
@@ -124,10 +121,39 @@ def _is_retryable(e: Exception) -> bool:
     from ..exec.memory import ExceededMemoryLimitError
     from ..planner.analyzer import AnalysisError
     from ..sql.tokenizer import SqlSyntaxError
+    from .scheduler import RetryBudgetExhaustedError
     return not isinstance(e, (AnalysisError, SqlSyntaxError,
                               AssertionError, QueryDeclinedError,
                               ExceededMemoryLimitError,
-                              QueryDeadlineError, QueryTerminatedError))
+                              QueryDeadlineError, QueryTerminatedError,
+                              RetryBudgetExhaustedError))
+
+
+class RegisteredNode:
+    """One announced worker (node/InternalNodeManager inventory entry)."""
+
+    def __init__(self, node_id: str, uri: str):
+        self.node_id = node_id
+        self.uri = uri
+        self.last_announce = time.time()
+        # lifecycle: ACTIVE | DRAINING | DRAINED | FAILED (a LEFT
+        # announce removes the entry from the inventory entirely)
+        self.state = "ACTIVE"
+        # last heartbeat-reported memory pool snapshot (cluster
+        # arbitration input; scheduler placement prefers low-memory nodes)
+        self.memory: Optional[dict] = None
+        # last heartbeat-reported device/HBM allocator stats
+        # (system.runtime.nodes surface)
+        self.device: Optional[dict] = None
+        # estimated clock skew (worker clock minus coordinator clock),
+        # refreshed from the `now` stamp each announce carries; adopted
+        # worker spans are rebased by it so stitched-trace intervals
+        # cannot go negative under skewed wall clocks
+        self.clock_offset: float = 0.0
+        # live task inventory from the last announce ([{taskId, state}])
+        # — a promoted coordinator reconciles the ledger against this
+        # before deciding re-attach vs re-execute
+        self.tasks: Optional[list] = None
 
 
 class Dispatcher:
@@ -156,9 +182,7 @@ class Dispatcher:
         # (DeduplicatingDirectExchangeBuffer.java:87's role)
         self.retry_policy = retry_policy  # NONE | QUERY
         self.max_retries = max_retries
-        # StageScheduler in the reference's cluster mode; not ported
-        # (ROADMAP Queue A 3), so it stays None
-        self.scheduler = None
+        self.scheduler = None             # StageScheduler (cluster mode)
         # ClusterMemoryManager back-ref (set by CoordinatorState): the
         # load-shed admission gate reads its pressure snapshot
         self.memory_manager = None
@@ -684,11 +708,45 @@ class Dispatcher:
             # FINISHED page straight from the result cache: no lock, no
             # planning, no scheduler round trip
             result = serving.lookup_cached(tq)
-        if result is None:
-            # no stage scheduler (ROADMAP Queue A 3): the reference's
-            # verdict for a coordinator without workers, which keeps
-            # host-routed queries lock-free
+        no_workers = self.scheduler is not None and \
+            not self.scheduler.state.active_nodes()
+        if result is None and self.scheduler is not None and no_workers:
+            # no cluster: skip the exec-lock round trip entirely so
+            # host-routed queries stay lock-free on a plain coordinator
             tq.fallback_reason = "no active workers"
+        elif result is None and self.scheduler is not None:
+            # cluster path: fragment + dispatch to workers; None = not
+            # eligible (coordinator executes locally)
+            from .scheduler import TaskFailedError
+            # distributed execution occupies the exec lock like a device
+            # run: register it with the tenant fair-share tracker so a
+            # scan-heavy tenant's cluster queries count as device
+            # contention for everyone else's routing decisions
+            fair = getattr(serving, "fair_share", None)
+            if fair is not None:
+                fair.device_begin(getattr(tq, "tenant", "default"))
+            try:
+                with self.exec_lock:
+                    result = self.scheduler.execute(tq.sql,
+                                                    query_id=tq.query_id)
+                tq.fallback_reason = self.scheduler.fallback_reason \
+                    if result is None else None
+            except TaskFailedError as te:
+                from .scheduler import RetryBudgetExhaustedError
+                if isinstance(te, RetryBudgetExhaustedError):
+                    raise    # the budget forbade more attempts: fail,
+                             # don't silently degrade to local re-run
+                result = None   # degrade to local execution
+                tq.fallback_reason = f"task failure: {te}"
+            finally:
+                if fair is not None:
+                    fair.device_end(getattr(tq, "tenant", "default"))
+            tq.distributed = result is not None
+            if tq.distributed:
+                # per-query stage/task rollup for events +
+                # system.runtime tables + /v1/query info
+                tq.stage_stats = getattr(self.scheduler,
+                                         "last_query", None)
         if result is None and getattr(
                 self.session, "properties", {}).get(
                 "require_distributed") and \
@@ -720,16 +778,16 @@ class CoordinatorState:
                  telemetry_interval_s: Optional[float] = None,
                  ledger_path: Optional[str] = None,
                  node_id: str = "coordinator", role: str = "primary",
-                 peer_uri: Optional[str] = None):
+                 peer_uri: Optional[str] = None,
+                 spool_root: Optional[str] = None):
         import os
         self.session = session
         self.tracker = QueryTracker()
         self.dispatcher = Dispatcher(session, self.tracker, max_concurrency,
                                      retry_policy)
-        # the worker inventory: stays empty until workers are ported
-        # (ROADMAP Queue A 3); announce() refuses them
-        self.nodes: Dict[str, object] = {}
+        self.nodes: Dict[str, RegisteredNode] = {}
         self.nodes_lock = threading.Lock()
+        self.failure_detector = None   # set by HeartbeatFailureDetector
         self.started_at = time.time()
         # ---- coordinator crash recovery (server/ledger.py) ----
         self.node_id = node_id
@@ -762,9 +820,17 @@ class CoordinatorState:
                 self.ledger.claim_epoch()
         else:
             self.role = "PRIMARY"
-        # no stage scheduler (ROADMAP Queue A 3): every statement runs
-        # on this coordinator, through the serving layer
-        self.scheduler = None
+        from .scheduler import StageScheduler
+        # a durable spool root survives coordinator restarts: resumed
+        # queries re-attach to completed task output instead of
+        # re-running it (exchange_spool.py's durability contract)
+        spool_root = spool_root or os.environ.get("TRINO_TPU_SPOOL_ROOT")
+        spool = None
+        if spool_root:
+            from .exchange_spool import ExchangeSpool
+            spool = ExchangeSpool(root=spool_root)
+        self.scheduler = StageScheduler(self, session, spool=spool)
+        self.dispatcher.scheduler = self.scheduler
         from .spooling import SpoolingManager
         self.spooling = SpoolingManager()
         # cluster memory arbitration: pooled accounting over worker
@@ -796,6 +862,10 @@ class CoordinatorState:
                                      exec_lock=self.dispatcher.exec_lock)
         self.dispatcher.serving.prewarm = self.prewarm
         self.prewarm.maybe_start()
+        # the timeline analyzer's EXPLAIN ANALYZE hook: the scheduler
+        # looks up the running TrackedQuery (state-machine stamps) to
+        # print queued time in the critical-path breakdown line
+        self.scheduler.tracked_lookup = self.tracker.get
         # live query observability (server/livestats.py): the fold of
         # heartbeat-streamed worker TaskStats into live per-stage
         # rollups, split-weighted progress, stuck/skew diagnosis and
@@ -804,6 +874,7 @@ class CoordinatorState:
         # so the heartbeat-off path costs nothing.
         from .livestats import LiveStatsStore
         self.livestats = LiveStatsStore(tracked_lookup=self.tracker.get)
+        self.scheduler.livestats = self.livestats
         # stuck-query escalation routes through the dispatcher's single
         # termination path (off unless TRINO_TPU_STUCK_ESCALATE_FOLDS)
         self.livestats.terminate = self.dispatcher.terminate
@@ -952,11 +1023,10 @@ class CoordinatorState:
         keep = set()
         for q in view.live():
             keep.update(q["spooled"])
-        if self.scheduler is not None:
-            try:
-                self.scheduler.spool.sweep(keep=keep)
-            except Exception:  # noqa: BLE001 — sweep is best-effort
-                pass
+        try:
+            self.scheduler.spool.sweep(keep=keep)
+        except Exception:  # noqa: BLE001 — sweep is best-effort hygiene
+            pass
         from . import writeprotocol as wp
         for conn in self.session.catalog._connectors.values():
             root = getattr(conn, "root", None)
@@ -987,13 +1057,90 @@ class CoordinatorState:
                  tasks: Optional[list] = None,
                  live_stats: Optional[dict] = None,
                  memory: Optional[dict] = None) -> None:
-        """Worker (and standby) registration: not ported. The port has no
-        HTTP workers and no standby watcher yet, so an announce is
-        refused whole, never half served."""
-        raise _not_ported(f"announce from {node_id!r} ({state})",
-                          "Queue A 3, HTTP workers")
+        """Register/refresh a worker, honoring its reported lifecycle
+        state. LEFT deregisters (the graceful mirror of a failure-
+        detector eviction); DRAINING/DRAINED pull the node out of
+        placement without the detector penalty; ACTIVE restores a node
+        from a canceled drain (FAILED→ACTIVE recovery still goes
+        through the detector-ratio gate). Any membership or state
+        change triggers an immediate cluster-memory re-arbitration.
 
-    def active_nodes(self) -> list:
+        STANDBY announces come from a peer coordinator, not a worker:
+        they only refresh the failover address list. `tasks` is the
+        worker's live task inventory — the promoted coordinator's
+        reconciliation input."""
+        from ..metrics import NODE_LIFECYCLE_TRANSITIONS
+        if state == "STANDBY":
+            if uri:
+                self.standbys[uri] = time.time()
+            return
+        changed = False
+        # clock-skew estimate: the worker stamped `now` at send time and
+        # we read our clock at receive time — the send/recv midpoint of a
+        # sub-millisecond local POST, so offset ≈ worker_clock - ours.
+        # Adopted worker spans are rebased by it (utils/tracing.py).
+        offset = (now - time.time()) if now is not None else None
+        with self.nodes_lock:
+            node = self.nodes.get(node_id)
+            if offset is not None and node is not None and state != "LEFT":
+                node.clock_offset = offset
+            if state == "LEFT":
+                if node is not None:
+                    del self.nodes[node_id]
+                    changed = True
+            elif node is None or node.uri != uri:
+                self.nodes[node_id] = RegisteredNode(node_id, uri)
+                self.nodes[node_id].state = \
+                    state if state in ("DRAINING", "DRAINED") else "ACTIVE"
+                if offset is not None:
+                    self.nodes[node_id].clock_offset = offset
+                changed = True
+                state = self.nodes[node_id].state
+            else:
+                node.last_announce = time.time()
+                if state in ("DRAINING", "DRAINED"):
+                    # drain overrides FAILED: the worker is reachable
+                    # and winding down, not dead
+                    if node.state != state:
+                        node.state = state
+                        changed = True
+                elif node.state in ("DRAINING", "DRAINED"):
+                    node.state = "ACTIVE"    # drain canceled
+                    changed = True
+                elif node.state == "FAILED" and \
+                        self._recovery_allowed(node_id):
+                    node.state = "ACTIVE"    # recovered
+                    changed = True
+            survivor = self.nodes.get(node_id)
+            if survivor is not None and tasks is not None:
+                survivor.tasks = tasks
+            if survivor is not None and memory is not None:
+                # heartbeat pool snapshot: refreshes the same field the
+                # failure detector's pings write, shrinking the memory
+                # manager's staleness window between status polls
+                survivor.memory = memory
+        if changed:
+            NODE_LIFECYCLE_TRANSITIONS.inc(state=state)
+            # outside nodes_lock: tick() re-reads the inventory itself
+            self.memory_manager.on_membership_change()
+        if live_stats is not None:
+            # fold the piggybacked live task stats outside nodes_lock
+            # (the fold takes its own lock and may log)
+            self.livestats.fold(node_id, live_stats)
+
+    def _recovery_allowed(self, node_id: str) -> bool:
+        """A FAILED node may only rejoin on announce when the failure
+        detector's decayed ratio has dropped back under the threshold
+        (or no detector is attached). Without this gate, a node whose
+        task executor is wedged but whose announcer still runs flips
+        straight back to ACTIVE and reabsorbs splits every round."""
+        det = self.failure_detector
+        if det is None:
+            return True
+        st = det.stats.get(node_id)
+        return st is None or st.failure_ratio <= det.threshold
+
+    def active_nodes(self) -> List[RegisteredNode]:
         with self.nodes_lock:
             return [n for n in self.nodes.values() if n.state == "ACTIVE"]
 
@@ -1195,18 +1342,13 @@ class _Handler(BaseHTTPRequestHandler):
     def _post_announce(self, parts, user):
         body = json.loads(self._read_body() or "{}")
         st = self.state
-        try:
-            st.announce(body.get("nodeId", "unknown"),
-                        body.get("uri", ""),
-                        state=body.get("state", "ACTIVE"),
-                        now=body.get("now"),
-                        tasks=body.get("tasks"),
-                        live_stats=body.get("liveStats"),
-                        memory=body.get("memory"))
-        except NotImplementedError as e:
-            self._send(501, {"error": {"message": str(e),
-                                       "errorName": "NOT_SUPPORTED"}})
-            return
+        st.announce(body.get("nodeId", "unknown"),
+                    body.get("uri", ""),
+                    state=body.get("state", "ACTIVE"),
+                    now=body.get("now"),
+                    tasks=body.get("tasks"),
+                    live_stats=body.get("liveStats"),
+                    memory=body.get("memory"))
         # the failover contract: every announce response carries the
         # coordinator address list (primary first, fresh standbys after)
         # so workers and clients always know where to re-announce
@@ -1443,22 +1585,26 @@ class CoordinatorServer:
                  telemetry_interval_s: Optional[float] = None,
                  ledger_path: Optional[str] = None,
                  node_id: str = "coordinator", role: str = "primary",
-                 peer_uri: Optional[str] = None):
-        if role == "standby" and peer_uri:
-            raise _not_ported("a standby watching a primary",
-                              "Queue A 3, the failure detector")
+                 peer_uri: Optional[str] = None,
+                 spool_root: Optional[str] = None,
+                 standby_interval_s: float = 0.25,
+                 auto_promote: bool = True):
         self.state = CoordinatorState(session or Session(),
                                       max_concurrency, retry_policy,
                                       telemetry_interval_s,
                                       ledger_path=ledger_path,
                                       node_id=node_id, role=role,
-                                      peer_uri=peer_uri)
+                                      peer_uri=peer_uri,
+                                      spool_root=spool_root)
         handler = type("BoundHandler", (_Handler,), {"state": self.state})
         self.httpd = ClusterHTTPServer(("127.0.0.1", port), handler)
         self.port = self.httpd.server_address[1]
         self.uri = f"http://127.0.0.1:{self.port}"
         self.state.uri = self.uri
         self._thread: Optional[threading.Thread] = None
+        self._watcher = None
+        self._standby_interval_s = standby_interval_s
+        self._auto_promote = auto_promote
 
     def start(self) -> "CoordinatorServer":
         self._thread = threading.Thread(target=self.httpd.serve_forever,
@@ -1467,9 +1613,21 @@ class CoordinatorServer:
         self._thread.start()
         # no-op unless a telemetry interval is configured
         self.state.telemetry.start()
+        # warm standby: announce ourselves to the primary (so announce
+        # responses carry our address), tail the ledger, and promote on
+        # primary death (detector-driven) — failuredetector.py
+        if self.state.role != "PRIMARY" and self.state.peer_uri:
+            from .failuredetector import StandbyWatcher
+            self._watcher = StandbyWatcher(
+                self.state, self.uri, self.state.peer_uri,
+                interval_s=self._standby_interval_s,
+                auto_promote=self._auto_promote)
+            self._watcher.start()
         return self
 
     def stop(self) -> None:
+        if self._watcher is not None:
+            self._watcher.stop()
         self.state.telemetry.stop()
         # shutdown() blocks until serve_forever acknowledges — which
         # never happens if start() was never called, so only wave at a
@@ -1489,6 +1647,8 @@ class CoordinatorServer:
         if self.state.ledger is not None:
             self.state.ledger.seal()
         self.state.role = "PASSIVE"
+        if self._watcher is not None:
+            self._watcher.stop()
         self.state.telemetry.stop()
         try:
             if self._thread is not None:

@@ -6,9 +6,8 @@ nodes, tasks, operator_stats, resource_groups, jit_cache, query_history,
 plan_cache, query_timeline, metrics_history, live_queries,
 utilization). ``jit_cache`` reads the port's compile recorder
 (exec/profiler.py: the kernel-library loads). A node's device bytes come
-from its heartbeat, which reads ``device_memory_stats`` on its card; the
-port has no workers yet (ROADMAP Queue A 3), so ``nodes`` and ``tasks``
-stay empty, as the reference's do on a coordinator without workers.
+from its heartbeat, which reads ``device_memory_stats`` on its card;
+``nodes`` and ``tasks`` list the announced workers and their tasks.
 """
 
 from __future__ import annotations
