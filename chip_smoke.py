@@ -144,8 +144,22 @@ Phases, each failing the run with a non-zero exit:
    reference), each equal to its source; the port verifier over TPC-H
    q1, q3, q6, q12 and q14 at ``tpch.tiny`` on the card against sqlite;
    and, after the counts are read, the rows of lineitem where the card's
-   ln and power (its own `log`, `pow`) and exp and sqrt (the CPU's
-   replay; these must agree) differ from the port's CPU result;
+   ln and power (csrc/glibc_math.cu, glibc's algorithms) and exp and
+   sqrt (the CPU's replay) differ from the port's CPU result (all must
+   be 0), the glibc kernel against its plain replay and timed beside
+   torch.log / torch.pow; then the mesh (``phase_mesh_path``, counters
+   set to 0 just before and read just after): ``SET SESSION distributed
+   = true`` on a CUDA Session (the card's default mesh, one shard: q1,
+   q6), then a MeshExecutor over ``make_mesh(8, "cuda")`` (eight shards
+   on the one card) with partitioned joins: TPC-H q1, q6, q3 and the
+   SELECTIVE and PROBE_ROWS joins of tests/test_mesh_dynamic_filter.py,
+   one cold and three steady runs each, rows equal to numpy oracles and
+   the single card's, K3 eight launches a partitioned join, SELECTIVE
+   pruning rows, EXPLAIN's ``join distribution: partitioned``, the
+   card's idle share over one steady q3; TPC-DS q3 on the ladder
+   (degrade reason mesh, no K4); and, after the counts are read, the
+   join and aggregate stage programs called directly over lineitem and
+   orders, bit-exact against the single card's operators;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -165,7 +179,8 @@ Phases, each failing the run with a non-zero exit:
    the window semantics), and the least time the card could take (bound);
    K3 with a row per launch shape (one table: the largest table of the
    star's builds alone; a star's builds; a partitioned aggregate's
-   partitions; each against its plain version, the groups of every table
+   partitions; a mesh shard's join build; each against its plain
+   version, the groups of every table
    that did not escape and a join build's interleaved table), its
    launches per call site, its host ms per call, and the star's public
    ``build_join_tables`` call with its torch prep; K4 through the public
@@ -3217,11 +3232,14 @@ def _math_card_counts(tables):
     from the port's CPU result (ops/project.py *_like_reference): the CPU
     rounds as the reference's compiled code does (sqrt correctly rounded,
     exp replayed, ln and power through glibc); the card runs the same
-    sqrt and exp replay and its own log and pow. The arguments are the
-    SQL statements' (ROADMAP Queue C 2): ln(l_extendedprice) and
-    sqrt(l_quantity) take the unscaled decimal, power(CAST(l_quantity AS
-    double), 1.5) the double, exp(CAST(l_extendedprice AS double) / 1000)
-    a spread of 0.9 to 105."""
+    sqrt and exp replay, and ln and power through csrc/glibc_math.cu
+    (glibc's algorithms). The arguments are the SQL statements' (ROADMAP
+    Queue C 2): ln(l_extendedprice) and sqrt(l_quantity) take the
+    unscaled decimal, power(CAST(l_quantity AS double), 1.5) the double,
+    exp(CAST(l_extendedprice AS double) / 1000) a spread of 0.9 to 105.
+    Every count must be 0. The glibc kernel is also held to its plain
+    torch replay on the card, and timed beside that replay and beside
+    torch.log / torch.pow on the same columns."""
     import numpy as np
     import torch
     from trino_tpu_torch.ops import project as P
@@ -3250,8 +3268,27 @@ def _math_card_counts(tables):
         differ = int((cpu.view(np.int64) != card.view(np.int64)).sum())
         out[name] = {"rows": len(cpu), "distinct": len(uniq),
                      "differ": differ, "cpu_s": round(cpu_s, 3)}
-    require(out["exp"]["differ"] == 0 and out["sqrt"]["differ"] == 0,
-            f"the card's exp replay or sqrt differs from the CPU's: {out}")
+    require(all(v["differ"] == 0 for v in out.values()),
+            f"the card's math differs from the CPU's: {out}")
+    # the glibc kernel against its plain replay on the card, and its time
+    # beside the replay's and torch's own log / pow (not glibc's bits)
+    x = torch.from_numpy(price).cuda()
+    q = torch.from_numpy(qty * (1.0 / 100)).cuda()
+    h = torch.full_like(q, 1.5)
+    for name, kern, plain, lib in (
+            ("ln", lambda: P.glibc_math_kernel("log", x),
+             lambda: P.glibc_log_plain(x), lambda: torch.log(x)),
+            ("power", lambda: P.glibc_math_kernel("pow", q, h),
+             lambda: P.glibc_pow_plain(q, h), lambda: torch.pow(q, h))):
+        got, want = kern(), plain()
+        require(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+                f"the glibc {name} kernel differs from its plain replay")
+        n_in = 1 if name == "ln" else 2
+        out[name].update({
+            "kernel_ms": time_cuda(kern), "plain_ms": time_cuda(plain),
+            "torch_ms": time_cuda(lib),
+            "bound_ms": (n_in + 1) * 8 * x.numel() / HBM_BYTES_PER_S * 1e3,
+            "torch_differs_from_glibc": int((lib() != got).sum())})
     return out
 
 
@@ -3641,6 +3678,288 @@ def phase_cluster_path(recorder, main_session, tables):
     return launches
 
 
+MESH_SHARDS = 8
+# SELECTIVE and PROBE_ROWS of tests/test_mesh_dynamic_filter.py (that file
+# imports the JAX package, which this script must not load)
+SELECTIVE = """
+    SELECT count(*) FROM lineitem, orders
+    WHERE l_orderkey = o_orderkey AND o_totalprice > 500000"""
+PROBE_ROWS = """
+    SELECT l_orderkey, l_linenumber, o_totalprice
+    FROM lineitem, orders
+    WHERE l_orderkey = o_orderkey AND o_totalprice > 400000
+    ORDER BY l_orderkey, l_linenumber"""
+
+
+def oracle_selective(orders, li):
+    """SELECTIVE of tests/test_mesh_dynamic_filter.py: lineitem rows of
+    orders above 500,000."""
+    import numpy as np
+    okey = _col(orders, "o_orderkey")
+    big = np.zeros(int(okey.max()) + 1, np.bool_)
+    big[okey[_col(orders, "o_totalprice") > 50_000_000]] = True
+    return [(int(big[_col(li, "l_orderkey")].sum()),)]
+
+
+def oracle_probe_rows(orders, li):
+    """PROBE_ROWS of tests/test_mesh_dynamic_filter.py: each lineitem row
+    of an order above 400,000 with its price, by key and line."""
+    import numpy as np
+    okey = _col(orders, "o_orderkey")
+    price = np.full(int(okey.max()) + 1, -1, np.int64)
+    keep = _col(orders, "o_totalprice") > 40_000_000
+    price[okey[keep]] = _col(orders, "o_totalprice")[keep]
+    lk, ln = _col(li, "l_orderkey"), _col(li, "l_linenumber")
+    m = price[lk] >= 0
+    order = np.lexsort((ln[m], lk[m]))
+    return [(int(a), int(b), _dec(int(c), 2)) for a, b, c in
+            zip(lk[m][order], ln[m][order], price[lk[m]][order])]
+
+
+def _sorted_live_rows(batch, keys):
+    """A batch's live rows as numpy columns (data and validity), sorted by
+    the `keys` columns: the same rows in any order compare equal."""
+    import numpy as np
+    from trino_tpu_torch.batch import batch_to_numpy
+    arrays, valids = batch_to_numpy(batch)
+    order = np.lexsort([arrays[k] for k in reversed(keys)])
+    return [a[order] for a in arrays], [v[order] for v in valids]
+
+
+def _mesh_stage_checks(mesh, tables):
+    """`partitioned_hash_join_step` and `sharded_agg_step` called directly
+    on the 8-shard mesh over lineitem and orders at sf1, against the
+    single-card operators on the same batches: the join's rows (sorted)
+    against `join_unique_build`, bit for bit; the aggregate against
+    `direct_group_aggregate` (its integer states single-device, its
+    double sum against the sharded order `shards=8`, which is the one a
+    mesh sums in)."""
+    import numpy as np
+    import torch
+    from trino_tpu_torch import ir
+    from trino_tpu_torch.batch import Column, batch_from_numpy
+    from trino_tpu_torch.ops import hashtable as ht
+    from trino_tpu_torch.ops.aggregate import (AggSpec,
+                                               direct_group_aggregate)
+    from trino_tpu_torch.ops.join import join_unique_build
+    from trino_tpu_torch.ops.project import apply_filter
+    from trino_tpu_torch.parallel.stages import (partitioned_hash_join_step,
+                                                 sharded_agg_step)
+    from trino_tpu_torch.types import DATE
+    li, orders = tables["lineitem"], tables["orders"]
+    dev = mesh.devices[0]
+    probe = batch_from_numpy([_col(li, n) for n in (
+        "l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice",
+        "l_returnflag", "l_linestatus", "l_shipdate")], device=dev)
+    build = batch_from_numpy([_col(orders, n) for n in (
+        "o_orderkey", "o_totalprice", "o_orderdate")], device=dev)
+    # a sixteenth of the orders (every sixteenth run of 32 order keys,
+    # which come 8 to a run), about 11,700 keys a shard in 131,072 slots:
+    # at a quarter (0.36 of the slots) K3 ran 7 of 375,000 rows out of
+    # probes on an H100, and an escaped table is incomplete
+    build = build.with_live(build.live &
+                            ((build.columns[0].data // 32) % 16 == 0))
+    n = mesh.size
+    slots, _ = ht.join_table_slots(max(ht.MIN_TABLE_SLOTS,
+                                       2 * build.capacity // n))
+    k3 = ht.hash_insert_multi.launches
+    t = time.monotonic()
+    joined, dup, esc, pruned = partitioned_hash_join_step(
+        mesh, n, (0,), (0,), "inner", slots, "on")(probe, build)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t
+    k3 = ht.hash_insert_multi.launches - k3
+    require(int(dup) == 0 and int(esc) == 0, f"the direct partitioned "
+            f"join: dup {int(dup)}, escaped {int(esc)}")
+    require(k3 == n, f"the direct partitioned join launched K3 {k3} times")
+    single, sdup = join_unique_build(probe, build, (0,), (0,), "inner")
+    got, want = _sorted_live_rows(joined, (0, 1)), \
+        _sorted_live_rows(single, (0, 1))
+    require(int(sdup) == 0 and len(got[0][0]) == len(want[0][0]) > 0 and
+            all(np.array_equal(a, b) for a, b in zip(got[0] + got[1],
+                                                     want[0] + want[1])),
+            "the partitioned join's rows differ from the single card's")
+    ext = probe.columns[3].data.to(torch.float64) * 0.01
+    fact = type(probe)(columns=probe.columns + (Column(
+        ext, probe.columns[3].valid),), live=probe.live)
+    flt = ir.Compare("<=", ir.ColumnRef(6, DATE),
+                     ir.Literal(_days("1998-09-02"), DATE))
+    pools = [len(li.schema.field(c).dictionary)
+             for c in ("l_returnflag", "l_linestatus")]
+    aggs = (AggSpec("sum", 2), AggSpec("sum", 7), AggSpec("count_star",
+                                                          None),
+            AggSpec("min", 3), AggSpec("max", 2))
+    t = time.monotonic()
+    merged = sharded_agg_step(mesh, flt, None, (4, 5), tuple(pools),
+                              aggs)(fact)
+    torch.cuda.synchronize()
+    agg_s = time.monotonic() - t
+    local = apply_filter(fact, flt)
+    plain = direct_group_aggregate(local, (4, 5), tuple(pools), aggs)
+    sharded = direct_group_aggregate(local, (4, 5), tuple(pools), aggs,
+                                     shards=n)
+    require(torch.equal(merged.live, plain.live), "the sharded aggregate's "
+            "groups differ")
+    for i, (m, p, q) in enumerate(zip(merged.columns, plain.columns,
+                                      sharded.columns)):
+        want_col = q if i == 3 else p          # the double sum
+        require(torch.equal(m.valid, want_col.valid) and
+                torch.equal(m.data.view(torch.int64) if
+                            m.data.dtype == torch.float64 else m.data,
+                            want_col.data.view(torch.int64) if
+                            want_col.data.dtype == torch.float64 else
+                            want_col.data),
+                f"sharded_agg_step's column {i} differs from the single "
+                f"card's")
+    return {"join_rows": len(got[0][0]), "join_step_s": step_s,
+            "join_k3_launches": k3, "join_pruned": int(pruned),
+            "table_slots": slots, "agg_step_s": agg_s,
+            "double_sum_single_vs_sharded_equal": bool(torch.equal(
+                plain.columns[3].data, sharded.columns[3].data))}
+
+
+def phase_mesh_path(recorder, main_session, tables, ds_session):
+    """The mesh tier on the card (trino_tpu_torch/parallel/), counters set
+    to 0 just before and read just after. (1) `SET SESSION distributed =
+    true` on a CUDA Session: a MeshExecutor over the card's default mesh
+    (one card, one shard), TPC-H q1 and q6 against the oracles. (2) A
+    MeshExecutor over make_mesh(8, "cuda"), eight shards on the one card,
+    under join_distribution_type = 'partitioned' and enable_pallas_hash =
+    true: TPC-H q1, q6, q3 and SELECTIVE and PROBE_ROWS of
+    tests/test_mesh_dynamic_filter.py, one cold and three steady runs
+    each, rows equal to the oracles and to the single-card Session's,
+    every partitioned join building one K3 table per shard, SELECTIVE
+    pruning rows; EXPLAIN's `join distribution: partitioned`; the card's
+    idle share over one steady q3. (3) TPC-DS q3 on the 8-shard mesh: the
+    star degrades to the ladder (reason mesh), no K4 launch, rows equal
+    to the single card's. (4) `partitioned_hash_join_step` and
+    `sharded_agg_step` called directly over lineitem and orders,
+    bit-exact against the single-card operators."""
+    import statistics as st
+    from tpcds_queries import QUERIES as DS
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.metrics import MESH_REPARTITION_BYTES
+    from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+    from trino_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.monotonic()
+    orders = main_session.catalog.connector("tpch").get_table(
+        TPCH_SCHEMA, "orders")
+    expected = {"q1": oracle_q1(tables["lineitem"]),
+                "q6": oracle_q6(tables["lineitem"]),
+                "q3": oracle_q3(tables["customer"], orders,
+                                tables["lineitem"]),
+                "selective": oracle_selective(orders, tables["lineitem"]),
+                "probe_rows": oracle_probe_rows(orders,
+                                                tables["lineitem"])}
+    sqls = {"q1": Q1, "q6": Q6, "q3": Q3, "selective": SELECTIVE,
+            "probe_rows": PROBE_ROWS}
+    cat = Catalog()
+    cat.register("tpch", main_session.catalog.connector("tpch"))
+    record = {}
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    try:
+        # 1. distributed = true on the card's default mesh
+        dev = main_session.device
+        dist = Session(cat, default_schema=TPCH_SCHEMA, device=dev)
+        dist.execute("SET SESSION distributed = true")
+        require(isinstance(dist.executor, MeshExecutor) and
+                dist.executor.device.type == dev.type,
+                f"distributed = true gave {type(dist.executor).__name__} "
+                f"on {dist.executor.device}")
+        for name in ("q1", "q6"):
+            rows, walls = _timed_runs(dist, sqls[name], 2)
+            require(rows == expected[name], f"{name} under distributed = "
+                    f"true differs from the oracle")
+            record[f"distributed_{name}_walls_s"] = walls
+        record["default_mesh_shards"] = dist.executor.n_shards
+        log(f"mesh: distributed = true -> MeshExecutor over "
+            f"{dist.executor.n_shards} shard(s) on {dist.executor.device}; "
+            f"q1, q6 equal the oracles")
+        # 2. eight shards on the one card, partitioned joins
+        mesh = make_mesh(MESH_SHARDS, dev)
+        session = Session(cat, default_schema=TPCH_SCHEMA, device=dev)
+        session.executor = MeshExecutor(cat, mesh)
+        session.execute("SET SESSION join_distribution_type = "
+                        "'partitioned'")
+        session.execute("SET SESSION enable_pallas_hash = true")
+        ex = session.executor
+        per_query = {}
+        for name, sql in sqls.items():
+            pj0 = ex.stats.mesh_partitioned_joins
+            pruned0 = ex.stats.dynamic_filter_rows_pruned
+            bytes0 = MESH_REPARTITION_BYTES.value()
+            before = read_counts()
+            rows, walls = _timed_runs(session, sql, 4)
+            after = read_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            joins = ex.stats.mesh_partitioned_joins - pj0
+            single_rows, single_walls = _timed_runs(main_session, sql, 2)
+            require(rows == expected[name] == single_rows,
+                    f"{name} on the 8-shard mesh differs from the oracle "
+                    f"or the single card:\n{rows[:3]}\nvs\n"
+                    f"{expected[name][:3]}")
+            require(delta["K3"] >= MESH_SHARDS * joins,
+                    f"{name}: {joins} partitioned joins, K3 launched "
+                    f"{delta['K3']} times")
+            per_query[name] = {
+                "walls_s": walls, "single_card_walls_s": single_walls,
+                "steady_median_s": st.median(walls[1:]),
+                "single_card_steady_s": single_walls[1],
+                "partitioned_joins": joins,
+                "k3_per_partitioned_join": delta["K3"] / joins if joins
+                else None,
+                "rows_pruned": ex.stats.dynamic_filter_rows_pruned - pruned0,
+                "repartition_bytes": MESH_REPARTITION_BYTES.value() - bytes0,
+                "launches": delta}
+            log(f"mesh {name}: rows equal the oracle and the single card; "
+                + json.dumps(per_query[name]))
+        require(sum(q["partitioned_joins"] for q in per_query.values()) > 0,
+                "no join ran partitioned on the mesh")
+        require(per_query["selective"]["rows_pruned"] > 0,
+                "SELECTIVE pruned no rows on the mesh")
+        text = "\n".join(r[0] for r in session.execute("EXPLAIN " +
+                                                       Q3).rows)
+        require("join distribution: partitioned" in text,
+                "EXPLAIN of q3 on the mesh has no `join distribution: "
+                "partitioned`")
+        record["tpch"] = per_query
+        record["q3_device_profile"] = _device_profile(session, Q3)
+        log("mesh q3, one steady run under torch.profiler: " +
+            json.dumps(record["q3_device_profile"]))
+        # 3. a TPC-DS star on the 8-shard mesh: the ladder, no K4
+        ds = Session(ds_session.catalog, default_cat="tpcds",
+                     default_schema=TPCDS_SCHEMA, device=dev)
+        ds.executor = MeshExecutor(ds_session.catalog, mesh)
+        before = read_counts()
+        rows, walls = _timed_runs(ds, DS[3], 2)
+        after = read_counts()
+        want = ds_session.execute(DS[3]).rows
+        require(rows == want, "TPC-DS q3 on the mesh differs from the "
+                "single card")
+        reasons = ds.executor.stats.multijoin_degrade_reasons
+        require(reasons.get("mesh", 0) > 0 and after["K4"] == before["K4"],
+                f"TPC-DS q3 on the mesh: degrades {reasons}, K4 launched "
+                f"{after['K4'] - before['K4']} times")
+        record["tpcds_q3"] = {"walls_s": walls, "degrades": reasons}
+        log("mesh TPC-DS q3: the ladder (degrade reason mesh), no K4, rows "
+            "equal the single card; " + json.dumps(record["tpcds_q3"]))
+    finally:
+        recorder.active, recorder.keep = False, True
+    launches = read_counts()
+    require(launches["K3"] > 0, f"the mesh path launched {launches}")
+    record["launches"] = launches
+    # not a main-path measurement: after the counts are read
+    record["stage_checks"] = _mesh_stage_checks(mesh, {
+        "lineitem": tables["lineitem"], "orders": orders})
+    log("mesh stage programs called directly: " +
+        json.dumps(record["stage_checks"]))
+    record["phase_s"] = time.monotonic() - t_phase
+    log("mesh path: " + json.dumps(record, default=str))
+    return launches
+
+
 K1_PATHS = ("big tiles", "small tiles")
 # the memory-pressure path's K3 captures (LaunchRecorder.capture)
 MEMORY_K3 = ("GROUP BY l_orderkey, whole input",
@@ -3651,6 +3970,8 @@ K3_SITES = {"star builds": "_multijoin_tables",
             "partitioned aggregates": "_partitioned_hash_agg",
             "chunked merges": "merge_group_aggregate",
             "hybrid join builds": "try_hash_join"}
+# ... and the mesh's partitioned joins (one table a shard)
+K3_MESH_SITES = {"mesh shard builds": "_mesh_partitioned_join"}
 
 
 def k1_path(tables) -> str:
@@ -3776,8 +4097,11 @@ class LaunchRecorder:
             sites = self.k3_site()
             site = sites[-1] if sites else "other hash aggregates"
             kept = self.k3.get(site)
-            if self.keep and (kept is None or key.shape[0] * G >
-                              kept[0].shape[0] * kept[7]):
+            # the mesh's shard builds run only after the timed shapes
+            # were chosen: their site keeps its largest launch regardless
+            if (self.keep or site in K3_MESH_SITES) and (
+                    kept is None or key.shape[0] * G >
+                    kept[0].shape[0] * kept[7]):
                 self.k3[site] = args
             self.k3_launches[site] = self.k3_launches.get(site, 0) + 1
             return real_k3(*args)
@@ -3794,6 +4118,10 @@ class LaunchRecorder:
         for name, method in K3_SITES.items():
             setattr(Executor, method, at_site(name, getattr(Executor,
                                                             method)))
+        from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+        for name, method in K3_MESH_SITES.items():
+            setattr(MeshExecutor, method,
+                    at_site(name, getattr(MeshExecutor, method)))
         k1._launch = k1_launch
         ht._launch = k3_launch
 
@@ -3915,7 +4243,8 @@ def _time_k3(recorder):
                      None if ok is None else ok[one]) for v, ok in planes),
               layout, ns, T, 1, False)
     multi_launches = sum(recorder.k3_launches.get(site, 0) for site in
-                         ("star builds", "partitioned aggregates"))
+                         ("star builds", "partitioned aggregates",
+                          "mesh shard builds"))
     out = [_k3_row("one table", single,
                    sum(recorder.k3_launches.values()) - multi_launches)]
     builds, keys_per_build, slots = recorder.star_build
@@ -3923,10 +4252,10 @@ def _time_k3(recorder):
                        recorder.k3_launches["star builds"],
                        lambda: ht.build_join_tables(builds, keys_per_build,
                                                     slots)))
-    if "partitioned aggregates" in recorder.k3:
-        out.append(_k3_row("partitioned aggregates",
-                           recorder.k3["partitioned aggregates"],
-                           recorder.k3_launches["partitioned aggregates"]))
+    for site in ("partitioned aggregates", "mesh shard builds"):
+        if site in recorder.k3:
+            out.append(_k3_row(site, recorder.k3[site],
+                               recorder.k3_launches[site]))
     # the memory-pressure path's largest launches, resident and spilled
     # (their launches are also in the per-site rows above)
     for label in MEMORY_K3:
@@ -4369,7 +4698,8 @@ def main() -> int:
              phase_write_path(recorder, session),
              phase_memory_pressure(recorder, session, tables),
              phase_http_path(recorder, session, tables),
-             phase_cluster_path(recorder, session, tables)]
+             phase_cluster_path(recorder, session, tables),
+             phase_mesh_path(recorder, session, tables, ds_session)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -954,3 +954,68 @@ def test_cluster_q3_on_card_equals_cpu_cluster(tmp_path, monkeypatch):
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0] and out["cuda"][1] is None
     assert out["cuda"][2] == [True, True]
+
+
+def test_glibc_math_kernel_equals_replay_and_glibc_on_card():
+    """csrc/glibc_math.cu's log and pow on the card equal their plain
+    torch replay there and glibc's on the CPU, bit for bit, over seeded
+    arguments through every branch (the wrappers' subnormal flush
+    aside: the kernel is called directly)."""
+    from trino_tpu_torch.ops import project as P
+    dev = _card()
+    rng = np.random.default_rng(21)
+    n = 50_000
+    x = np.concatenate([
+        rng.uniform(0, 2, n), np.exp(rng.uniform(-745, 709, n)),
+        rng.uniform(0.93, 1.07, n), -np.abs(rng.normal(0, 5, n)),
+        np.abs(rng.normal(0, 1, n)) * 2.0 ** -1060,
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 2.0 ** -1074]])
+    y = np.concatenate([
+        rng.uniform(-3, 3, n), np.round(rng.uniform(-20, 20, n)),
+        rng.uniform(-1100, 1100, n), np.round(rng.uniform(-9, 9, n)),
+        rng.normal(0, 1, n) * 10.0 ** rng.integers(-25, 25, n),
+        [2.0 ** 63, -2.0 ** 63, 2.0 ** -70, 0.0, np.inf, -np.inf, np.nan,
+         3.0]])
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    cx, cy = tx.to(dev), ty.to(dev)
+    before = P.glibc_math_kernel.launches
+    for op, kern, plain, cpu in (
+            ("log", P.glibc_math_kernel("log", cx), P.glibc_log_plain(cx),
+             P._glibc("log", tx)),
+            ("pow", P.glibc_math_kernel("pow", cx, cy),
+             P.glibc_pow_plain(cx, cy), P._glibc("pow", tx, ty))):
+        k = kern.cpu().numpy()
+        for other in (plain.cpu().numpy(), cpu.numpy()):
+            nan = np.isnan(k) & np.isnan(other)
+            assert (~nan & (k.view(np.int64) != other.view(np.int64))
+                    ).sum() == 0, op
+    assert P.glibc_math_kernel.launches == before + 2
+
+
+def test_mesh_partitioned_join_on_card_equals_cpu_mesh():
+    """The mesh on eight shards of one card (make_mesh(8, "cuda")) answers
+    a partitioned join and TPC-H q3 with the CPU mesh's rows at
+    tpch.tiny, building one K3 table per shard."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+    from trino_tpu_torch.parallel.mesh import make_mesh
+    _card()
+    probe_rows = ("SELECT l_orderkey, l_linenumber, o_totalprice "
+                  "FROM lineitem, orders WHERE l_orderkey = o_orderkey "
+                  "AND o_totalprice > 400000 "
+                  "ORDER BY l_orderkey, l_linenumber")
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = Session(device=device)
+        s.executor = MeshExecutor(s.catalog, make_mesh(8, device))
+        s.execute("SET SESSION join_distribution_type = 'partitioned'")
+        s.execute("SET SESSION enable_pallas_hash = true")
+        before = ht.hash_insert_multi.launches
+        out[device] = [s.execute(q).rows for q in (probe_rows, QUERIES[3])]
+        joins = s.executor.stats.mesh_partitioned_joins
+        launched = ht.hash_insert_multi.launches - before
+        assert joins > 0
+        assert launched >= (8 * joins if device == "cuda" else 0)
+        assert s.executor.stats.dynamic_filter_rows_pruned > 0
+    assert out["cuda"] == out["cpu"]

@@ -236,18 +236,12 @@ def _random_sums(seed: int, n: int):
     return out
 
 
-# Still open (ROADMAP Queue C 3): an add of two products takes the
-# operand Reassociate ranks lower, and the port ranks loads in the order
-# the expression names its columns. Here the compiled loop reads `p`
-# before `n`, so the port fuses the other product (367 of 1,245 rows).
-OPEN_SUMS = {"((((CAST(n AS double) / 0.7) / 0.05) + "
-             "((CAST(p AS double) * 100) / 3)) + (CAST(n AS double) * 0.07))"}
-
-
-@pytest.mark.parametrize("expr", [
-    pytest.param(e, marks=pytest.mark.xfail(
-        strict=True, reason="ROADMAP Queue C 3: load order of the loop"))
-    if e in OPEN_SUMS else e for e in _random_sums(5, 32)])
+# An add of two products fuses the operand LLVM's Reassociate ranks
+# lower, and loads rank in the order XLA's emitter extracts them: deepest
+# in the optimised HLO first (ops/project._load_order). In
+# ((((n / 0.7) / 0.05) + ((p * 100) / 3)) + n * 0.07) the loop reads `p`
+# before `n`, although the expression names `n` first.
+@pytest.mark.parametrize("expr", _random_sums(5, 32))
 def test_random_sum_equals_reference_bits(sessions, expr):
     js, ts = sessions
     sql = f"SELECT k, n, {expr} FROM memory.s.fold"

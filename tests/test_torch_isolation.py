@@ -1,7 +1,8 @@
 """The port stands alone: importing trino_tpu_torch and running a query,
-in process or on a port cluster (coordinator, stage scheduler, worker,
-failure detector, verifier), loads neither jax nor the reference package
-(checked in fresh interpreters), and no module of the port or
+in process, on the port's mesh (MeshExecutor over eight CPU shards, a
+partitioned join) or on a port cluster (coordinator, stage scheduler,
+worker, failure detector, verifier), loads neither jax nor the reference
+package (checked in fresh interpreters), and no module of the port or
 chip_smoke.py imports them."""
 
 import ast
@@ -20,6 +21,16 @@ from trino_tpu_torch.exec.session import Session
 rows = Session(device="cpu").execute(
     "SELECT count(*) FROM lineitem WHERE l_quantity < 10").rows
 assert rows and rows[0][0] > 0, rows
+from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+from trino_tpu_torch.parallel.mesh import make_mesh
+s = Session(device="cpu")
+s.executor = MeshExecutor(s.catalog, make_mesh(8, "cpu"))
+s.execute("SET SESSION join_distribution_type = 'partitioned'")
+s.execute("SET SESSION enable_pallas_hash = true")
+rows = s.execute("SELECT count(*) FROM lineitem, orders "
+                 "WHERE l_orderkey = o_orderkey").rows
+assert rows and rows[0][0] > 0, rows
+assert s.executor.stats.mesh_partitioned_joins == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu"))
 print("LEAKED", bad)
@@ -79,6 +90,12 @@ def test_cluster_modules_are_checked():
         assert os.path.join("trino_tpu_torch", m) in paths
 
 
+def test_mesh_modules_are_checked():
+    paths = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for m in ("mesh.py", "exchange.py", "stages.py", "dist_executor.py"):
+        assert os.path.join("trino_tpu_torch", "parallel", m) in paths
+
+
 def _port_sources():
     root = os.path.join(REPO, "trino_tpu_torch")
     for dirpath, _, files in os.walk(root):
@@ -103,3 +120,19 @@ def test_no_module_imports_jax_or_reference(path):
             assert name.split(".")[0] not in ("jax", "jaxlib",
                                               "trino_tpu"), \
                 f"{path}:{node.lineno} imports {name}"
+
+
+def test_chip_smoke_loads_no_jax_through_test_modules():
+    """chip_smoke.py reads query texts and cases from tests/ modules; each
+    it imports must itself import neither jax nor the reference package,
+    or the script would load them on the card's machine."""
+    tests_dir = os.path.join(REPO, "tests")
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    used = {node.module for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level == 0 and
+            node.module and os.path.exists(
+                os.path.join(tests_dir, node.module + ".py"))}
+    assert used, "chip_smoke.py reads nothing from tests/"
+    for mod in sorted(used):
+        test_no_module_imports_jax_or_reference(
+            os.path.join(tests_dir, mod + ".py"))

@@ -116,6 +116,72 @@ def test_fma_equals_glibc():
         assert _same_bits(got, want) == 0
 
 
+def _glibc_sweep(seed: int, n: int = 200_000):
+    """Seeded (x, y) over glibc's branches: log's near-1 polynomial and
+    table path, subnormals, zeros, infinities, NaN and negative x; pow's
+    negative bases (integral and not), |y| below 2^-65 and above 2^63,
+    results near overflow and into the subnormal range."""
+    rng = np.random.default_rng(seed)
+    k = n // 10
+    x = np.concatenate([
+        EDGES, rng.uniform(0, 2, k), np.exp(rng.uniform(-745, 709, k)),
+        rng.uniform(0.93, 1.07, k), 1 + rng.normal(0, 1e-9, k),
+        np.abs(rng.normal(0, 1, k)) * 2.0 ** -1060,
+        -np.abs(rng.normal(0, 5, k)), rng.integers(0, 10 ** 7, k) * 1.0,
+        rng.uniform(0.5, 2, k), rng.uniform(1e-300, 1e-290, k)])
+    m = x.size
+    y = np.concatenate([
+        rng.uniform(-3, 3, m // 5), np.round(rng.uniform(-20, 20, m // 5)),
+        np.exp(rng.uniform(-50, 50, m // 5)) * rng.choice([-1, 1], m // 5),
+        rng.normal(0, 1, m // 5) * 10.0 ** rng.integers(-25, 25, m // 5),
+        rng.uniform(-1100, 1100, m - 4 * (m // 5))])
+    rng.shuffle(y)
+    y[:EDGES.size] = rng.choice(EDGES, EDGES.size)
+    y[EDGES.size:2 * EDGES.size] = [2.0 ** 63, -2.0 ** 63, 2.0 ** -70,
+                                   -2.0 ** -70] * (EDGES.size // 4) + \
+        [3.0] * (EDGES.size % 4)
+    return x, y
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_glibc_log_replay_equals_glibc(seed):
+    """The plain version of csrc/glibc_math.cu's log equals glibc's log
+    bit for bit (unflushed: every branch of the algorithm)."""
+    x, _ = _glibc_sweep(seed)
+    t = torch.from_numpy(x)
+    got = P.glibc_log_plain(t).numpy()
+    assert _same_bits(got, P._glibc("log", t).numpy()) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_glibc_pow_replay_equals_glibc(seed):
+    """The plain version of csrc/glibc_math.cu's pow equals glibc's pow
+    bit for bit, over every special-case branch."""
+    x, y = _glibc_sweep(seed)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    got = P.glibc_pow_plain(tx, ty).numpy()
+    assert _same_bits(got, P._glibc("pow", tx, ty).numpy()) == 0
+
+
+def test_glibc_replay_over_lineitem_arguments():
+    """chip_smoke.py `_math_card_counts`'s arguments at tpch.tiny (ln of
+    the unscaled l_extendedprice, power(l_quantity / 100, 1.5)): the
+    replay behind the card's ln and power equals glibc on every row."""
+    from trino_tpu_torch.connectors.tpch.connector import TpchConnector
+    li = TpchConnector().get_table("tiny", "lineitem")
+    price = np.asarray(li.columns[li.schema.index_of("l_extendedprice")],
+                       np.float64)
+    qty = np.asarray(li.columns[li.schema.index_of("l_quantity")],
+                     np.float64)
+    tp = torch.from_numpy(price)
+    assert _same_bits(P.glibc_log_plain(tp).numpy(),
+                      P._glibc("log", tp).numpy()) == 0
+    tq = torch.from_numpy(qty * (1.0 / 100))
+    th = torch.full_like(tq, 1.5)
+    assert _same_bits(P.glibc_pow_plain(tq, th).numpy(),
+                      P._glibc("pow", tq, th).numpy()) == 0
+
+
 @pytest.fixture(scope="module")
 def sessions():
     return (JaxSession(default_schema="tiny"),

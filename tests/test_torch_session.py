@@ -152,8 +152,9 @@ def test_outside_the_slice_raises(tables, sql):
     """A window function, a set operation and a semi join raised until
     their modules were ported; they now run to the reference's rows. So
     does a CTAS into the memory catalog, which raised until DDL and DML
-    were ported. What is still outside the port (`distributed = true`)
-    raises naming its ROADMAP item."""
+    were ported, and `distributed = true`, which raised until the mesh
+    tier was ported: it swaps in a MeshExecutor (one shard on the CPU)
+    and back."""
     from trino_tpu.connectors.memory import MemoryConnector
     js, ts = _sessions(tables)
     js.catalog.register("memory", MemoryConnector())
@@ -162,23 +163,34 @@ def test_outside_the_slice_raises(tables, sql):
     assert ts.execute(ctas).rows == js.execute(ctas).rows == [(1,)]
     back = "SELECT * FROM memory.default.t"
     assert ts.execute(back).rows == js.execute(back).rows == [(1,)]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP: the mesh tier on torch.distributed"):
-        ts.execute("SET SESSION distributed = 'true'")
+    from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+    count = "SELECT count(*) FROM lineitem"
+    ts.execute("SET SESSION distributed = 'true'")
+    assert isinstance(ts.executor, MeshExecutor)
+    assert ts.executor.n_shards == 1
+    assert ts.execute(count).rows == js.execute(count).rows
+    ts.execute("SET SESSION distributed = 'false'")
+    assert not isinstance(ts.executor, MeshExecutor)
+    assert ts.execute(count).rows == js.execute(count).rows
 
 
 @pytest.mark.parametrize("prop,value", [("distributed", "true"),
                                         ("spill_chunk_rows", "4096")])
 def test_unported_options_raise(tables, oracle, prop, value):
-    """`distributed` is still outside the port and raises naming its
-    ROADMAP item; `spill_chunk_rows`, which raised until the chunked
-    driver was ported, now runs it (lineitem in 15 chunks) to the
-    reference's rows."""
+    """Both options raised until their slices were ported; each now runs
+    q6 to the reference's rows: `distributed` on the mesh executor (the
+    reference's Session runs it single-device, with the same rows),
+    `spill_chunk_rows` through the chunked driver (lineitem in 15
+    chunks)."""
     js, ts = _sessions(tables)
     if prop == "distributed":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.execute(f"SET SESSION {prop} = '{value}'")
-            ts.execute(Q6)
+        from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+        ts.execute(f"SET SESSION {prop} = '{value}'")
+        assert isinstance(ts.executor, MeshExecutor)
+        got = ts.execute(Q6).rows
+        assert got == js.execute(Q6).rows
+        assert_rows_match(got, oracle_query(oracle, Q6), rel_tol=1e-9,
+                          abs_tol=0.01, ordered=True)
         return
     for s in (js, ts):
         s.execute(f"SET SESSION {prop} = '{value}'")

@@ -92,6 +92,10 @@ class ExecStats:
     hash_agg_escapes: int = 0        # escapes that radix-partitioned
     hash_join_calls: int = 0         # hybrid hash-join builds attempted
     hash_join_escapes: int = 0       # builds that overflowed the table
+    mesh_partitioned_joins: int = 0  # joins hash-repartitioned over the
+                                     # mesh (parallel/dist_executor.py)
+    dynamic_filter_rows_pruned: int = 0   # probe rows cut by build-side
+                                          # bounds before the join ran
     scan_zones_pruned: int = 0       # zone-map row ranges skipped at scan
     scan_rows_pruned: int = 0        # rows those zones would have held
     mxu_agg_calls: int = 0           # direct aggregates run through K5
@@ -145,11 +149,6 @@ class QueryTerminatedError(RuntimeError):
 
 # serializes ExecStats -> metrics snapshot diffs across threads
 _FLUSH_LOCK = threading.Lock()
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to trino_tpu_torch yet (ROADMAP: {item})")
 
 
 def _subtree_scans(node: "L.PlanNode"):
@@ -716,9 +715,6 @@ class Executor:
             return self.run_unnest(node)
         if isinstance(node, L.SetOpNode):
             return self.run_setop(node)
-        if isinstance(node, L.RemoteSourceNode):
-            raise _not_ported("RemoteSourceNode",
-                              "the mesh tier on torch.distributed")
         raise NotImplementedError(type(node).__name__)
 
     def run_window(self, node: L.WindowNode) -> Batch:
@@ -1019,11 +1015,17 @@ class Executor:
             self.record_decision(("aggfinal", skey, self._decision_salt()),
                                  (n_groups,))
 
+    def row_shards(self, node: L.PlanNode, batch: Batch) -> int:
+        """The blocks a float sum over `batch`, `node`'s output, adds in:
+        1 on one device (parallel.MeshExecutor overrides it)."""
+        return 1
+
     def aggregate_batch(self, node: L.AggregateNode, child: Batch, aggs):
         """One partial aggregation (the PARTIAL step)."""
         if node.strategy == "global":
             self._note_strategy("AggregateNode", "global", "agg")
-            return global_aggregate(child, aggs)
+            return global_aggregate(child, aggs,
+                                    self.row_shards(node.child, child))
         if node.strategy == "direct":
             if self.use_mxu_agg(child, aggs, node.key_domains):
                 from ..ops.direct_agg import direct_group_aggregate_mxu
@@ -1032,8 +1034,9 @@ class Executor:
                 return direct_group_aggregate_mxu(
                     child, node.group_keys, node.key_domains, aggs)
             self._note_strategy("AggregateNode", "direct", "agg")
-            return direct_group_aggregate(child, node.group_keys,
-                                          node.key_domains, aggs)
+            return direct_group_aggregate(
+                child, node.group_keys, node.key_domains, aggs,
+                self.row_shards(node.child, child))
         if node.strategy == "hash":
             out = self.hash_aggregate(node, child, aggs)
             if out is not None:

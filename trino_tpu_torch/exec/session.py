@@ -33,8 +33,9 @@ a write. A write's source query runs on the session's device and comes
 back to the host as raw codes (`query_to_columns`); every stored change
 makes a new table object and drops the executor's cached scans, fact
 columns and decisions (`Executor.invalidate_scan_cache`).
-``distributed`` must stay false: it raises NotImplementedError naming
-its ROADMAP item.
+``distributed = true`` swaps in a ``parallel.MeshExecutor`` over every
+card of the session's device type (one shard on the CPU), as the
+reference swaps in its mesh executor.
 
 ``query_max_memory_mb`` bounds each query's pool; a join, aggregation or
 sort over it spills partition-wise to host RAM and disk
@@ -60,7 +61,7 @@ from ..planner.planner import Planner
 from ..sql import ast_nodes as A
 from ..sql.parser import parse
 from ..types import TypeKind
-from .executor import Executor, _not_ported
+from .executor import Executor
 
 
 @dataclass
@@ -290,12 +291,11 @@ class Session:
 
     def _apply_executor_properties(self, t0: float) -> None:
         """Push session properties into the executor for this query."""
-        if self.properties["distributed"]:
-            raise _not_ported("distributed=true",
-                              "the mesh tier on torch.distributed")
         ex = self.executor
         ex.pool.set_limit(self.properties["query_max_memory_mb"] << 20)
         ex.enable_dynamic_filtering = self.properties["dynamic_filtering"]
+        ex.mesh_dynamic_filtering = \
+            self.properties["mesh_dynamic_filtering"]
         ex.enable_merge_join = self.properties["merge_join"]
         ex.scan_cache_max_bytes = \
             self.properties["scan_cache_max_mb"] << 20
@@ -474,9 +474,16 @@ class Session:
                            time.monotonic() - t0)
 
     def set_distributed(self, on: bool) -> None:
+        """Swap the executor: the mesh over every card of the session's
+        device type (one shard on the CPU), or the single-device one."""
         if on:
-            raise _not_ported("distributed=true",
-                              "the mesh tier on torch.distributed")
+            from ..parallel.dist_executor import MeshExecutor
+            from ..parallel.mesh import make_mesh
+            if not isinstance(self.executor, MeshExecutor):
+                self.executor = MeshExecutor(
+                    self.catalog, make_mesh(device=self.device))
+        elif type(self.executor) is not Executor:
+            self.executor = Executor(self.catalog, self.device)
 
     def resolve_table(self, parts):
         parts = tuple(p.lower() for p in parts)

@@ -98,7 +98,7 @@ def cumsum_like_reference(x: torch.Tensor) -> torch.Tensor:
 SUM_WINDOW = 32
 
 
-def sum_like_reference(x: torch.Tensor) -> torch.Tensor:
+def sum_like_reference(x: torch.Tensor, shards: int = 1) -> torch.Tensor:
     """Sum of a 1-D tensor, with the reference's float rounding.
 
     XLA's CPU backend rewrites a ``jnp.sum`` longer than 32 into
@@ -106,9 +106,19 @@ def sum_like_reference(x: torch.Tensor) -> torch.Tensor:
     before and after, the low half first), applied again to the window
     sums until at most 32 remain, then one reduce; each window and the
     final reduce add sequentially from 0. Float inputs follow that order
-    here as explicit column adds; integer sums are exact in any order."""
+    here as explicit column adds; integer sums are exact in any order.
+
+    ``shards > 1``: the sum of an array row-sharded over a mesh of that
+    many devices, as GSPMD computes it: each contiguous block summed as
+    above, then the block sums added in shard order (the all-reduce)."""
     if not x.dtype.is_floating_point:
         return x.sum()
+    if shards > 1:
+        parts = [sum_like_reference(b) for b in x.reshape(shards, -1)]
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
     b = SUM_WINDOW
     while x.shape[0] > b:
         n = x.shape[0]
@@ -147,10 +157,12 @@ def _full(n: int, value, dtype, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def direct_group_aggregate(batch: Batch, key_indices: tuple,
-                           domains: tuple, aggs: tuple) -> Batch:
+                           domains: tuple, aggs: tuple,
+                           shards: int = 1) -> Batch:
     """Group by small-domain integer/dictionary keys; output has exactly
     prod(domains) rows, group g's keys decode as mixed-radix digits of g.
-    Groups with no rows are not live."""
+    Groups with no rows are not live. ``shards``: float sums over a batch
+    row-sharded that many ways (``sum_like_reference``)."""
     dev = batch.device
     out_capacity = 1
     for d in domains:
@@ -194,7 +206,8 @@ def direct_group_aggregate(batch: Batch, key_indices: tuple,
         if spec.func == "sum":
             vals = data.to(_acc_dtype(data.dtype))
             state = torch.stack([
-                sum_like_reference(torch.where(m & col.valid, vals, 0))
+                sum_like_reference(torch.where(m & col.valid, vals, 0),
+                                   shards)
                 for m in group_masks])
         else:
             ident = _identity(spec.func, data.dtype)
@@ -467,8 +480,9 @@ def packed_sort_group_aggregate(batch: Batch, kmins, key_indices: tuple,
 # global (ungrouped) aggregation
 # --------------------------------------------------------------------------
 
-def global_aggregate(batch: Batch, aggs: tuple) -> Batch:
-    """No GROUP BY: one output row, always live."""
+def global_aggregate(batch: Batch, aggs: tuple, shards: int = 1) -> Batch:
+    """No GROUP BY: one output row, always live. ``shards``: float sums
+    over a batch row-sharded that many ways (``sum_like_reference``)."""
     dev = batch.device
     out_cols = []
     one = torch.ones(1, dtype=torch.bool, device=dev)
@@ -485,7 +499,8 @@ def global_aggregate(batch: Batch, aggs: tuple) -> Batch:
             continue
         if spec.func == "sum":
             state = sum_like_reference(torch.where(
-                m, col.data.to(_acc_dtype(col.data.dtype)), 0))[None]
+                m, col.data.to(_acc_dtype(col.data.dtype)), 0),
+                shards)[None]
         else:
             ident = _identity(spec.func, col.data.dtype)
             red = torch.amin if spec.func == "min" else torch.amax

@@ -8,8 +8,9 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from ``_build/`` (listed in
+``csrc/glibc_math.cu`` adds ``-fmad=false`` (its FMAs are written out, and
+nothing else may fuse). The library name carries a hash of the source, the
+headers under ``csrc/`` and the flags, so an edited source rebuilds and an unchanged one loads from ``_build/`` (listed in
 .gitignore). Nothing builds at import time: the first kernel launch (or
 ``build_all``) does. A missing ``nvcc`` or a failed build raises.
 
@@ -43,7 +44,8 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("gather", "window_gather", "hash_insert", "multiprobe",
-                  "direct_agg")
+                  "direct_agg", "glibc_math")
+EXTRA_FLAGS = {"glibc_math": ("-fmad=false",)}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # library -> {C entry: argtypes}; every entry returns a CUDA status (int)
@@ -63,6 +65,9 @@ SIGNATURES = {
     # live, words, n, keys, aggregates, groups, out, scratch, stream
     "direct_agg": {"k5_direct_agg": [_P, _P, _I64, _I, _I, _I, _P, _P,
                                      _P]},
+    # x, (y,) out, n, stream
+    "glibc_math": {"glibc_log": [_P, _P, _I64, _P],
+                   "glibc_pow": [_P, _P, _P, _I64, _P]},
 }
 
 _lock = threading.Lock()
@@ -83,9 +88,15 @@ def nvcc_path() -> str:
                        "kernels cannot be built")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _digest(name: str) -> str:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    for header in sorted(SRC_DIR.glob("*.h")):
+        src += header.read_bytes()
+    return hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
 
 
 def _target(name: str) -> Path:
@@ -100,7 +111,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
            str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

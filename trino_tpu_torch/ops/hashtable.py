@@ -632,6 +632,22 @@ def hash_join_probe(probe: Batch, build: Batch, tkey, src,
                                  build_keys, kind, gather_mode)
 
 
+def shard_join(probe: Batch, build: Batch, probe_keys: tuple,
+               build_keys: tuple, kind: str, table_slots: int,
+               gather_mode: str = "off"):
+    """Shard-local fused build + probe: the per-shard body of the
+    mesh-partitioned join (parallel/stages.partitioned_hash_join_step).
+    One K3 launch builds the shard's table, `hash_join_probe` walks it (K1
+    when `gather_mode` is on); the caller sums (dup_rows, escaped) over
+    the mesh and owns the degrade decision (dup -> expansion join, escape
+    -> host equi-join). Returns (joined, dup_rows, escaped)."""
+    tkey, src, dup_rows, escaped = build_join_table(build, build_keys,
+                                                    table_slots)
+    joined = hash_join_probe(probe, build, tkey, src, probe_keys,
+                             build_keys, kind, gather_mode)
+    return joined, dup_rows, escaped
+
+
 # --------------------------------------------------------------------------
 # K4: fused multiway star probe over k dimension tables, one pass
 # --------------------------------------------------------------------------

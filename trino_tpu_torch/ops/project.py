@@ -13,6 +13,7 @@ HALF_UP (away from zero) rescaling, exactly as the reference.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import ctypes.util
 import dataclasses
@@ -358,14 +359,45 @@ def _children(e: ir.Expr):
             yield from (x for x in v if isinstance(x, ir.Expr))
 
 
-def _load_order(e: ir.Expr, order: dict) -> dict:
-    """Column loads numbered in the order the compiled loop first reads
-    them: operands left to right, depth first."""
+def _hlo_walk(e: ir.Expr, depth: int, least: dict, first: dict,
+              as_double: bool = False) -> None:
+    """Walk `e` as XLA's optimised HLO holds it, `depth` levels below the
+    fused computation's root: a chain folded to one factor is
+    multiply(convert(base), k), a non-double operand of a double
+    operation a convert of it. Records each column's least depth and the
+    order columns are first reached (left to right, depth first)."""
+    if isinstance(e, ir.Literal):
+        return
+    if as_double or e.dtype.kind is TypeKind.DOUBLE:
+        base, ops = _double_chain(e)
+        k = _fold_factor(ops) if ops and \
+            not isinstance(base, ir.Literal) else None
+        if k is not None:
+            depth += (k != 1.0) + (base.dtype.kind is not TypeKind.DOUBLE)
+            _hlo_walk(base, depth, least, first)
+            return
+        if e.dtype.kind is not TypeKind.DOUBLE:
+            depth += 1                                    # convert
     if isinstance(e, ir.ColumnRef):
-        order.setdefault(e.index, len(order) + 1)
+        least[e.index] = min(least.get(e.index, depth), depth)
+        first.setdefault(e.index, len(first))
+        return
+    double_op = isinstance(e, ir.Arith) and e.dtype.kind is TypeKind.DOUBLE
     for c in _children(e):
-        _load_order(c, order)
-    return order
+        _hlo_walk(c, depth + 1, least, first, double_op)
+
+
+def _load_order(root: ir.Expr) -> dict:
+    """Column loads numbered in the order the compiled loop reads them.
+    XLA's CPU emitter extracts a fused computation's parameters
+    shallowest last: by their least depth below the root of the
+    optimised HLO, deepest first, ties in the order a left-to-right
+    depth-first walk first reaches them (checked against the emitted
+    MLIR of the seeded sums in tests/test_torch_double_fold.py)."""
+    least, first = {}, {}
+    _hlo_walk(root, 0, least, first)
+    cols = sorted(least, key=lambda c: (-least[c], first[c]))
+    return {c: i + 1 for i, c in enumerate(cols)}
 
 
 def _ir_rank(e: ir.Expr, order: dict) -> int:
@@ -422,7 +454,7 @@ def _eval_contracted(expr: ir.Arith, batch: Batch):
     first puts the lower-ranked operand of an add first, while a subtract
     keeps its order (`R - x*k` becomes `fma(-x, k, R)`). None when neither
     operand is a product."""
-    order = _load_order(expr, {})
+    order = _load_order(_EVAL_ROOT.get() or expr)
     left = _product_rank(expr.left, order)
     right = _product_rank(expr.right, order) \
         if left is None or expr.op == '+' else None
@@ -496,8 +528,24 @@ def _tdt(dtype) -> torch.dtype:
     return torch_dtype(dtype.np_dtype)
 
 
+# the expression an outermost `eval_expr` call evaluates: the root of the
+# fused computation whose load order `_eval_contracted` replays
+_EVAL_ROOT: contextvars.ContextVar = contextvars.ContextVar(
+    "eval_root", default=None)
+
+
 def eval_expr(expr: ir.Expr, batch: Batch):
     """Evaluate an IR expression over a batch. Returns (data, valid)."""
+    if _EVAL_ROOT.get() is not None:
+        return _eval_expr(expr, batch)
+    token = _EVAL_ROOT.set(expr)
+    try:
+        return _eval_expr(expr, batch)
+    finally:
+        _EVAL_ROOT.reset(token)
+
+
+def _eval_expr(expr: ir.Expr, batch: Batch):
     n = batch.capacity
     dev = batch.device
 
@@ -791,7 +839,9 @@ def eval_expr(expr: ir.Expr, batch: Batch):
 # CPU (CUDA's double sqrt is IEEE already), ln and power through glibc on the
 # CPU, and exp by replaying `xla.exp.f64` op by op, its contractions through
 # `fma_like_reference`, on every device. On a CUDA tensor ln and power are
-# the card's own `log` and `pow`, which need not round as glibc does.
+# `csrc/glibc_math.cu`, glibc's own algorithms with the contractions of its
+# FMA build written out; `glibc_log_plain` and `glibc_pow_plain` replay the
+# same steps in torch.
 
 _MIN_NORMAL = 2.2250738585072014e-308
 
@@ -905,7 +955,8 @@ def sqrt_like_reference(x: torch.Tensor) -> torch.Tensor:
 
 def log_like_reference(x: torch.Tensor) -> torch.Tensor:
     x = flush_subnormal(x)
-    return _glibc("log", x) if x.device.type == "cpu" else torch.log(x)
+    return _glibc("log", x) if x.device.type == "cpu" \
+        else glibc_math_kernel("log", x)
 
 
 def pow_like_reference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -914,8 +965,241 @@ def pow_like_reference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     # arithmetic; only past those does a subnormal base read as zero
     x = torch.where((x < 0) | (y.abs() < 2.0 ** -65), x, flush_subnormal(x))
     out = _glibc("pow", x, y) if x.device.type == "cpu" \
-        else torch.pow(x, y)
+        else glibc_math_kernel("pow", x, y)
     return flush_subnormal(out)
+
+
+# glibc's `log` and `pow` (since 2.28: Arm optimized-routines' table and
+# polynomial algorithms), as its FMA build (`__log_fma`, `__pow_fma`, chosen
+# by ifunc on a CPU with FMA and AVX2) computes them: each `fma` below is an
+# FMA instruction of that build, read from `objdump -d` of libm (the C
+# source has two; GCC contracted the rest), and every other step rounds on
+# its own. The tables are libm's, in `csrc/glibc_math_tables.h`
+# (tools/extract_glibc_math_tables.py). `csrc/glibc_math.cu` runs the same
+# steps; these torch versions are its plain versions and equal glibc bit
+# for bit (tests/test_torch_math_parity.py).
+
+_GLIBC_HEADER = "glibc_math_tables.h"
+_SIGN = -(1 << 63)
+_ABS = (1 << 63) - 1
+_INF_BITS = 0x7FF0000000000000
+_EXP_SIGN_BIAS = 0x800 << 7
+
+
+@functools.lru_cache(maxsize=None)
+def _glibc_words(name: str) -> tuple:
+    """The 64-bit words of table `name` in the generated header."""
+    import re
+    from .cuda_build import SRC_DIR
+    text = (SRC_DIR / _GLIBC_HEADER).read_text()
+    body = re.search(name + r"_BITS\[\] = \{(.*?)\};", text, re.S).group(1)
+    return tuple(int(w, 16) for w in re.findall(r"0x([0-9a-f]{16})ULL", body))
+
+
+def _glibc_data(name: str, device):
+    """(scalars as floats, the whole table as a float64 tensor)."""
+    words = np.array(_glibc_words(name), dtype=np.uint64)
+    doubles = words.view(np.float64)
+    return doubles.tolist(), torch.from_numpy(doubles.copy()).to(device)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int64)
+
+
+def _dbl(b: torch.Tensor) -> torch.Tensor:
+    return b.view(torch.float64)
+
+
+def glibc_log_plain(x: torch.Tensor) -> torch.Tensor:
+    """glibc's `log` (`__log_fma`) over a float64 tensor."""
+    fma = fma_like_reference
+    d, data = _glibc_data("GLIBC_LOG_DATA", x.device)
+    ln2hi, ln2lo, A, B = d[0], d[1], d[2:7], d[7:18]
+    tab = data[18:].reshape(128, 2)
+    ix = _bits(x)
+    top = _shr_logical(ix, 48)
+    zero = (ix & _ABS) == 0
+    special = (top < 0x10) | (top >= 0x7FF0)
+    bad = special & ~zero & (((top & 0x8000) != 0) |
+                             ((top & 0x7FF0) == 0x7FF0))
+    sub = special & ~zero & ~bad
+    ixn = torch.where(sub, _bits(x * 2.0 ** 52) - (52 << 52), ix)
+    # away from 1: x = 2^k z, log(x) = k ln2 + log(c) + log1p(z/c - 1)
+    tmp = ixn - 0x3FE6000000000000
+    i = _shr_logical(tmp, 45) & 127
+    kd = (tmp >> 52).to(torch.float64)
+    z = _dbl(ixn - (tmp & -(1 << 52)))
+    r = fma(z, tab[i, 0], -1.0)
+    w = fma(kd, ln2hi, tab[i, 1])
+    hi = w + r
+    lo = fma(kd, ln2lo, (w - hi) + r)
+    r2 = r * r
+    p = fma(fma(r, A[4], A[3]), r2, fma(r, A[2], A[1]))
+    far = fma(r * r2, p, fma(r2, A[0], lo)) + hi
+    # near 1: a polynomial in r = x - 1 with hi + lo carried
+    r = x - 1.0
+    r2 = r * r
+    r3 = r * r2
+    q = fma(fma(fma(r3, B[10], fma(r2, B[9], fma(r, B[8], B[7]))), r3,
+                fma(r2, B[6], fma(r, B[5], B[4]))), r3,
+            fma(r2, B[3], fma(r, B[2], B[1])))
+    rhi = fma(-(2.0 ** 27), r, fma(r, 2.0 ** 27, r))
+    rlo = r - rhi
+    rhi2 = rhi * rhi
+    hi = fma(rhi2, B[0], r)
+    lo = fma(B[0] * rlo, r + rhi, fma(rhi2, B[0], r - hi))
+    near = hi + fma(q, r3, lo)
+    near = torch.where(ix == 0x3FF0000000000000, 0.0, near)
+    out = torch.where((ix >= 0x3FEE000000000000) &
+                      (ix < 0x3FF1090000000000), near, far)
+    out = torch.where(zero, -math.inf, out)
+    out = torch.where(ix == _INF_BITS, math.inf, out)
+    return torch.where(bad & (ix != _INF_BITS), math.nan, out)
+
+
+def _checkint(iy: torch.Tensor) -> torch.Tensor:
+    """glibc's checkint over finite non-zero exponents: 0 not an integer,
+    1 odd, 2 even."""
+    e = _shr_logical(iy, 52) & 0x7FF
+    shift = (0x433 - e).clamp(0, 62)
+    one = torch.ones_like(iy)
+    frac = iy & ((one << shift) - 1)
+    odd = (iy & (one << shift)) != 0
+    out = torch.where(frac != 0, 0, torch.where(odd, 1, 2))
+    out = torch.where(e < 0x3FF, 0, out)
+    return torch.where(e > 0x433, 2, out)
+
+
+def _pow_log(ix: torch.Tensor, d, tab):
+    """`log_inline`: log(x) as hi + lo, x > 0 normal given by its bits."""
+    fma = fma_like_reference
+    ln2hi, ln2lo, A = d[0], d[1], d[2:9]
+    tmp = ix - 0x3FE6955500000000
+    i = _shr_logical(tmp, 45) & 127
+    kd = (tmp >> 52).to(torch.float64)
+    z = _dbl(ix - (tmp & -(1 << 52)))
+    r = fma(z, tab[i, 0], -1.0)
+    t1 = fma(kd, ln2hi, tab[i, 2])
+    lo1 = fma(kd, ln2lo, tab[i, 3])
+    t2 = t1 + r
+    lo2 = (t1 - t2) + r
+    ar = r * A[0]
+    ar2 = r * ar
+    ar3 = r * ar2
+    lo3 = fma(ar, r, -ar2)
+    hi = t2 + ar2
+    lo4 = (t2 - hi) + ar2
+    q = fma(ar2, fma(fma(r, A[6], A[5]), ar2, fma(r, A[4], A[3])),
+            fma(r, A[2], A[1]))
+    lo = fma(ar3, q, ((lo1 + lo2) + lo3) + lo4)
+    y = hi + lo
+    return y, (hi - y) + lo
+
+
+def _pow_exp(x, xtail, sign_bias, d, tab):
+    """`exp_inline`: exp(x + xtail), negated where sign_bias is set."""
+    fma = fma_like_reference
+    invln2n, neghi, neglo, C, shift = d[0], d[1], d[2], d[3:7], d[7]
+    neg = sign_bias != 0
+    abstop = _shr_logical(_bits(x), 52) & 0x7FF
+    kraw = fma(x, invln2n, shift)
+    ki = _bits(kraw)
+    kd = kraw - shift
+    r = xtail + fma(kd, neglo, fma(kd, neghi, x))
+    idx = 2 * (ki & 127)
+    sbits = _bits(tab[idx + 1]) + (ki + sign_bias) * (1 << 45)
+    r2 = r * r
+    tmp = fma(fma(r, C[3], C[2]), r2 * r2,
+              fma(fma(r, C[1], C[0]), r2, r + tab[idx]))
+    out = fma(tmp, _dbl(sbits), _dbl(sbits))
+    # 512 <= |x| < 1024: the scale's exponent may leave the normal range
+    kpos = (ki & 0x80000000) == 0
+    scale = _dbl(sbits - (1009 << 52))
+    up = fma(scale, tmp, scale) * 2.0 ** 1009
+    sbits = sbits + (1022 << 52)
+    scale = _dbl(sbits)
+    t = tmp * scale
+    y = scale + t
+    one = torch.where(y < 0, -1.0, 1.0)
+    hi = y + one
+    y2 = ((((one - hi) + y) + ((scale - y) + t)) + hi) - one
+    y2 = torch.where(y2 == 0, _dbl(sbits & _SIGN), y2)
+    down = torch.where(y.abs() < 1.0, y2, y) * 2.0 ** -1022
+    out = torch.where(abstop == 0x408, torch.where(kpos, up, down), out)
+    big = torch.where(x < 0, 0.0, math.inf)
+    out = torch.where(abstop >= 0x409, torch.where(neg, -big, big), out)
+    tiny = 1.0 + x
+    return torch.where(abstop < 0x3C9, torch.where(neg, -tiny, tiny), out)
+
+
+def glibc_pow_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """glibc's `pow` (`__pow_fma`) over float64 tensors."""
+    x, y = torch.broadcast_tensors(x, y)
+    x, y = x.contiguous(), y.contiguous()
+    ld, ldata = _glibc_data("GLIBC_POW_LOG_DATA", x.device)
+    ed, edata = _glibc_data("GLIBC_EXP_DATA", x.device)
+    ix, iy = _bits(x), _bits(y)
+    topx = _shr_logical(ix, 52)
+    ey = _shr_logical(iy, 52) & 0x7FF
+    ax, ay = ix & _ABS, iy & _ABS
+    y_zin = (ay == 0) | (ay >= _INF_BITS)
+    x_zin = (ax == 0) | (ax >= _INF_BITS)
+    ypos = iy >= 0
+    # a negative base: its sign comes from the exponent's integrality
+    yint = _checkint(iy)
+    negx = ix < 0
+    sign_bias = torch.where(negx & (yint == 1), _EXP_SIGN_BIAS, 0)
+    ixm = torch.where(negx, ax, ix)
+    ixm = torch.where((topx & 0x7FF) == 0,
+                      (_bits(x * 2.0 ** 52) & _ABS) - (52 << 52), ixm)
+    hi, lo = _pow_log(ixm, ld, ldata[9:].reshape(128, 4))
+    ehi = y * hi
+    elo = fma_like_reference(y, lo, fma_like_reference(hi, y, -ehi))
+    out = _pow_exp(ehi, elo, sign_bias, ed, edata[14:])
+    # |y| < 2^-65 or |y| >= 2^63
+    one_bits = 0x3FF0000000000000
+    small = torch.where(ixm > one_bits, 1.0 + y, 1.0 - y)
+    huge = torch.where((ixm > one_bits) == (iy >= 0), math.inf, 0.0)
+    ranged = torch.where(ey < 0x3BE, small, huge)
+    ranged = torch.where(ixm == one_bits, 1.0, ranged)
+    out = torch.where((ey < 0x3BE) | (ey >= 0x43E), ranged, out)
+    out = torch.where(negx & (yint == 0), math.nan, out)
+    # x zero, infinite or NaN (y finite, non-zero)
+    x2 = x * x
+    odd = negx & (yint == 1)
+    x2 = torch.where(odd, -x2, x2)
+    xz = torch.where(ypos, x2, 1.0 / x2)
+    xz = torch.where((ax == 0) & ~ypos, torch.where(odd, -math.inf,
+                                                     math.inf), xz)
+    out = torch.where(x_zin, xz, out)
+    # y zero, infinite or NaN
+    yz = torch.where((ax < one_bits) == ypos, 0.0, y * y)
+    yz = torch.where(ax == one_bits, 1.0, yz)
+    yz = torch.where((ax > _INF_BITS) | (ay > _INF_BITS), x + y, yz)
+    yz = torch.where(ix == one_bits, 1.0, yz)
+    yz = torch.where(ay == 0, 1.0, yz)
+    return torch.where(y_zin, yz, out)
+
+
+def glibc_math_kernel(op: str, x: torch.Tensor, y=None) -> torch.Tensor:
+    """`op` ("log" or "pow") over CUDA float64 tensors through
+    `csrc/glibc_math.cu`; a CPU tensor takes the plain replay."""
+    if x.device.type == "cpu":
+        return glibc_log_plain(x) if op == "log" else glibc_pow_plain(x, y)
+    from .cuda_build import check, library, raw_stream
+    args = (x,) if op == "log" else torch.broadcast_tensors(x, y)
+    args = [a.to(torch.float64).contiguous() for a in args]
+    out = torch.empty_like(args[0])
+    if out.numel():
+        fn = getattr(library("glibc_math"), f"glibc_{op}")
+        check(fn(*(a.data_ptr() for a in args), out.data_ptr(), out.numel(),
+                 raw_stream(out.device)), f"glibc {op} launch")
+        glibc_math_kernel.launches += 1
+    return out
+
+
+glibc_math_kernel.launches = 0
 
 
 def _shr_logical(x: torch.Tensor, s: int) -> torch.Tensor:
