@@ -159,7 +159,27 @@ Phases, each failing the run with a non-zero exit:
    card's idle share over one steady q3; TPC-DS q3 on the ladder
    (degrade reason mesh, no K4); and, after the counts are read, the
    join and aggregate stage programs called directly over lineitem and
-   orders, bit-exact against the single card's operators;
+   orders, bit-exact against the single card's operators; then the
+   introspection tier (``phase_introspection``, counters set to 0 just
+   before and read just after): TPC-H q3 (K1, K3), q12 under ``mxu_agg =
+   'true'`` (K5), TPC-DS q3 (K4) and chunked q12 each once under
+   ``enable_profiling = true`` inside torch.profiler, rows bit-equal to
+   the unprofiled run, every node's device + host + compile equal to its
+   wall to 1 us, the summed device ms beside the card's busy ms, the
+   idle share, and the EXPLAIN ANALYZE split; the executor's Prometheus
+   families: three steady TPC-DS q3 runs move MULTIJOIN_FUSED_PROBES and
+   JOIN_STRATEGY_DECISIONS{multiway} by `multijoin_fused_probes`' delta
+   (K4's launches beside it), a steady chunked q1 hits the fact cache, a
+   chunked selective scan (``l_orderkey < ZONE_KEY``, against numpy)
+   counts its skipped chunks in SCAN_ZONES_PRUNED, from the fact cache
+   and through the prefetch pipeline, and every family's delta over the
+   whole run; a fresh process with an empty kernel build directory
+   (``TRINO_TPU_CUDA_BUILD_DIR``) runs TPC-H q3 at ``tpch.tiny`` profiled
+   twice: the nvcc seconds land on the nodes whose first launch built a
+   library, the second run compiles nothing; EXPLAIN ANALYZE of q3 on a
+   port coordinator with two workers (deviceMs > 0 in every task's
+   TaskStats and in the operator rollup); and q3's steady wall with
+   profiling off and on, five runs each, interleaved;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -3960,6 +3980,423 @@ def phase_mesh_path(recorder, main_session, tables, ds_session):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the introspection tier: fenced device/host/compile attribution and the
+# Prometheus families the executor feeds
+# --------------------------------------------------------------------------
+
+# the eleven families of the executor tier (trino_tpu_torch/metrics.py)
+FAMILIES = ("OPERATOR_ROWS", "OPERATOR_DEVICE_MS", "OPERATOR_COMPILE_MS",
+            "AGG_STRATEGY_DECISIONS", "JOIN_STRATEGY_DECISIONS",
+            "MULTIJOIN_FUSED_PROBES", "MULTIJOIN_DEGRADES",
+            "DEVICE_CACHE_HITS", "DEVICE_CACHE_MISSES", "SCAN_ZONES_PRUNED",
+            "SCAN_PREFETCH_BUFFERS", "SCAN_PREFETCH_STALL_SECONDS")
+# the chunked selective query: lineitem is sorted by l_orderkey, so zone
+# maps skip every chunk past the keys below ZONE_KEY (a sixth of them)
+ZONE_KEY = 1_000_000
+ZONE_SQL = ("SELECT count(*) AS c, sum(l_quantity) AS q FROM lineitem "
+            "WHERE l_orderkey < {key}")
+INTRO_RUNS = 5
+
+
+def families_snapshot():
+    """Every sample of the executor tier's families, keyed by (family,
+    labels): the registry's own values."""
+    import trino_tpu_torch.metrics as M
+    return {(f, k): v for f in FAMILIES
+            for k, v in dict(getattr(M, f)._values).items()}
+
+
+def families_delta(before, after=None):
+    after = families_snapshot() if after is None else after
+    return {f"{f}{list(k) if k else ''}": round(v - before.get((f, k), 0.0),
+                                                6)
+            for (f, k), v in after.items()
+            if v != before.get((f, k), 0.0)}
+
+
+def _fam(delta, family, *labels):
+    return delta.get(f"{family}{list(labels) if labels else ''}", 0.0)
+
+
+def oracle_zone(li, key):
+    m = _col(li, "l_orderkey") < key
+    return [(int(m.sum()), _dec(int(_col(li, "l_quantity")[m].sum()), 2))]
+
+
+def _split_check(name, node_stats):
+    """Every profiled node's device + host + compile equals its wall to
+    1 us. Returns, in ms, the device time summed over the nodes (each
+    node's closing fence: they never overlap) and the split of the node
+    with the largest wall (times are inclusive of a node's children)."""
+    require(node_stats, f"{name}: the profiled run left no node stats")
+    for st in node_stats.values():
+        require(len(st) == 5, f"{name}: a node's stats are {st}")
+        wall, _rows, dev, host, comp = st
+        require(min(dev, host, comp) >= 0 and
+                abs(wall - (dev + host + comp)) <= 1e-6,
+                f"{name}: device {dev} + host {host} + compile {comp} != "
+                f"wall {wall}")
+    top = max(node_stats.values(), key=lambda st: st[0])
+    return {"device_ms": round(sum(st[2] for st in node_stats.values())
+                               * 1e3, 4),
+            "top_node_ms": [round(top[i] * 1e3, 4) for i in (0, 2, 3, 4)]}
+
+
+def _profiled_statement(session, name, sql):
+    """`sql` unprofiled (its rows), then under enable_profiling inside
+    torch.profiler: rows bit-equal, every node's split summing to its
+    wall, the summed device ms beside the card's busy ms for the same
+    statement, the idle share; then its EXPLAIN ANALYZE text."""
+    want = session.execute(sql).rows
+    session.execute("SET SESSION enable_profiling = true")
+    try:
+        before = read_counts()
+        res, wall, acts = _profiled_run(session, sql)
+        launched = {k: v - before[k] for k, v in read_counts().items()
+                    if v != before[k]}
+        split = _split_check(name, session.executor.node_stats)
+        text = [r[0] for r in session.execute("EXPLAIN ANALYZE " +
+                                              sql).rows]
+        _split_check(f"{name} EXPLAIN ANALYZE", session.executor.node_stats)
+    finally:
+        session.execute("SET SESSION enable_profiling = false")
+    require(res.rows == want, f"{name}: profiled rows differ from the "
+            "unprofiled run's")
+    busy_ms = sum(us for _n, us in acts) / 1e3
+    out = dict(split, wall_ms=round(wall * 1e3, 4),
+               device_busy_ms=round(busy_ms, 4),
+               device_over_busy=round(split["device_ms"] / busy_ms, 4)
+               if busy_ms else None,
+               idle_share=round(1 - busy_ms / (wall * 1e3), 4),
+               nodes=len(session.executor.node_stats), launches=launched)
+    log(f"introspection {name}: " + json.dumps(out))
+    for line in text:
+        if "(device " in line:
+            log(f"introspection {name} EXPLAIN ANALYZE | {line}")
+    require(any("(device " in line and " + compile " in line
+                for line in text),
+            f"{name}: EXPLAIN ANALYZE renders no device/host/compile split")
+    return out
+
+
+_COLD_BUILD_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from trino_tpu_torch.exec import executor as ex_mod
+from trino_tpu_torch.exec.profiler import RECORDER
+from trino_tpu_torch.exec.session import Session
+from trino_tpu_torch.ops import cuda_build
+parent, names, stack = {}, {}, []
+real = ex_mod.Executor._dispatch_timed
+
+def spy(self, node):
+    parent[id(node)] = stack[-1] if stack else None
+    names[id(node)] = type(node).__name__
+    stack.append(id(node))
+    try:
+        return real(self, node)
+    finally:
+        stack.pop()
+
+ex_mod.Executor._dispatch_timed = spy
+session = Session(default_schema=sys.argv[2])
+session.catalog.connector("tpch").get_table(sys.argv[2], "lineitem")
+session.execute("SET SESSION enable_profiling = true")
+runs = []
+for _ in range(2):
+    parent.clear()
+    before = RECORDER.totals()["compileSeconds"]
+    t = time.monotonic()
+    rows = session.execute(sys.argv[3]).rows
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    ns = session.executor.node_stats
+    child_c = {}
+    for i, st in ns.items():
+        p = parent.get(i)
+        if p is not None:
+            child_c[p] = child_c.get(p, 0.0) + st[4]
+    # the compile a node charged itself, not through a child
+    own = {i: st[4] - child_c.get(i, 0.0) for i, st in ns.items()}
+    runs.append({"wall_s": wall, "rows": repr(rows),
+                 "compile_s": RECORDER.totals()["compileSeconds"] - before,
+                 "build_nodes": [[names[i], round(c, 6)] for i, c in own.items()
+                              if c > 1e-9],
+                 "node_compile_s": sum(c for c in own.values()),
+                 "split_ok": all(abs(st[0] - st[2] - st[3] - st[4]) <= 1e-6
+                                 for st in ns.values())})
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu"))
+print(json.dumps({"runs": runs, "build_dir": str(cuda_build.BUILD_DIR),
+                  "sites": [e["site"] for e in RECORDER.snapshot()
+                            if e["compiles"]],
+                  "leaked": leaked}))
+"""
+
+
+def _cold_build_child():
+    """A fresh process with an empty kernel build directory runs TPC-H q3
+    profiled twice: the first run's compile (the nvcc builds its first
+    launches trigger) lands on the nodes that launched the kernels, the
+    second compiles nothing."""
+    import shutil
+    import tempfile
+    build = tempfile.mkdtemp(prefix="chip-smoke-build-")
+    try:
+        env = dict(os.environ, TRINO_TPU_CUDA_BUILD_DIR=build)
+        proc = subprocess.run(
+            [sys.executable, "-c", _COLD_BUILD_CHILD, HERE, "tiny", Q3],
+            env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
+    require(proc.returncode == 0,
+            f"cold-build child failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    first, second = rec["runs"]
+    require(not rec["leaked"], f"the cold-build child imported "
+            f"{rec['leaked']}")
+    require(rec["build_dir"] == build, "the child ignored "
+            "TRINO_TPU_CUDA_BUILD_DIR")
+    require(first["rows"] == second["rows"], "the cold-build child's runs "
+            "returned other rows")
+    require(first["split_ok"] and second["split_ok"], "the cold-build "
+            "child's split does not sum to the wall")
+    require(first["build_nodes"] and first["compile_s"] > 0,
+            f"the cold run charged no compile to a node: {first}")
+    require(abs(first["node_compile_s"] - first["compile_s"]) <= 1e-6,
+            f"the nodes' compile {first['node_compile_s']} s is not the "
+            f"recorder's {first['compile_s']} s")
+    require(second["compile_s"] == 0 and not second["build_nodes"],
+            f"the second run compiled: {second}")
+    for r in rec["runs"]:
+        r.pop("rows")
+    return rec
+
+
+def _introspection_cluster(main_session):
+    """EXPLAIN ANALYZE of q3 on a port coordinator and two workers on the
+    card (split_rows 250,000): every worker task of the profiled run
+    carries deviceMs > 0 in its TaskStats, as does the distributed
+    EXPLAIN ANALYZE's operator rollup."""
+    import re
+    import tempfile
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer
+    cat = Catalog()
+    cat.register("tpch", main_session.catalog.connector("tpch"))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-intro-")
+    saved = os.environ.get("TRINO_TPU_HISTORY_PATH")
+    os.environ["TRINO_TPU_HISTORY_PATH"] = os.path.join(tmp, "h.jsonl")
+    coord = CoordinatorServer(Session(cat, default_schema=TPCH_SCHEMA),
+                              max_concurrency=4).start()
+    sched = coord.state.scheduler
+    sched.split_rows = CLUSTER_SPLIT_ROWS
+    workers = [WorkerServer(f"intro-w{i}", coord.uri,
+                            announce_interval_s=0.1, catalog=cat).start()
+               for i in range(2)]
+    try:
+        _wait_for(lambda: len(coord.state.active_nodes()) == 2,
+                  "two workers to announce")
+        probe = HttpProbe(coord.uri)
+        sched.spool.clear()
+        t = time.monotonic()
+        rows, info, _w = probe.run("EXPLAIN ANALYZE " + Q3)
+        wall = time.monotonic() - t
+        require(info.get("fallbackReason") is None,
+                f"EXPLAIN ANALYZE q3 ran locally: {info.get('fallbackReason')}")
+        text = "\n".join(r[0] for r in rows)
+        tasks = list((sched.last_query or {}).get("tasks", []))
+        require(len({t["node"] for t in tasks}) == 2,
+                f"the profiled q3 ran tasks on {[t['node'] for t in tasks]}")
+        require(all(t["device_ms"] > 0 for t in tasks),
+                "a worker task's TaskStats carry deviceMs 0: " +
+                json.dumps([[t["node"], t["device_ms"]] for t in tasks]))
+        ops = re.findall(r"operator (\w+): rows=\d+, wall=([\d.]+)ms "
+                         r"\(device ([\d.]+) \+ host ([\d.]+) \+ compile "
+                         r"([\d.]+)\)", text)
+        require(ops and sum(float(o[2]) for o in ops) > 0,
+                "the distributed EXPLAIN ANALYZE shows no device ms:\n" +
+                text)
+        for line in text.splitlines():
+            if line.lstrip().startswith(("operator ", "Stage ")):
+                log("introspection cluster EXPLAIN ANALYZE | " + line)
+        out = {"wall_s": round(wall, 4), "tasks": [
+            {k: (round(v, 3) if isinstance(v, float) else v)
+             for k, v in t.items() if k in ("node", "stage", "splits",
+                                             "wall_ms", "device_ms",
+                                             "host_ms", "compile_ms")}
+            for t in tasks]}
+        log("introspection cluster: " + json.dumps(out))
+        return out
+    finally:
+        for w in workers:
+            w.stop(graceful=False)
+        coord.stop()
+        coord.state.dispatcher.pool.shutdown(wait=True)
+        if saved is None:
+            os.environ.pop("TRINO_TPU_HISTORY_PATH", None)
+        else:
+            os.environ["TRINO_TPU_HISTORY_PATH"] = saved
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_introspection(recorder, session, tables, ds_session, smi,
+                        fam_before):
+    """The introspection tier on the card, after every other path:
+    counters set to 0 just before and read just after. TPC-H q3, TPC-DS
+    q3 (the fused star, K4), q12 under mxu_agg = 'true' (K5) and chunked
+    q12 each run profiled under torch.profiler (rows bit-equal to the
+    unprofiled run; every node's device + host + compile = wall to 1 us;
+    the summed device ms beside the card's busy ms and the idle share)
+    and through EXPLAIN ANALYZE; the families: the fused probes of three
+    star runs against `multijoin_fused_probes` and K4's launches, a
+    steady chunked rerun's fact-cache hit, the chunked selective query's
+    skipped chunks as zones pruned (and again through the prefetch
+    pipeline), every family's delta over the whole run; a fresh process
+    with an empty build directory (compile on the node that built the
+    kernel, none on the second run); EXPLAIN ANALYZE of q3 on a
+    two-worker cluster (deviceMs > 0 in every task); and q3's steady wall
+    with enable_profiling off and on, INTRO_RUNS runs each."""
+    t_phase = time.monotonic()
+    record = {}
+    reset_counts()
+    # count K1/K3 launches per path and site; the timed shapes stay the
+    # earlier paths' (as in the cluster path)
+    recorder.active, recorder.keep = True, False
+    try:
+        _introspection_runs(record, session, tables, ds_session, smi,
+                            fam_before)
+    finally:
+        recorder.active, recorder.keep = False, True
+    launches = read_counts()
+    record["launches"] = launches
+    record["phase_s"] = round(time.monotonic() - t_phase, 2)
+    log("introspection path: " + json.dumps(record, default=str))
+    return launches
+
+
+def _introspection_runs(record, session, tables, ds_session, smi,
+                        fam_before):
+    from tpcds_queries import QUERIES as DS
+    from tpch_full import QUERIES
+    import trino_tpu_torch.metrics as M
+    # 1. profiled statements
+    session.execute("SET SESSION mxu_agg = 'true'")
+    try:
+        record["q3"] = _profiled_statement(session, "q3", Q3)
+        record["q12"] = _profiled_statement(session, "q12", QUERIES[12])
+        record["ds_q3"] = _profiled_statement(ds_session, "ds q3", DS[3])
+        session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+        record["chunked_q12"] = _profiled_statement(session, "chunked q12",
+                                                    QUERIES[12])
+    finally:
+        session.execute("SET SESSION spill_chunk_rows = 0")
+        session.execute("SET SESSION mxu_agg = 'auto'")
+    require(record["q3"]["launches"].get("K1", 0) > 0 and
+            record["q3"]["launches"].get("K3", 0) > 0,
+            f"profiled q3 launched {record['q3']['launches']}")
+    require(record["ds_q3"]["launches"].get("K4", 0) > 0,
+            f"profiled ds q3 launched {record['ds_q3']['launches']}")
+    require(record["q12"]["launches"].get("K5", 0) > 0,
+            f"profiled q12 launched {record['q12']['launches']}")
+    # 2. the families over controlled runs
+    ex = ds_session.executor
+    fam0, probes0 = families_snapshot(), ex.stats.multijoin_fused_probes
+    k4_0 = read_counts()["K4"]
+    for _ in range(3):
+        ds_session.execute(DS[3])
+    d = families_delta(fam0)
+    d_probes = ex.stats.multijoin_fused_probes - probes0
+    d_k4 = read_counts()["K4"] - k4_0
+    record["star_families"] = {
+        "multijoin_fused_probes_stat": d_probes, "k4_launches": d_k4,
+        "MULTIJOIN_FUSED_PROBES": _fam(d, "MULTIJOIN_FUSED_PROBES"),
+        "JOIN_STRATEGY_DECISIONS[multiway]": _fam(
+            d, "JOIN_STRATEGY_DECISIONS", "multiway")}
+    log("introspection star families (3 steady ds q3 runs): "
+        + json.dumps(record["star_families"]))
+    require(d_probes == 3 and _fam(d, "MULTIJOIN_FUSED_PROBES") == d_probes
+            and _fam(d, "JOIN_STRATEGY_DECISIONS", "multiway") == d_probes
+            and d_k4 >= d_probes,
+            f"star families: {record['star_families']}")
+    li = tables["lineitem"]
+    session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+    try:
+        session.execute(Q1)
+        fam0 = families_snapshot()
+        require(session.execute(Q1).rows == oracle_q1(li),
+                "chunked q1 differs from the oracle")
+        d = families_delta(fam0)
+        record["steady_chunked_q1"] = d
+        require(_fam(d, "DEVICE_CACHE_HITS") >= 1 and
+                _fam(d, "DEVICE_CACHE_MISSES") == 0,
+                f"a steady chunked q1 did not hit the fact cache: {d}")
+        # through the pipeline, three chunks survive: it stages them
+        for label, fact_cache, key in (
+                ("fact cache", True, ZONE_KEY),
+                ("prefetch pipeline", False, 3 * ZONE_KEY)):
+            zone_want = oracle_zone(li, key)
+            session.executor.enable_fact_cache = fact_cache
+            fam0 = families_snapshot()
+            skipped0 = session.executor.stats.scan_chunks_skipped
+            stalls0 = session.executor.stats.scan_prefetch_stalls
+            got = session.execute(ZONE_SQL.format(key=key)).rows
+            d = families_delta(fam0)
+            skipped = session.executor.stats.scan_chunks_skipped - skipped0
+            require(got == zone_want, f"chunked zone query ({label}) "
+                    f"differs from the oracle: {got} vs {zone_want}")
+            require(skipped > 0 and _fam(d, "SCAN_ZONES_PRUNED") == skipped,
+                    f"chunked zone query ({label}): {skipped} chunks "
+                    f"skipped, SCAN_ZONES_PRUNED {d}")
+            record[f"zone_query_{label}"] = dict(
+                d, chunks_skipped=skipped,
+                prefetch_stalls=session.executor.stats.scan_prefetch_stalls
+                - stalls0, spans=dict(session.executor.chunk_spans))
+            log(f"introspection chunked zone query ({label}): "
+                + json.dumps(record[f"zone_query_{label}"]))
+        require(M.SCAN_PREFETCH_BUFFERS.value() == 0,
+                "staged prefetch buffers left after the run")
+    finally:
+        session.executor.enable_fact_cache = True
+        session.execute("SET SESSION spill_chunk_rows = 0")
+    require("trino_tpu_scan_prefetch_stall_seconds" in M.REGISTRY.render(),
+            "/v1/metrics lacks trino_tpu_scan_prefetch_stall_seconds")
+    d = families_delta(fam_before)
+    record["whole_run"] = d
+    log("introspection families, the whole run's deltas: " + json.dumps(d))
+    require(sum(v for k, v in d.items()
+                if k.startswith("AGG_STRATEGY_DECISIONS")) > 0,
+            "AGG_STRATEGY_DECISIONS did not rise")
+    require(_fam(d, "MULTIJOIN_FUSED_PROBES") == _fam(
+        d, "JOIN_STRATEGY_DECISIONS", "multiway") > 0,
+        "MULTIJOIN_FUSED_PROBES and the multiway decisions disagree")
+    # 3. a kernel build on the node that launched it
+    record["cold_build"] = _cold_build_child()
+    log("introspection cold build: " + json.dumps(record["cold_build"]))
+    # 4. the cluster
+    record["cluster"] = _introspection_cluster(session)
+    # 5. the fences' cost on steady q3
+    walls = {"false": [], "true": []}
+    for _ in range(INTRO_RUNS):         # interleaved, one run at a time
+        for setting in ("false", "true"):
+            session.execute(f"SET SESSION enable_profiling = {setting}")
+            walls[setting].extend(_timed_runs(session, Q3, 1)[1])
+    session.execute("SET SESSION enable_profiling = false")
+    record["fence_cost"] = {
+        "card": smi, "runs_each": INTRO_RUNS,
+        "off_median_s": statistics.median(walls["false"]),
+        "on_median_s": statistics.median(walls["true"]),
+        "off_s": [round(w, 4) for w in walls["false"]],
+        "on_s": [round(w, 4) for w in walls["true"]]}
+    log("introspection q3 steady wall, profiling off / on: "
+        + json.dumps(record["fence_cost"]))
+
+
 K1_PATHS = ("big tiles", "small tiles")
 # the memory-pressure path's K3 captures (LaunchRecorder.capture)
 MEMORY_K3 = ("GROUP BY l_orderkey, whole input",
@@ -4686,6 +5123,7 @@ def main() -> int:
     phase_k5(dev)
     recorder = LaunchRecorder()
     recorder.install()
+    fam_before = families_snapshot()
     session, tables, launches = phase_tpch_path(recorder)
     ds_launches, ds_session, ds_tables, ds_expected, ds_walls = \
         phase_tpcds_path(recorder)
@@ -4699,7 +5137,9 @@ def main() -> int:
              phase_memory_pressure(recorder, session, tables),
              phase_http_path(recorder, session, tables),
              phase_cluster_path(recorder, session, tables),
-             phase_mesh_path(recorder, session, tables, ds_session)]
+             phase_mesh_path(recorder, session, tables, ds_session),
+             phase_introspection(recorder, session, tables, ds_session,
+                                 smi, fam_before)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

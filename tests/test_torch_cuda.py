@@ -1019,3 +1019,69 @@ def test_mesh_partitioned_join_on_card_equals_cpu_mesh():
         assert launched >= (8 * joins if device == "cuda" else 0)
         assert s.executor.stats.dynamic_filter_rows_pruned > 0
     assert out["cuda"] == out["cpu"]
+
+
+Q3_SQL = """
+SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
+  AND l_shipdate > DATE '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate, l_orderkey LIMIT 10"""
+
+
+def test_profiled_fence_splits_q3_on_card(monkeypatch):
+    """enable_profiling on the card: the fence is torch.cuda.synchronize,
+    every node's device + host + compile equals its wall, q3's join
+    nodes wait on the card (device > 0), and the rows equal the
+    unprofiled run's."""
+    _card()
+    from trino_tpu_torch.exec import executor as ex_mod
+    from trino_tpu_torch.exec.session import Session
+    names = {}
+    real = ex_mod.Executor._dispatch_timed
+
+    def spy(self, node):
+        names[id(node)] = type(node).__name__
+        return real(self, node)
+
+    monkeypatch.setattr(ex_mod.Executor, "_dispatch_timed", spy)
+    s = Session(device="cuda")
+    want = s.execute(Q3_SQL).rows
+    s.execute("SET SESSION enable_profiling = true")
+    got = s.execute(Q3_SQL).rows
+    assert got == want and len(got) == 10
+    ns = s.executor.node_stats
+    joins = [st for i, st in ns.items() if names[i] == "JoinNode"]
+    assert joins and all(st[2] > 0 for st in joins)
+    for wall, _rows, dev, host, comp in ns.values():
+        assert min(dev, host, comp) >= 0
+        assert abs(wall - (dev + host + comp)) < 1e-9
+    s.execute("SET SESSION enable_profiling = false")
+    assert s.execute(Q3_SQL).rows == want
+
+
+def test_profiled_star_counts_fused_probes_on_card(ds_sessions):
+    """A fused TPC-DS star, profiled: rows bit-equal to the unprofiled
+    run, and MULTIJOIN_FUSED_PROBES rises by the delta of
+    stats.multijoin_fused_probes; K4 launches at least as often (one
+    `ht.multiway_probe` call a fused pass)."""
+    from tpcds_queries import QUERIES
+    from trino_tpu_torch.metrics import MULTIJOIN_FUSED_PROBES
+    gpu, _cpu = ds_sessions
+    want = gpu.execute(QUERIES[3]).rows
+    gpu.execute("SET SESSION enable_profiling = true")
+    try:
+        probes0 = gpu.executor.stats.multijoin_fused_probes
+        metric0 = MULTIJOIN_FUSED_PROBES.value()
+        k4_0 = ht.multiway_probe.launches
+        got = gpu.execute(QUERIES[3]).rows
+    finally:
+        gpu.execute("SET SESSION enable_profiling = false")
+    assert got == want
+    d_probes = gpu.executor.stats.multijoin_fused_probes - probes0
+    assert d_probes >= 1
+    assert MULTIJOIN_FUSED_PROBES.value() - metric0 == d_probes
+    assert ht.multiway_probe.launches - k4_0 >= d_probes

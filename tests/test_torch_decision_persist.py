@@ -119,3 +119,22 @@ def test_replayed_join_peak_equals_reference(decision_dir):
     assert rows["port"] == rows["jax"]
     assert peaks["port"] == peaks["jax"]
     assert peaks["port"][1] < peaks["port"][0]
+
+
+def test_result_decisions_are_saved_with_the_statement(decision_dir):
+    """The reference's `_decision_dirty is False` after execute: the
+    decisions taken while the result comes to the host (`resultlive`)
+    are saved too, in both packages, so the file holds every decision
+    the statement recorded."""
+    for make, name in ((lambda: JaxSession(default_schema="tiny"),
+                        "decisions.pkl"), (_session, "decisions_torch.pkl")):
+        s = make()
+        s.execute(Q)
+        ex = s.executor
+        assert ex._decision_cache
+        assert ex._decision_dirty is False
+        tags = {k[0] for k in ex._decision_cache}
+        assert "resultlive" in tags
+        with open(os.path.join(str(decision_dir), name), "rb") as f:
+            disk = pickle.load(f)
+        assert set(disk) == set(ex._decision_cache)

@@ -446,3 +446,58 @@ def test_star_aggregate_fused_equals_reference():
     jrows, trows, dj, dt = _run_counted(js, ts, star_sql(3, agg=True))
     assert trows == jrows == _ladder_rows(ts, star_sql(3, agg=True))
     assert dj == dt == {}
+
+
+# ---- q5: the TPU's star decision on the CPU --------------------------------
+
+def _plan_shape(node, logical):
+    """Pre-order (node type, join keys) of a plan."""
+    out = []
+
+    def walk(n):
+        if isinstance(n, logical.JoinNode):
+            out.append(("JoinNode", tuple(n.left_keys),
+                        tuple(n.right_keys)))
+        elif isinstance(n, logical.MultiJoinNode):
+            out.append(("MultiJoinNode", tuple(map(tuple, n.fact_keys)),
+                        tuple(map(tuple, n.dim_keys))))
+        else:
+            out.append((type(n).__name__,))
+        for c in logical.children(n):
+            walk(c)
+    walk(node)
+    return out
+
+
+@pytest.mark.parametrize("setting", ["auto", "true", "false"])
+def test_q5_plan_models_the_tpu_star_decision(setting):
+    """The port plans TPC-H q5's spine as a MultiJoinNode under `auto` on
+    the CPU, where the reference's CPU planner keeps pairwise JoinNodes:
+    `auto` resolves K4 on in the port on every device, as the reference
+    does on a TPU. The port's `auto` plan is the reference's plan under
+    `true`; under `false` both keep every inner join single-key (the
+    reference's test_q5_joins_stay_single_key_dense)."""
+    from test_optimizer_reorder import Q5
+    from trino_tpu.planner import logical as JL
+    from trino_tpu_torch.planner import logical as TL
+    ts = Session(default_schema="tiny", device="cpu")
+    js = JaxSession(default_schema="tiny")
+    ts.execute(f"SET SESSION enable_multiway_join = '{setting}'")
+    # the reference's TPU decision, asked for on the CPU
+    ref_setting = "true" if setting == "auto" else setting
+    js.execute(f"SET SESSION enable_multiway_join = '{ref_setting}'")
+    ours = _plan_shape(ts.planner().plan_query(parse(Q5)).node, TL)
+    ref = _plan_shape(js.planner().plan_query(jax_parse(Q5)).node, JL)
+    assert ours == ref
+    stars = [n for n in ours if n[0] == "MultiJoinNode"]
+    if setting == "false":
+        assert not stars
+        joins = [n for n in ours if n[0] == "JoinNode"]
+        assert len(joins) >= 4 and all(len(j[1]) == 1 for j in joins)
+    else:
+        assert len(stars) == 1
+    if setting == "auto":
+        js.execute("SET SESSION enable_multiway_join = 'auto'")
+        cpu_ref = _plan_shape(js.planner().plan_query(jax_parse(Q5)).node,
+                              JL)
+        assert not [n for n in cpu_ref if n[0] == "MultiJoinNode"]

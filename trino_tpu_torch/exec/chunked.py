@@ -657,9 +657,15 @@ class _PrefetchPipeline:
             name="scan-prefetch", daemon=True)
         self._thread.start()
 
+    def _gauge(self) -> None:
+        from ..metrics import SCAN_PREFETCH_BUFFERS
+        SCAN_PREFETCH_BUFFERS.set(len(self._staged))
+
     def _revoke(self, target_bytes: int) -> int:
-        """Memory-pool revocation callback: drop staged chunks (the
-        consumer re-decodes any missing chunk inline)."""
+        """Memory-pool revocation callback: drop staged chunks in the
+        order they were staged, oldest first, as the reference does (the
+        consumer re-decodes any missing chunk inline, so the order never
+        changes a result)."""
         freed = 0
         with self._lock:
             for s in list(self._staged):
@@ -668,6 +674,7 @@ class _PrefetchPipeline:
                 _, b, _ev = self._staged.pop(s)
                 self.pool.free_revocable(b, tag="scan-prefetch")
                 freed += b
+            self._gauge()
         return freed
 
     def _decode_staged(self, start: int):
@@ -696,6 +703,7 @@ class _PrefetchPipeline:
                 self.pool.reserve_revocable(b, tag="scan-prefetch")
                 with self._lock:
                     self._staged[s] = (batch, b, ev)
+                    self._gauge()
                 _prof(f"prefetch: chunk@{s} staged")
                 self._queue.put(("chunk", s))
             self._queue.put(("done", None))
@@ -712,8 +720,11 @@ class _PrefetchPipeline:
                 break
             except queue.Empty:
                 self.executor.check_cancel()
-        if time.monotonic() - t0 > 1e-4:
+        wait = time.monotonic() - t0
+        if wait > 1e-4:
+            from ..metrics import SCAN_PREFETCH_STALL_SECONDS
             self.executor.stats.scan_prefetch_stalls += 1
+            SCAN_PREFETCH_STALL_SECONDS.inc(wait)
         if kind == "error":
             raise val
         if kind != "chunk" or val != expected_start:
@@ -721,6 +732,7 @@ class _PrefetchPipeline:
                                f"{expected_start}")
         with self._lock:
             hit = self._staged.pop(expected_start, None)
+            self._gauge()
         self._slots.release()
         if hit is None:                     # revoked under pressure
             t0 = time.monotonic()
@@ -749,6 +761,7 @@ class _PrefetchPipeline:
             for s in list(self._staged):
                 _, b, _ev = self._staged.pop(s)
                 self.pool.free_revocable(b, tag="scan-prefetch")
+            self._gauge()
         self.pool.unregister_revocation(self._revocation)
 
 
@@ -885,6 +898,8 @@ def execute_chunked(executor, root: L.OutputNode) -> Optional[Batch]:
         skipped = len(starts_all) - len(starts_list)
         if skipped:
             executor.stats.scan_chunks_skipped += skipped
+            from ..metrics import SCAN_ZONES_PRUNED
+            SCAN_ZONES_PRUNED.inc(skipped)
             executor.strategy_decisions[
                 f"TableScan[{plan.driver.table}]"] = \
                 f"chunks-skipped:{skipped}/{len(starts_all)}"

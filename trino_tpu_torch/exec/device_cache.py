@@ -264,11 +264,14 @@ class FactTableCache:
         also cache on disk, so a later process ships them straight from
         the mmap with no host passes."""
         prof_on = profile_enabled()
+        from ..metrics import DEVICE_CACHE_HITS, DEVICE_CACHE_MISSES
         hit = self.get(key)
         if hit is not None:
             self.hits += 1
+            DEVICE_CACHE_HITS.inc()
             return hit
         self.misses += 1
+        DEVICE_CACHE_MISSES.inc()
         warm_transfer_path(device)
         disk = self._load_narrow_disk(key, data, column_indices) \
             if persist_ok else None

@@ -70,6 +70,7 @@ from ..ops.project import apply_filter, filter_project, filter_project_fused
 from ..ops.sort import limit_batch, sort_batch
 from ..planner import logical as L
 from ..planner.fragmenter import _subtree_nodes
+from .profiler import RECORDER
 
 # the reference's sort-shape gates, kept so strategy choices match
 MAX_SORT_OPERANDS = 12
@@ -86,6 +87,8 @@ class ExecStats:
     join_domain_fallbacks: int = 0   # dense-LUT stats were stale
     agg_capacity_retries: int = 0
     dynamic_filter_compactions: int = 0
+    jit_compiles: int = 0            # kernel libraries built by this
+                                     # executor's launches (nvcc)
     pallas_gather_calls: int = 0     # probe sites dispatched with the
                                      # gather kernel (K1) enabled
     hash_agg_calls: int = 0          # hash-table aggregations run (K3)
@@ -178,8 +181,9 @@ class Executor:
         self._scan_cache: "OrderedDict[tuple, Batch]" = OrderedDict()
         self._scalar_cache: Dict[object, object] = {}
         self.stats = ExecStats()
-        self.profile = False           # EXPLAIN ANALYZE per-node timing
-        self.node_stats: Dict[int, tuple] = {}   # id(node) -> (wall_s, rows)
+        self.profile = False           # fenced per-node timing
+        # id(node) -> (wall_s, rows, device_s, host_s, compile_s)
+        self.node_stats: Dict[int, tuple] = {}
         from .memory import MemoryPool, parse_bytes
         env_limit = os.environ.get("TRINO_TPU_QUERY_MAX_MEMORY")
         self.pool = MemoryPool(parse_bytes(env_limit) if env_limit
@@ -365,6 +369,7 @@ class Executor:
     def execute(self, root: L.OutputNode) -> Batch:
         if not isinstance(root, L.OutputNode):
             raise TypeError("execute takes an OutputNode")
+        RECORDER.bind_stats(self.stats)
         self._kill_reason = None
         self._cancel_reason = None
         self.strategy_decisions = {}
@@ -385,6 +390,9 @@ class Executor:
             self.save_decisions()
 
     def run(self, node: L.PlanNode) -> Batch:
+        # bind this executor's stats to the dispatch thread, so a kernel
+        # library built inside the dispatch counts in its jit_compiles
+        RECORDER.bind_stats(self.stats)
         sub = self._subst.get(id(node))
         if sub is not None:
             return sub
@@ -442,26 +450,55 @@ class Executor:
             raise
         return out
 
+    def _fence(self) -> None:
+        """Wait until the card has finished the work queued so far: the
+        profiled dispatch's fence (a no-op on the CPU, where torch runs
+        synchronously)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _dispatch_timed(self, node: L.PlanNode) -> Batch:
+        """Dispatch `node`, timed. With `profile` on, each operator is
+        fenced before and after, and node_stats[id(node)] = (wall, rows,
+        device, host, compile) in seconds, inclusive of its children:
+        device is the time blocked on the closing fence, compile the
+        compile recorder's seconds on this thread during the dispatch (a
+        kernel library built by its first launch, ops/cuda_build.py),
+        host the rest; the three sum to wall exactly. Card work that the
+        dispatch itself waits for (a `.item()`, `.tolist()` or `.cpu()`
+        inside it, e.g. `fetch_ints`) lands in host, as the reference's
+        fetches inside a dispatch do. With `profile` off nothing fences."""
+        op = type(node).__name__
         if not self.profile:
             # always-on operator metrics: host dispatch wall only (the
             # card's work stays asynchronous)
             from ..metrics import OPERATOR_DISPATCHES, OPERATOR_WALL_MS
             t0 = time.monotonic()
             out = self.dispatch(node)
-            op = type(node).__name__
             OPERATOR_DISPATCHES.inc(operator=op)
             OPERATOR_WALL_MS.inc((time.monotonic() - t0) * 1000,
                                  operator=op)
             return out
-        sync = torch.cuda.synchronize if self.device.type == "cuda" \
-            else (lambda: None)
-        sync()
+        from ..metrics import (OPERATOR_COMPILE_MS, OPERATOR_DEVICE_MS,
+                               OPERATOR_ROWS)
+        self._fence()
+        c0 = RECORDER.thread_compile_seconds()
         t0 = time.monotonic()
         out = self.dispatch(node)
-        sync()
-        self.node_stats[id(node)] = (time.monotonic() - t0,
-                                     int(out.live.sum()))
+        t1 = time.monotonic()
+        self._fence()
+        t2 = time.monotonic()
+        compile_s = min(max(RECORDER.thread_compile_seconds() - c0, 0.0),
+                        t1 - t0)
+        device_s = t2 - t1
+        host_s = (t1 - t0) - compile_s
+        rows = int(out.live.sum())
+        self.node_stats[id(node)] = (t2 - t0, rows, device_s, host_s,
+                                     compile_s)
+        OPERATOR_ROWS.inc(rows, operator=op)
+        OPERATOR_DEVICE_MS.inc(device_s * 1000, operator=op)
+        if compile_s:
+            OPERATOR_COMPILE_MS.inc(compile_s * 1000, operator=op)
         return out
 
     def build_structure_key(self, node: L.PlanNode) -> Optional[str]:
@@ -909,6 +946,8 @@ class Executor:
             valids = [None if v is None else take(v) for v in valids]
         self.stats.scan_zones_pruned += pruned
         self.stats.scan_rows_pruned += data.num_rows - kept_rows
+        from ..metrics import SCAN_ZONES_PRUNED
+        SCAN_ZONES_PRUNED.inc(pruned)
         self.strategy_decisions[f"TableScan[{node.table}]"] = \
             f"zone-pruned:{pruned}/{zm.num_zones}"
         return arrays, valids, kept_rows
@@ -961,10 +1000,20 @@ class Executor:
         self.stats.multijoin_degrades += count
         reasons = self.stats.multijoin_degrade_reasons
         reasons[reason] = reasons.get(reason, 0) + count
+        from ..metrics import MULTIJOIN_DEGRADES
+        MULTIJOIN_DEGRADES.inc(count, reason=reason)
 
     def _note_strategy(self, op: str, strategy: str, kind: str) -> None:
-        """Record the strategy an operator actually ran with."""
+        """Record the strategy an operator actually ran with: the
+        per-query EXPLAIN/operator_stats surface plus the
+        {agg,join}_strategy_decisions counter families."""
         self.strategy_decisions[op] = strategy
+        from ..metrics import (AGG_STRATEGY_DECISIONS,
+                               JOIN_STRATEGY_DECISIONS)
+        if kind == "agg":
+            AGG_STRATEGY_DECISIONS.inc(strategy=strategy)
+        else:
+            JOIN_STRATEGY_DECISIONS.inc(strategy=strategy)
 
     # the reference's auto gate for K5: direct aggregates of at least this
     # many groups (its crossover was measured on a TPU; the port keeps
@@ -1799,9 +1848,13 @@ class Executor:
         fused_dims, tkey, src = fused
         found, _miss = ht.multiway_probe(
             fact, tkey, src, tuple(node.fact_keys[d] for d in fused_dims))
+        from ..metrics import (JOIN_STRATEGY_DECISIONS,
+                               MULTIJOIN_FUSED_PROBES)
         self.stats.multijoin_fused_probes += 1
+        MULTIJOIN_FUSED_PROBES.inc()
         self.strategy_decisions["MultiJoinNode"] = \
             f"multiway[k={len(fused_dims)}]"
+        JOIN_STRATEGY_DECISIONS.inc(strategy="multiway")
         # payload assembly: fused dims first (their found rows align to
         # fact rows), then each degraded dim through the pairwise path;
         # unique-build hops are commutative live-mask ANDs and dup
@@ -1926,7 +1979,9 @@ class Executor:
         fused. Already-run children are substituted in so they are not
         recomputed; chunk mode caches the ladder per node so the pairwise
         LUT/hash caches stay keyed on stable node ids."""
+        from ..metrics import JOIN_STRATEGY_DECISIONS
         self.strategy_decisions["MultiJoinNode"] = "ladder"
+        JOIN_STRATEGY_DECISIONS.inc(strategy="ladder")
         lkey = (id(node), "mjladder")
         ladder = self._chunk_lut_cache.get(lkey) if self.chunk_mode \
             else None
@@ -1962,6 +2017,9 @@ class Executor:
             if new_cap * 2 <= batch.capacity:
                 batch = compact_batch(batch, new_cap)
         arrays, valids = batch_to_numpy(batch)
+        # decisions taken here (resultlive) come after execute()'s save:
+        # persist them too
+        self.save_decisions()
         return list(root.names), arrays, valids
 
 

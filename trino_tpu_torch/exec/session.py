@@ -206,11 +206,11 @@ SESSION_PROPERTY_DEFAULTS = {
     # under a propagating tracer — coordinator + worker spans stitch into
     # one trace served at GET /v1/query/{id}/trace
     "enable_tracing": (False, _bool),
-    # device-time profiling (exec/profiler.py): fence every operator
-    # dispatch with block_until_ready, splitting per-operator wall into
-    # device/host/compile components in ExecStats / operator metrics /
-    # EXPLAIN ANALYZE. Costs a device sync per plan node — forced
-    # automatically during (distributed) EXPLAIN ANALYZE
+    # device-time profiling (Executor._dispatch_timed): fence every
+    # operator dispatch with torch.cuda.synchronize, splitting per-operator
+    # wall into device/host/compile components in node_stats / operator
+    # metrics / the execute span / EXPLAIN ANALYZE. Costs two device syncs
+    # per plan node — forced during (distributed) EXPLAIN ANALYZE
     "enable_profiling": (False, _bool),
     # --- high-concurrency serving layer (server/serving.py) ---
     # logical-plan cache keyed by the normalized-SQL plan fingerprint:
@@ -334,10 +334,20 @@ class Session:
     def execute_planned(self, rel, root, t0) -> QueryResult:
         """Execute an already planned + pruned query."""
         self._apply_executor_properties(t0)
-        with self.tracer.span("execute"):
+        with self.tracer.span("execute") as sp:
             batch = self.executor.execute(root)
             names, arrays, valids = self.executor.result_to_host(root,
                                                                  batch)
+            if sp is not None and self.executor.profile:
+                ns = [v for v in self.executor.node_stats.values()
+                      if len(v) >= 5]
+                sp.attributes["profiled"] = True
+                sp.attributes["deviceMs"] = round(
+                    sum(v[2] for v in ns) * 1000, 3)
+                sp.attributes["hostMs"] = round(
+                    sum(v[3] for v in ns) * 1000, 3)
+                sp.attributes["compileMs"] = round(
+                    sum(v[4] for v in ns) * 1000, 3)
         with self.tracer.span("decode", rows=len(arrays[0])
                               if arrays else 0):
             rows = self.decode_rows(rel, arrays, valids)
@@ -400,6 +410,13 @@ class Session:
                 est = estimate(node)
                 if s is None:
                     return est
+                if len(s) >= 5:
+                    # fenced profiling splits the wall into components
+                    # (device + host + compile sum to wall exactly)
+                    return (f"[{s[0] * 1000:.2f}ms (device "
+                            f"{s[2] * 1000:.2f} + host {s[3] * 1000:.2f}"
+                            f" + compile {s[4] * 1000:.2f}), "
+                            f"{s[1]} rows] {est}")
                 return f"[{s[0] * 1000:.2f}ms, {s[1]} rows] {est}"
         text = explain_text(root, annotate=annotate)
         rows = [(line,) for line in text.split("\n")]

@@ -11,7 +11,7 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``csrc/glibc_math.cu`` adds ``-fmad=false`` (its FMAs are written out, and
 nothing else may fuse). The library name carries a hash of the source, the
 headers under ``csrc/`` and the flags, so an edited source rebuilds and an unchanged one loads from ``_build/`` (listed in
-.gitignore). Nothing builds at import time: the first kernel launch (or
+.gitignore; ``$TRINO_TPU_CUDA_BUILD_DIR`` if set). Nothing builds at import time: the first kernel launch (or
 ``build_all``) does. A missing ``nvcc`` or a failed build raises.
 
 Every C entry's signature stands in ``SIGNATURES`` and is bound once, when
@@ -21,7 +21,10 @@ launch pays one dict lookup for its entry.
 Each load is recorded in the compile recorder (``exec/profiler.RECORDER``)
 as site ``cuda_build.<kernel>`` with the source digest as fingerprint: a
 library this process built is a compile with its nvcc seconds, one found
-already built is a hit.
+already built is a hit. The record is made on the thread that loads the
+library, so a build that a kernel's first launch triggers inside a
+profiled dispatch is charged to that thread's ``thread_compile_seconds``
+(the operator's `compile` component) and to the ExecStats it bound.
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+# TRINO_TPU_CUDA_BUILD_DIR puts the libraries elsewhere (an empty
+# directory makes every first launch build its library again)
+BUILD_DIR = Path(os.environ.get("TRINO_TPU_CUDA_BUILD_DIR")
+                 or PKG_DIR / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("gather", "window_gather", "hash_insert", "multiprobe",
