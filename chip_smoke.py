@@ -147,7 +147,31 @@ Phases, each failing the run with a non-zero exit:
    ln and power (csrc/glibc_math.cu, glibc's algorithms) and exp and
    sqrt (the CPU's replay) differ from the port's CPU result (all must
    be 0), the glibc kernel against its plain replay and timed beside
-   torch.log / torch.pow; then the mesh (``phase_mesh_path``, counters
+   torch.log / torch.pow; then the fault-tolerance tier
+   (``phase_fault_tolerance``, counters set to 0 just before and read
+   just after): a coordinator and three workers on the card at
+   ``tpch.sf1`` run TPC-H q1, q3, q6 and a multiset scan fault-free and
+   under seeds 0-5 of ``FailureInjector.from_seed(seed, max_delay_s =
+   0.2)`` on the scheduler, the detector and every worker, then under
+   the reference's explicit crash mid-split, corrupted drained page,
+   dropped task creates and hedged straggler: every run bit-equal to the
+   fault-free rows, CRASH, DELAY, DROP and CORRUPT each fired, every
+   corrupted drained page counted in ``checksum_failures`` and retried,
+   every corrupted spool container rejected on a replay, K1 and K3
+   launched, the card's allocation after each seed within 256 MiB of
+   the first; a primary and a warm standby over one ledger and spool
+   root (two workers, a two-address Client): the primary killed while
+   q3 runs (its executor's device caches freed, the standby promoted
+   by its detector, the oracle's rows) and a second pair killed at
+   WRITE_COMMIT of a distributed CTAS of customer into ORC (the admin
+   promotes; customer's rows exactly once); a resource group of one
+   slot (two q6 queue; with one queue place the third gets
+   QUERY_QUEUE_FULL); a traced, profiled q3 with a worker delayed:
+   progress monotonic in [0, 1], the live surfaces filled, device busy
+   time in the utilization rows, the timeline's phases summing to the
+   wall with a device phase; and approx_distinct (four statements) and
+   TIMESTAMP (tests/torch_time_cases.py: pre-epoch rows, every field and
+   truncation) on the card equal to the port's CPU Session; then the mesh (``phase_mesh_path``, counters
    set to 0 just before and read just after): ``SET SESSION distributed
    = true`` on a CUDA Session (the card's default mesh, one shard: q1,
    q6), then a MeshExecutor over ``make_mesh(8, "cuda")`` (eight shards
@@ -3698,6 +3722,718 @@ def phase_cluster_path(recorder, main_session, tables):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the fault-tolerance tier on the card
+# --------------------------------------------------------------------------
+
+FT_SEEDS = tuple(range(6))        # 0-7 put the phase past 150 s
+FT_CONCAT_SQL = ("SELECT l_orderkey, l_quantity FROM lineitem "
+                 "WHERE l_shipdate > DATE '1998-11-01'")
+FT_MEMORY_SLACK = 256 << 20       # card growth allowed over the seeds
+FT_CTAS_SPLIT_ROWS = 50_000       # customer's 150,000 rows in 3 splits
+FT_FAILOVER_TIMEOUT_S = 120
+FT_CTAS_SQL = ("CREATE TABLE orc.out.customer_ft AS SELECT c_custkey, "
+               "c_name, c_nationkey, c_acctbal, c_mktsegment FROM customer")
+FT_CTAS_COLUMNS = ("c_custkey", "c_name", "c_nationkey", "c_acctbal",
+                   "c_mktsegment")
+
+
+def _allocated() -> int:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _ft_catalog(conn, orc_root=None):
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    cat = Catalog()
+    cat.register("tpch", conn)
+    cat.register("memory", MemoryConnector())
+    if orc_root is not None:
+        cat.register("orc", OrcConnector(orc_root))
+    return cat
+
+
+def _ft_chaos(record, coord, workers, probe, expected):
+    """(a) seeds 0-5 of FailureInjector.from_seed on the scheduler, the
+    failure detector and every worker, then the reference's explicit
+    injections for a crash mid-split, a corrupted drained page, dropped
+    task creates and a hedged straggler; every run bit-equal to the
+    fault-free run."""
+    from trino_tpu_torch.server.failureinjector import (CORRUPT, CRASH,
+                                                        DELAY, DROP,
+                                                        FailureInjector)
+    sched = coord.state.scheduler
+    det = coord.state.failure_detector
+    counts0 = read_counts()
+    queries = (("q1", Q1, False), ("q3", Q3, False), ("q6", Q6, False),
+               ("concat", FT_CONCAT_SQL, True))
+
+    def run(sql, unordered, clear=True):
+        if clear:
+            sched.spool.clear()
+        rows, info, wall = probe.run(sql)
+        require(info["state"] == "FINISHED", f"state {info['state']}")
+        if unordered:
+            rows = sorted(map(tuple, rows))
+        return rows, info, wall
+
+    base = {}
+    for name, sql, unordered in queries:
+        walls = []
+        for i in range(4):          # the first warms the workers' caches
+            rows, info, wall = run(sql, unordered)
+            require(rows == expected[name], f"fault-free {name} differs "
+                    f"from its oracle: {rows[:2]}")
+            require(info["fallbackReason"] is None,
+                    f"fault-free {name}: {info['fallbackReason']}")
+            walls.append(wall)
+        base[name] = statistics.median(walls[1:])
+    record["fault_free_walls_s"] = base
+
+    def arm(inj, on_workers=None):
+        sched.failure_injector = inj
+        if det is not None:
+            det.injector = inj
+        for w in (workers if on_workers is None else on_workers):
+            w.task_manager.injector = inj
+
+    def disarm(inj):
+        sched.failure_injector = None
+        sched.spool.injector = None
+        if det is not None:
+            det.injector = None
+        for w in workers:
+            w.task_manager.injector = None
+        inj.clear()
+        _wait_for(lambda: len(coord.state.active_nodes()) == len(workers),
+                  "every worker to be ACTIVE again", timeout_s=30)
+
+    def schedule(label, inj, names, on_workers=None):
+        keys = ("task_retries", "hedged_tasks", "checksum_failures")
+        s0 = {k: sched.stats[k] for k in keys}
+        rej0 = sched.spool.checksum_rejects
+        arm(inj, on_workers)
+        runs = []
+        try:
+            for name, sql, unordered in queries:
+                if name not in names:
+                    continue
+                n0 = len(inj.events)
+                rows, info, wall = run(sql, unordered)
+                require(rows == expected[name],
+                        f"{label} changed the rows of {name}")
+                events = inj.events[n0:]
+                fired = [(p, f) for _t, p, f, _k in events]
+                # one flip a page: a container's pages may take several
+                spool_corrupt = len({k for _t, p, f, k in events
+                                     if (p, f) == ("SPOOL_WRITE", CORRUPT)})
+                if spool_corrupt:
+                    # the spool's CRC catches each corrupted container on
+                    # the next read: replay from the spool, faults off
+                    saved = sched.failure_injector
+                    sched.failure_injector = sched.spool.injector = None
+                    r0 = sched.spool.checksum_rejects
+                    again, _i, _w = run(sql, unordered, clear=False)
+                    require(again == expected[name], f"{label}: the spool "
+                            f"replay of {name} differs")
+                    require(sched.spool.checksum_rejects - r0 ==
+                            spool_corrupt, f"{label}: {spool_corrupt} "
+                            f"corrupted spool containers, "
+                            f"{sched.spool.checksum_rejects - r0} caught")
+                    sched.failure_injector = saved
+                runs.append({"query": name, "wall_s": wall,
+                             "recovery_s": wall - base[name],
+                             "fired": fired})
+        finally:
+            disarm(inj)
+        delta = {k: sched.stats[k] - s0[k] for k in keys}
+        drain_corrupt = sum(r["fired"].count(("EXCHANGE_DRAIN", CORRUPT))
+                            for r in runs)
+        require(delta["checksum_failures"] == drain_corrupt,
+                f"{label}: {drain_corrupt} corrupted drained pages, "
+                f"{delta['checksum_failures']} checksum failures")
+        if drain_corrupt:
+            require(delta["task_retries"] >= drain_corrupt,
+                    f"{label}: corrupted pages were not retried")
+        out = {"label": label, "runs": runs, **delta,
+               "spool_rejects": sched.spool.checksum_rejects - rej0,
+               "allocated": _allocated()}
+        log(f"fault tolerance chaos {label}: rows equal the fault-free "
+            f"runs; fired {[f for r in runs for f in r['fired']]}; "
+            f"retries {delta['task_retries']}, hedges "
+            f"{delta['hedged_tasks']}, checksum failures "
+            f"{delta['checksum_failures']}; walls "
+            f"{[round(r['wall_s'], 4) for r in runs]}; card allocation "
+            f"{out['allocated']} B")
+        return out
+
+    all_names = {q[0] for q in queries}
+    seeds = [schedule(f"seed {s}",
+                      FailureInjector.from_seed(s, max_delay_s=0.2),
+                      all_names) for s in FT_SEEDS]
+    growth = seeds[-1]["allocated"] - seeds[0]["allocated"]
+    require(growth <= FT_MEMORY_SLACK, f"the card's allocation grew by "
+            f"{growth} B over the seeds")
+    # the reference's explicit injections (tests/test_chaos.py): a crash
+    # mid-split on one worker, a corrupted drained page, two dropped task
+    # creates, and a straggler the scheduler hedges
+    crash = FailureInjector(seed=103)
+    crash.inject("WORKER_TASK_RUN", times=1, fault=CRASH)
+    corrupt = FailureInjector(seed=101)
+    corrupt.inject("EXCHANGE_DRAIN", times=1, fault=CORRUPT)
+    drop = FailureInjector(seed=104)
+    drop.inject("WORKER_TASK_CREATE", times=2, fault=DROP)
+    slow = FailureInjector(seed=102)
+    slow.inject("WORKER_TASK_RUN", times=1, fault=DELAY, delay_s=1.5)
+    explicit = [schedule("crash mid-split", crash, {"q3"},
+                         on_workers=[workers[1]]),
+                schedule("corrupt drain", corrupt, {"q1"}),
+                schedule("dropped creates", drop, {"q6"})]
+    hedge = (sched.hedge_min_s, sched.hedge_multiplier)
+    sched.hedge_min_s, sched.hedge_multiplier = 0.1, 2.0
+    try:
+        explicit.append(schedule("straggler", slow, {"q3"},
+                                 on_workers=[workers[0]]))
+    finally:
+        sched.hedge_min_s, sched.hedge_multiplier = hedge
+    require(explicit[-1]["hedged_tasks"] > 0, "the straggler was not "
+            "hedged")
+    by_type = {}
+    for sch in seeds + explicit:
+        for r in sch["runs"]:
+            for _p, fault in r["fired"]:
+                t = by_type.setdefault(fault, {"fired": 0, "runs": 0,
+                                               "recovery_s": []})
+                t["fired"] += 1
+            for fault in {f for _p, f in r["fired"]}:
+                by_type[fault]["runs"] += 1
+                by_type[fault]["recovery_s"].append(r["recovery_s"])
+        for fault in {f for r in sch["runs"] for _p, f in r["fired"]}:
+            by_type[fault].setdefault("retries", 0)
+            by_type[fault].setdefault("hedges", 0)
+            by_type[fault]["retries"] += sch["task_retries"]
+            by_type[fault]["hedges"] += sch["hedged_tasks"]
+    for fault in (CRASH, DELAY, DROP, CORRUPT):
+        require(fault in by_type, f"no {fault} fired over the matrix")
+    counts = read_counts()
+    chaos_launches = {k: counts[k] - counts0[k] for k in counts}
+    require(chaos_launches["K1"] > 0 and chaos_launches["K3"] > 0,
+            f"the chaos runs launched {chaos_launches}")
+    for t in by_type.values():
+        t["recovery_median_s"] = statistics.median(t["recovery_s"])
+    record["chaos"] = {
+        "seeds": [{k: v for k, v in s.items() if k != "runs"}
+                  | {"walls_s": [r["wall_s"] for r in s["runs"]]}
+                  for s in seeds],
+        "explicit": [{k: v for k, v in s.items() if k != "runs"}
+                     | {"walls_s": [r["wall_s"] for r in s["runs"]]}
+                     for s in explicit],
+        "by_fault": by_type, "allocation_growth_b": growth,
+        "launches": chaos_launches}
+    log("fault tolerance chaos by fault type: " + json.dumps(by_type))
+
+
+def _ft_pair_state(standby, workers) -> str:
+    """What a stuck failover left on the standby and the workers."""
+    st = standby.state
+    tasks = {w.node_id: [(t.task_id, t.state, (t.error or "")[:300])
+                         for t in list(w.task_manager.tasks.values())[-3:]]
+             for w in workers}
+    queries = [(q.query_id, q.state, getattr(q, "resumed", None))
+               for q in st.tracker.all()]
+    return (f"standby role {st.role}, nodes "
+            f"{sorted(n.node_id for n in st.active_nodes())}, "
+            f"queries {queries}, scheduler {dict(st.scheduler.stats)}, "
+            f"worker tasks {tasks}")
+
+
+def _ft_failover(record, conn, tables, expected, tmp):
+    """(b) a primary and a warm standby over one ledger and spool root,
+    two workers on the card and a two-address Client: the primary killed
+    while q3 runs (the standby promoted by its detector), then a second
+    pair killed at WRITE_COMMIT of a distributed CTAS of customer into
+    ORC (the standby promoted by the admin PUT)."""
+    import numpy as np
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server import writeprotocol as wp
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.failureinjector import (HANG,
+                                                        FailureInjector)
+    from trino_tpu_torch.server.worker import WorkerServer
+
+    def pair(tag, auto_promote, split_rows, orc_root=None):
+        ledger = os.path.join(tmp, f"{tag}.ledger")
+        spool = os.path.join(tmp, f"{tag}-spool")
+        cats = [_ft_catalog(conn, orc_root) for _ in range(3)]
+        primary = CoordinatorServer(
+            Session(cats[0], default_schema=TPCH_SCHEMA),
+            max_concurrency=8, ledger_path=ledger, node_id=f"{tag}-p",
+            spool_root=spool).start()
+        standby = CoordinatorServer(
+            Session(cats[1], default_schema=TPCH_SCHEMA),
+            max_concurrency=8, ledger_path=ledger, node_id=f"{tag}-s",
+            role="standby", peer_uri=primary.uri, spool_root=spool,
+            standby_interval_s=0.1, auto_promote=auto_promote).start()
+        for c in (primary, standby):
+            c.state.scheduler.split_rows = split_rows
+        workers = [WorkerServer(f"{tag}-w{i}", primary.uri,
+                                announce_interval_s=0.1,
+                                catalog=cats[2]).start() for i in range(2)]
+        _wait_for(lambda: len(primary.state.active_nodes()) == 2,
+                  f"{tag}: two workers to announce")
+        for w in workers:
+            w.announce_once()          # learn the standby's address
+        return primary, standby, workers
+
+    def down(primary, standby, workers):
+        for w in workers:
+            w.stop(graceful=False)
+        for c in (primary, standby):
+            try:
+                c.kill()
+            except Exception:  # noqa: BLE001 — killed servers die twice
+                pass
+            c.state.dispatcher.pool.shutdown(wait=False)
+
+    def client_run(client, sql, out):
+        try:
+            out["result"] = client.execute(sql)
+        except Exception as e:  # noqa: BLE001 — reported below
+            out["error"] = e
+
+    # kill 1: q3 RUNNING on the primary, the detector promotes
+    primary, standby, workers = pair("fo1", True, CLUSTER_SPLIT_ROWS)
+    hold = FailureInjector()
+    try:
+        client = Client([primary.uri, standby.uri], user="ft",
+                        timeout_s=300, poll_interval_s=0.001)
+        r = client.execute(Q3)
+        require(r.rows == expected["q3"], "q3 before the kill differs")
+        # the primary's own executor holds lineitem on the card: q6 run
+        # by the coordinator itself (no scan above split_rows)
+        primary.state.scheduler.split_rows = 1 << 62
+        client.execute("SET SESSION routing_mode = 'device'")
+        r = client.execute(Q6)
+        client.execute("SET SESSION routing_mode = 'auto'")
+        primary.state.scheduler.split_rows = CLUSTER_SPLIT_ROWS
+        require(r.rows == expected["q6"], "local q6 differs")
+        held = primary.state.session.executor.device_cache_bytes()
+        require(held > 0, "the primary's executor caches nothing")
+        # q3 holds inside its execution until the pair comes down: the
+        # killed primary's thread does no more work, as a dead process
+        # would (released, it would dispatch the query id's tasks beside
+        # the standby's)
+        inj = hold = FailureInjector()
+        primary.state.dispatcher.failure_injector = inj
+        inj.inject("EXECUTION", times=1, fault=HANG, delay_s=600.0,
+                   match_sql="c_mktsegment")
+        out = {}
+        th = threading.Thread(target=client_run, args=(client, Q3, out))
+        alloc_before = _allocated()
+        th.start()
+        _wait_for(lambda: any(q.state == "RUNNING"
+                              for q in primary.state.tracker.all()
+                              if "c_mktsegment" in q.sql),
+                  "q3 RUNNING on the primary")
+        ex = primary.state.session.executor
+        at_kill = ex.device_cache_bytes()
+        t_kill = time.monotonic()
+        primary.kill()
+        left = ex.device_cache_bytes()
+        require(left == 0, f"the dead primary kept {left} B of device "
+                f"caches")
+        th.join(timeout=FT_FAILOVER_TIMEOUT_S)
+        after_kill_s = time.monotonic() - t_kill
+        require("result" in out, f"q3 across the failover: "
+                f"{out.get('error')!r}; {_ft_pair_state(standby, workers)}")
+        r = out["result"]
+        require(r.rows == expected["q3"], "q3 across the failover differs "
+                "from its oracle")
+        require(r.failovers >= 1, "the client saw no failover")
+        require(standby.state.role == "PRIMARY", "the standby was not "
+                "promoted")
+        tq = standby.state.tracker.get(r.query_id)
+        require(tq is not None and tq.state == "FINISHED",
+                "the standby does not hold the query FINISHED")
+        alloc_after = _allocated()
+        record["kill_running"] = {
+            "query_id": r.query_id, "resumed": tq.resumed,
+            "failovers": r.failovers,
+            "kill_to_result_s": after_kill_s,
+            "dead_primary_cache_released_b": at_kill,
+            "allocated_before_b": alloc_before,
+            "allocated_after_b": alloc_after}
+        log("fault tolerance failover, q3 killed RUNNING: oracle rows "
+            "through the promoted standby; " +
+            json.dumps(record["kill_running"]))
+    finally:
+        down(primary, standby, workers)
+        hold.clear()
+
+    # kill 2: the primary dies inside WRITE_COMMIT; the admin promotes
+    orc_root = os.path.join(tmp, "orc")
+    os.makedirs(os.path.join(orc_root, "out"))
+    primary, standby, workers = pair("fo2", False, FT_CTAS_SPLIT_ROWS,
+                                     orc_root)
+    inj = FailureInjector()
+    try:
+        inj.inject("WRITE_COMMIT", times=1, fault=HANG, delay_s=600.0)
+        primary.state.scheduler.failure_injector = inj
+        client = Client([primary.uri, standby.uri], user="ft",
+                        timeout_s=300, poll_interval_s=0.001)
+        out = {}
+        th = threading.Thread(target=client_run,
+                              args=(client, FT_CTAS_SQL, out))
+        th.start()
+        _wait_for(lambda: any(p == "WRITE_COMMIT"
+                              for _t, p, _f, _k in inj.events),
+                  "the CTAS to reach WRITE_COMMIT", timeout_s=120)
+        t_kill = time.monotonic()
+        primary.kill()
+        status = _put_state(standby.uri, "PRIMARY")
+        th.join(timeout=FT_FAILOVER_TIMEOUT_S)
+        after_kill_s = time.monotonic() - t_kill
+        require("result" in out, f"CTAS across the failover: "
+                f"{out.get('error')!r}; {_ft_pair_state(standby, workers)}")
+        r = out["result"]
+        n = tables["customer"].num_rows
+        require(r.rows == [[n]], f"CTAS across the failover: {r.rows}")
+        table_dir = os.path.join(orc_root, "out", "customer_ft")
+
+        got = OrcConnector(orc_root).get_table("out", "customer_ft")
+        cust = tables["customer"]
+        require(got.num_rows == n, f"after the failover: {got.num_rows} "
+                f"rows, customer has {n}")
+        go = np.argsort(_col(got, "c_custkey"), kind="stable")
+        so = np.argsort(_col(cust, "c_custkey"), kind="stable")
+        for name in FT_CTAS_COLUMNS:
+            require(np.array_equal(_decoded(got, name)[go],
+                                   _decoded(cust, name)[so]),
+                    f"after the failover: orc.out.customer_ft.{name} "
+                    f"differs from customer")
+        tq = standby.state.tracker.get(r.query_id)
+        # a resumed write that found no worker yet runs on the standby
+        # itself, whose local commit is not keyed by the query id
+        # (ROADMAP Queue C): recorded, not required
+        record["kill_write_commit"] = {
+            "query_id": r.query_id, "status": status,
+            "resumed": getattr(tq, "resumed", None),
+            "standby_tasks": standby.state.scheduler.stats["tasks"],
+            "committed_under_query_id":
+                wp.published_rows_for(table_dir, r.query_id) == n,
+            "failovers": r.failovers, "kill_to_result_s": after_kill_s,
+            "parts": len(wp.list_parts(table_dir))}
+        log("fault tolerance failover, CTAS killed at WRITE_COMMIT: "
+            "customer exactly once; " +
+            json.dumps(record["kill_write_commit"]))
+    finally:
+        down(primary, standby, workers)
+        inj.clear()
+
+
+def _ft_resource_groups(record, coord, expected):
+    """(c) hard_concurrency_limit = 1: three clients submit q6 together,
+    one runs and two queue; then max_queued = 1 rejects the third."""
+    from trino_tpu_torch.client.client import Client, QueryError
+    from trino_tpu_torch.server.failureinjector import (DELAY,
+                                                        FailureInjector)
+    from trino_tpu_torch.server.resourcegroups import (ResourceGroupConfig,
+                                                       ResourceGroupManager)
+    disp = coord.state.dispatcher
+    saved_rg, saved_inj = disp.resource_groups, disp.failure_injector
+
+    def together(max_queued):
+        disp.resource_groups = rgm = ResourceGroupManager(
+            ResourceGroupConfig("root", hard_concurrency_limit=1,
+                                max_queued=max_queued))
+        inj = FailureInjector()
+        # the first q6 holds the one slot for a second
+        inj.inject("EXECUTION", times=1, fault=DELAY, delay_s=1.0,
+                   match_sql="l_discount BETWEEN")
+        disp.failure_injector = inj
+        coord.state.scheduler.spool.clear()
+        outs = [{} for _ in range(3)]
+
+        def go(i):
+            try:
+                outs[i]["rows"] = Client(coord.uri, user=f"rg{i}",
+                                         poll_interval_s=0.001).execute(
+                    Q6).rows
+            except QueryError as e:
+                outs[i]["error"] = e.error_name
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(3)]
+        threads[0].start()
+        _wait_for(lambda: rgm.info()[0]["running"] == 1,
+                  "the first q6 to take the slot")
+        for th in threads[1:]:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        require(not any(th.is_alive() for th in threads),
+                "a queued q6 never finished")
+        return outs, rgm.info()[0]
+
+    try:
+        outs, info = together(10)
+        require(all(o.get("rows") == expected["q6"] for o in outs),
+                f"queued q6 runs: {outs}")
+        require(info["peakQueued"] == 2 and info["totalAdmitted"] == 3,
+                f"resource group after three q6: {info}")
+        outs2, info2 = together(1)
+        errors = [o["error"] for o in outs2 if "error" in o]
+        require(errors == ["QUERY_QUEUE_FULL"] and
+                sum(o.get("rows") == expected["q6"] for o in outs2) == 2,
+                f"max_queued = 1: {outs2}")
+        record["resource_groups"] = {
+            "queued_s": info["totalQueueWaitSeconds"],
+            "avg_queued_s": info["avgQueueWaitSeconds"],
+            "peak_queued": info["peakQueued"],
+            "queue_full": errors, "after_queue_full": info2}
+        log("fault tolerance resource groups: one q6 ran and two queued, "
+            "all equal the oracle; max_queued = 1 rejected the third "
+            "with QUERY_QUEUE_FULL; " +
+            json.dumps(record["resource_groups"]))
+    finally:
+        disp.resource_groups, disp.failure_injector = saved_rg, saved_inj
+
+
+def _ft_live_and_timeline(record, coord, workers, probe, expected):
+    """(d) q3 traced and profiled with a 1 s DELAY on one worker: the
+    progress pages stay in [0, 1] and never fall, the live surfaces fill,
+    the utilization rows show the card; the timeline's phases sum to the
+    wall, with a device phase."""
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.server.failureinjector import (DELAY,
+                                                        FailureInjector)
+    ls = coord.state.livestats
+    ratios, seen = [], {"live_queries": 0, "live_tasks": 0, "http": []}
+    # session properties live on the coordinator; traced tasks fence
+    # their operators, which is what puts card time in `device`
+    for name in ("enable_tracing", "enable_profiling"):
+        probe.set(name, "true")
+    inj = FailureInjector(seed=21)
+    inj.inject("WORKER_TASK_RUN", times=1, fault=DELAY, delay_s=1.0)
+    workers[0].task_manager.injector = inj
+    client = Client(coord.uri, user="chip", poll_interval_s=0.001,
+                    on_progress=lambda st: ratios.append(
+                        st.get("progressRatio")))
+    done = threading.Event()
+
+    def poll():
+        while not done.is_set():
+            for q in ls.live_queries():
+                if q["state"] == "RUNNING" and q["tasks"] > 0:
+                    seen["live_queries"] += 1
+                    seen["live_tasks"] = max(seen["live_tasks"],
+                                             len(ls.live_tasks()))
+                    doc = json.loads(probe.get(
+                        f"/v1/query/{q['query_id']}"))
+                    seen["http"].append(doc.get("progressRatio"))
+            time.sleep(0.02)
+    th = threading.Thread(target=poll)
+    coord.state.scheduler.spool.clear()
+    th.start()
+    try:
+        r = client.execute(Q3)
+    finally:
+        done.set()
+        th.join()
+        workers[0].task_manager.injector = None
+        inj.clear()
+        for name in ("enable_tracing", "enable_profiling"):
+            probe.set(name, "false")
+    require(r.rows == expected["q3"], "the live q3 differs")
+    got = [x for x in ratios if x is not None]
+    require(got and all(0.0 <= x <= 1.0 for x in got) and
+            all(b >= a for a, b in zip(got, got[1:])) and got[-1] == 1.0,
+            f"progress pages {got}")
+    http = [x for x in seen["http"] if x is not None]
+    require(all(0.0 <= x <= 1.0 for x in http) and
+            all(b >= a for a, b in zip(http, http[1:])),
+            f"/v1/query progress {http}")
+    require(seen["live_queries"] > 0 and seen["live_tasks"] > 0,
+            f"the live surfaces stayed empty: {seen}")
+    util = ls.utilization()
+    device = {u["node_id"]: u["busy_ms"] for u in util
+              if u["tier"] == "device"}
+    require(any(v > 0 for v in device.values()),
+            f"no card worker shows device busy time: {util}")
+    tl = json.loads(probe.get(f"/v1/query/{r.query_id}/timeline"))
+    require(sum(tl["phases"].values()) == tl["wall_s"],
+            f"timeline phases {tl['phases']} do not sum to "
+            f"{tl['wall_s']}")
+    require(tl["phases"]["device"] > 0, f"no device phase: {tl['phases']}")
+    record["live"] = {"progress_pages": got, "http_progress": http,
+                      "live_polls": seen["live_queries"],
+                      "live_tasks_max": seen["live_tasks"],
+                      "device_busy_ms": device,
+                      "utilization": util}
+    record["timeline"] = {k: tl[k] for k in ("wall_s", "phases",
+                                             "dominant", "breakdown",
+                                             "criticalPathSeconds")}
+    log("fault tolerance live stats: progress monotonic in [0, 1] "
+        f"({len(got)} pages, {len(http)} polls); live tasks up to "
+        f"{seen['live_tasks']}; device busy ms {device}")
+    log("fault tolerance timeline of the profiled q3: " +
+        json.dumps(record["timeline"]))
+
+
+def _ft_hll_timestamp(record, conn, main_session):
+    """(e) approx_distinct and TIMESTAMP on the card against the port's
+    CPU Session over the same tables."""
+    import numpy as np
+    from torch_time_cases import (HLL_QUERIES, TS_BAD_LITERALS, TS_QUERIES,
+                                  hll_close, hll_sql, ts_setup)
+    from trino_tpu_torch.exec.session import Session
+    cpu = Session(_ft_catalog(conn), default_schema=TPCH_SCHEMA,
+                  device="cpu")
+    card = Session(_ft_catalog(conn), default_schema=TPCH_SCHEMA)
+    hll = []
+    for q in HLL_QUERIES:
+        sql, exact_sql = hll_sql(q), hll_sql(q, exact=True)
+        before = read_counts()
+        rows, walls = _timed_runs(card, sql, 2)
+        after = read_counts()
+        exact, exact_walls = _timed_runs(card, exact_sql, 2)
+        want = cpu.execute(sql).rows
+        require(rows == want, f"approx_distinct on the card {rows} vs the "
+                f"CPU {want}: {sql}")
+        require([r[:-1] for r in rows] == [r[:-1] for r in exact] and
+                all(hll_close(a[-1], e[-1]) for a, e in zip(rows, exact)),
+                f"approx_distinct {rows} vs exact {exact}")
+        hll.append({"sql": sql, "rows": rows, "exact": exact,
+                    "rel_err": [abs(a[-1] - e[-1]) / e[-1]
+                                for a, e in zip(rows, exact)],
+                    "approx_walls_s": walls, "exact_walls_s": exact_walls,
+                    "strategy": _strategy_lines(card, sql),
+                    "launches": {k: after[k] - before[k] for k in after}})
+        log(f"fault tolerance approx_distinct equals the CPU Session: "
+            f"{json.dumps(hll[-1])}")
+    record["approx_distinct"] = hll
+    ts = []
+    for sess in (card, cpu):
+        for sql in ts_setup(TPCH_SCHEMA, np.random.default_rng(7)):
+            sess.execute(sql)
+    for sql in TS_QUERIES:
+        t = time.monotonic()
+        rows = card.execute(sql).rows
+        wall = time.monotonic() - t
+        want = cpu.execute(sql).rows
+        require(rows and rows == want, f"TIMESTAMP on the card differs "
+                f"from the CPU: {sql}\n{rows[:2]}\nvs\n{want[:2]}")
+        ts.append({"rows": len(rows), "wall_s": wall})
+    for lit in TS_BAD_LITERALS:
+        errs = []
+        for sess in (card, cpu):
+            try:
+                sess.execute(f"SELECT TIMESTAMP '{lit}'")
+                errs.append(None)
+            except Exception as e:  # noqa: BLE001 — compared below
+                errs.append((type(e).__name__, str(e)))
+        require(errs[0] is not None and errs[0] == errs[1],
+                f"TIMESTAMP '{lit}': {errs}")
+    n_before = card.execute(
+        "SELECT count(*) FROM memory.ts.events "
+        "WHERE at < TIMESTAMP '1970-01-01 00:00:00'").rows[0][0]
+    record["timestamp"] = {"queries": ts, "pre_epoch_rows": n_before}
+    log("fault tolerance TIMESTAMP equals the CPU Session: " +
+        json.dumps(record["timestamp"]))
+
+
+def phase_fault_tolerance(recorder, main_session, tables):
+    """The fault-tolerance and operations tier on the card at tpch.sf1,
+    counters set to 0 just before and read just after: (a) seeded chaos
+    on a coordinator and three workers, (b) coordinator failover with a
+    killed query and a write killed at its commit, (c) resource groups
+    over HTTP, (d) live stats and the timeline, (e) approx_distinct and
+    TIMESTAMP against the port's CPU Session."""
+    import shutil
+    import tempfile
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import (CoordinatorServer,
+                                                    _rows_json)
+    from trino_tpu_torch.server.failuredetector import \
+        HeartbeatFailureDetector
+    from trino_tpu_torch.server.worker import WorkerServer
+    t_phase = time.monotonic()
+    conn = main_session.catalog.connector("tpch")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ft-")
+    saved = os.environ.get("TRINO_TPU_HISTORY_PATH")
+    os.environ["TRINO_TPU_HISTORY_PATH"] = os.path.join(tmp, "h.jsonl")
+    orders = conn.get_table(TPCH_SCHEMA, "orders")
+    expected = {
+        "q1": _rows_json(oracle_q1(tables["lineitem"])),
+        "q6": _rows_json(oracle_q6(tables["lineitem"])),
+        "q3": _rows_json(oracle_q3(tables["customer"], orders,
+                                   tables["lineitem"])),
+        "concat": sorted(map(tuple, _rows_json(
+            main_session.execute(FT_CONCAT_SQL).rows)))}
+    record, walls = {}, {}
+    session = Session(_ft_catalog(conn), default_schema=TPCH_SCHEMA)
+    require(session.device.type == "cuda", "the phase's Session() is not "
+            "on cuda")
+    coord = CoordinatorServer(session, max_concurrency=16,
+                              retry_policy="QUERY").start()
+    coord.state.scheduler.split_rows = CLUSTER_SPLIT_ROWS
+    workers = [WorkerServer(f"ft-w{i}", coord.uri, announce_interval_s=0.1,
+                            heartbeat_interval_s=0.05,
+                            catalog=session.catalog).start()
+               for i in range(3)]
+    detector = HeartbeatFailureDetector(coord.state, interval_s=0.2).start()
+    probe = HttpProbe(coord.uri)
+    try:
+        _wait_for(lambda: len(coord.state.active_nodes()) == 3,
+                  "three workers to announce")
+        for w in workers:
+            require(w.task_manager.device.type == "cuda",
+                    f"{w.node_id} runs on {w.task_manager.device}")
+        reset_counts()
+        recorder.active, recorder.keep = True, False
+        for name, part in (
+                ("chaos", lambda: _ft_chaos(record, coord, workers, probe,
+                                            expected)),
+                ("failover", lambda: _ft_failover(record, conn, tables,
+                                                  expected, tmp)),
+                ("resource_groups", lambda: _ft_resource_groups(
+                    record, coord, expected)),
+                ("live_timeline", lambda: _ft_live_and_timeline(
+                    record, coord, workers, probe, expected)),
+                ("hll_timestamp", lambda: _ft_hll_timestamp(
+                    record, conn, main_session))):
+            t = time.monotonic()
+            part()
+            walls[name] = time.monotonic() - t
+            log(f"fault tolerance ({name}) took {walls[name]:.1f} s")
+    finally:
+        recorder.active, recorder.keep = False, True
+        detector.stop()
+        for w in workers:
+            w.stop(graceful=False)
+        coord.stop()
+        coord.state.dispatcher.pool.shutdown(wait=True)
+        if saved is None:
+            os.environ.pop("TRINO_TPU_HISTORY_PATH", None)
+        else:
+            os.environ["TRINO_TPU_HISTORY_PATH"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    require(launches["K1"] > 0 and launches["K3"] > 0,
+            f"the fault-tolerance path launched {launches}")
+    record["launches"] = launches
+    record["part_walls_s"] = walls
+    record["phase_s"] = time.monotonic() - t_phase
+    log("fault tolerance path: " + json.dumps(record, default=str))
+    return launches
+
+
 MESH_SHARDS = 8
 # SELECTIVE and PROBE_ROWS of tests/test_mesh_dynamic_filter.py (that file
 # imports the JAX package, which this script must not load)
@@ -5137,6 +5873,7 @@ def main() -> int:
              phase_memory_pressure(recorder, session, tables),
              phase_http_path(recorder, session, tables),
              phase_cluster_path(recorder, session, tables),
+             phase_fault_tolerance(recorder, session, tables),
              phase_mesh_path(recorder, session, tables, ds_session),
              phase_introspection(recorder, session, tables, ds_session,
                                  smi, fam_before)]

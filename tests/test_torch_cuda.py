@@ -1085,3 +1085,154 @@ def test_profiled_star_counts_fused_probes_on_card(ds_sessions):
     assert d_probes >= 1
     assert MULTIJOIN_FUSED_PROBES.value() - metric0 == d_probes
     assert ht.multiway_probe.launches - k4_0 >= d_probes
+
+
+def test_chaos_schedule_on_card_equals_cpu(tmp_path, monkeypatch):
+    """TPC-H q3 at tpch.tiny on a card cluster under seed 5's schedule,
+    then a crash mid-split and a corrupted drained page: every run's
+    rows equal the CPU Session's, the corrupted page is caught and
+    retried, and the workers' dense-LUT joins launch K1 under the
+    faults (at tiny a split's aggregate takes no hash table)."""
+    import time
+    from tpch_full import QUERIES
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.failureinjector import (CORRUPT, CRASH,
+                                                        FailureInjector)
+    from trino_tpu_torch.server.worker import WorkerServer
+    _card()
+    monkeypatch.setenv("TRINO_TPU_HISTORY_PATH", str(tmp_path / "h.jsonl"))
+    want = [list(r) for r in Session(device="cpu").execute(QUERIES[3]).rows]
+    want = [[v if isinstance(v, (int, float, str)) else str(v) for v in r]
+            for r in want]
+    coord = CoordinatorServer(Session(), retry_policy="QUERY").start()
+    sched = coord.state.scheduler
+    sched.split_rows = 8192
+    workers = [WorkerServer(f"w{i}", coord.uri, announce_interval_s=0.05,
+                            device="cuda").start() for i in range(2)]
+    deadline = time.time() + 30
+    while len(coord.state.active_nodes()) < 2 and time.time() < deadline:
+        time.sleep(0.02)
+    try:
+        client = Client(coord.uri, user="t", poll_interval_s=0.005)
+        seeded = FailureInjector.from_seed(5, max_delay_s=0.2)
+        crash = FailureInjector(seed=103)
+        crash.inject("WORKER_TASK_RUN", times=1, fault=CRASH)
+        corrupt = FailureInjector(seed=101)
+        corrupt.inject("EXCHANGE_DRAIN", times=1, fault=CORRUPT)
+        k0 = k1.gather_columns.launches
+        for inj in (None, seeded, crash, corrupt):
+            sched.spool.clear()
+            sched.failure_injector = inj
+            for w in workers:
+                w.task_manager.injector = inj
+            cf = sched.stats["checksum_failures"]
+            rows = client.execute(QUERIES[3]).rows
+            assert rows == want
+            if inj is corrupt:
+                assert sched.stats["checksum_failures"] == cf + 1
+        assert crash.injected_count == 1 and corrupt.injected_count == 1
+        assert k1.gather_columns.launches > k0
+    finally:
+        for w in workers:
+            w.stop(graceful=False)
+        coord.stop()
+
+
+def test_failover_on_card_equals_cpu(tmp_path, monkeypatch):
+    """A card primary killed while TPC-H q3 runs: the card standby is
+    promoted by its detector and answers the CPU Session's rows under
+    the original query id; the dead primary's device caches are freed."""
+    import threading
+    import time
+    from tpch_full import QUERIES
+    from trino_tpu_torch.client.client import Client
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    from trino_tpu_torch.server.failureinjector import HANG, FailureInjector
+    from trino_tpu_torch.server.worker import WorkerServer
+    _card()
+    monkeypatch.setenv("TRINO_TPU_HISTORY_PATH", str(tmp_path / "h.jsonl"))
+    want = [[v if isinstance(v, (int, float, str)) else str(v) for v in r]
+            for r in Session(device="cpu").execute(QUERIES[3]).rows]
+    ledger, spool = str(tmp_path / "q.ledger"), str(tmp_path / "spool")
+    primary = CoordinatorServer(Session(), ledger_path=ledger,
+                                node_id="c1", spool_root=spool).start()
+    standby = CoordinatorServer(Session(), ledger_path=ledger,
+                                node_id="c2", role="standby",
+                                peer_uri=primary.uri, spool_root=spool,
+                                standby_interval_s=0.1).start()
+    for c in (primary, standby):
+        c.state.scheduler.split_rows = 8192
+    workers = [WorkerServer(f"fw{i}", primary.uri, announce_interval_s=0.05,
+                            device="cuda").start() for i in range(2)]
+    inj = FailureInjector()
+    try:
+        deadline = time.time() + 30
+        while len(primary.state.active_nodes()) < 2 and \
+                time.time() < deadline:
+            time.sleep(0.02)
+        for w in workers:
+            w.announce_once()
+        client = Client([primary.uri, standby.uri], user="t",
+                        timeout_s=120, poll_interval_s=0.005)
+        assert client.execute(QUERIES[3]).rows == want
+        primary.state.dispatcher.failure_injector = inj
+        inj.inject("EXECUTION", times=1, fault=HANG, delay_s=120.0,
+                   match_sql="c_mktsegment")
+        res = {}
+        t = threading.Thread(target=lambda: res.update(
+            r=client.execute(QUERIES[3])))
+        t.start()
+        deadline = time.time() + 60
+        while time.time() < deadline and not any(
+                q.state == "RUNNING" and not q.state_machine.is_done()
+                for q in primary.state.tracker.all()
+                if "c_mktsegment" in q.sql):
+            time.sleep(0.01)
+        primary.kill()
+        assert primary.state.session.executor.device_cache_bytes() == 0
+        t.join(timeout=120)
+        assert not t.is_alive()
+        r = res["r"]
+        assert r.rows == want and r.failovers >= 1
+        assert standby.state.role == "PRIMARY"
+        assert standby.state.tracker.get(r.query_id).state == "FINISHED"
+    finally:
+        for w in workers:
+            w.stop(graceful=False)
+        inj.clear()
+        for c in (primary, standby):
+            try:
+                c.state.dispatcher.pool.shutdown(wait=False)
+                c.stop()
+            except Exception:  # noqa: BLE001 — killed servers die twice
+                pass
+
+
+def test_approx_distinct_on_card_equals_cpu():
+    """approx_distinct at tpch.tiny: the card's integers equal the CPU's
+    (the splitmix64 hash's wrapping multiplies and logical shifts, the
+    leading-zero count and the finisher's log on CUDA)."""
+    from torch_time_cases import HLL_QUERIES, hll_sql
+    from trino_tpu_torch.exec.session import Session
+    _card()
+    gpu, cpu = Session(), Session(device="cpu")
+    for q in HLL_QUERIES:
+        assert gpu.execute(hll_sql(q)).rows == cpu.execute(hll_sql(q)).rows
+
+
+def test_timestamp_pre_epoch_on_card_equals_cpu():
+    """TIMESTAMP at tpch.tiny with rows before 1970 and at day boundaries:
+    EXTRACT, CAST to date, every date_trunc unit, grouped min/max and
+    comparisons against a DATE equal the CPU's rows on the card."""
+    from torch_time_cases import TS_QUERIES, ts_setup
+    from trino_tpu_torch.exec.session import Session
+    _card()
+    gpu, cpu = Session(), Session(device="cpu")
+    for sess in (gpu, cpu):
+        for sql in ts_setup("tiny", np.random.default_rng(7)):
+            sess.execute(sql)
+    for sql in TS_QUERIES:
+        assert gpu.execute(sql).rows == cpu.execute(sql).rows, sql

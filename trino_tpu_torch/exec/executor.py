@@ -345,6 +345,24 @@ class Executor:
         # costs nothing and removes any doubt after DML
         self._decision_cache.clear()
 
+    def device_cache_bytes(self) -> int:
+        """Device bytes held across statements: cached scans, cached
+        builds and the fact-column cache."""
+        return (sum(self._scan_cache_bytes.values()) +
+                sum(self._build_cache_bytes.values()) +
+                self.fact_cache.total_bytes())
+
+    def release_device_caches(self) -> int:
+        """Drop every cross-statement device cache and return the bytes
+        released; later statements rebuild what they use. A coordinator
+        killed in-process calls this: a dead process frees its card
+        memory, while a statement still in flight keeps only the tensors
+        it holds itself."""
+        freed = self.device_cache_bytes()
+        self.invalidate_scan_cache()
+        self._revoke_caches(sum(self._build_cache_bytes.values()) + 1)
+        return freed
+
     def flush_metrics(self) -> None:
         """Mirror ExecStats deltas since the last flush into the process
         metrics registry (trino_tpu_exec_events_total{event=...}).

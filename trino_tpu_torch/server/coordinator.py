@@ -978,6 +978,12 @@ class CoordinatorState:
             parts = qid.split("_")
             if len(parts) >= 3 and parts[2].isdigit():
                 self.tracker.reserve_seq(int(parts[2]))
+        # and the task-id namespace: workers create tasks idempotently by
+        # id, so a re-minted id would hand a resumed query the dead
+        # primary's task and its (drained) buffers
+        for q in view.queries.values():
+            for tid in q.get("assigned", ()):
+                self.scheduler.reserve_task_seq(tid)
         resumed = 0
         for qid, q in sorted(view.queries.items()):
             if self.tracker.get(qid) is not None:
@@ -1647,6 +1653,9 @@ class CoordinatorServer:
         if self.state.ledger is not None:
             self.state.ledger.seal()
         self.state.role = "PASSIVE"
+        # the dead process's card memory: its executor's caches go (the
+        # in-flight threads keep what they hold)
+        self.state.session.executor.release_device_caches()
         if self._watcher is not None:
             self._watcher.stop()
         self.state.telemetry.stop()

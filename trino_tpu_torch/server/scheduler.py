@@ -373,6 +373,13 @@ class StageScheduler:
 
     # -- durable query ledger hooks ---------------------------------------
 
+    def reserve_task_seq(self, task_id: str) -> None:
+        """Never mint `task_id` (a `t<seq>` id another coordinator issued
+        and a ledger recorded) or any id below it again."""
+        if task_id.startswith("t") and task_id[1:].isdigit():
+            with self._lock:
+                self._seq = max(self._seq, int(task_id[1:]))
+
     def _ledger_assign(self, task) -> None:
         """Record a task/stage assignment in the coordinator's durable
         query ledger (server/ledger.py) — the promoted coordinator
