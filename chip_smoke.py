@@ -70,7 +70,18 @@ Phases, each failing the run with a non-zero exit:
    and q22 and a torch.profiler run of q21 and ds q38;
    ``cumsum_like_reference`` on 6,000,000 doubles on the card, bit for
    bit its CPU result, timed against ``torch.cumsum``; and one UNNEST on
-   the card against the CPU's rows; then the write path, in a Session of
+   the card against the CPU's rows; then the whole corpus
+   (``phase_corpus_card``): every generated table of ``tpch.sf1`` and
+   ``tpcds.sf1`` against the reference's digests in
+   ``tests/torch_corpus_sf1.json``, then all 22 TPC-H and 99 TPC-DS
+   queries, each with the counters set to 0 just before and read just
+   after, twice under ``auto`` and once with every kernel forced on, each
+   run's canonical rows (``tests/torch_corpus.py``) equal to the
+   reference's (for the five queries the reference did not answer at
+   sf1, to the port CPU Session's answer kept in the file), and TPC-H
+   q12 chunked twice (K2); each of K1-K5 must launch, and a difference
+   is printed beside the port CPU Session's rows before the run fails;
+   then the write path, in a Session of
    its own over the same catalog, counters set to 0 just before and read
    just after: CREATE TABLE AS SELECT of lineitem, orders and customer
    at ``tpch.sf1`` into ``memory.sf1``, DELETE (~1/7 of lineitem), UPDATE
@@ -1914,6 +1925,173 @@ def phase_corpus_paths(recorder, session, tables, ds_session):
     log("corpus paths: " + json.dumps({"queries": records,
                                         "launches": total,
                                         "cumsum": cum}))
+    return total
+
+
+# every kernel forced on: the corpus phase's third run of each query
+FORCED = {"enable_pallas_gather": "true", "enable_pallas_hash": "true",
+          "enable_multiway_join": "true", "mxu_agg": "true"}
+# the query that K2 runs in: its adapted chunked runs (the second on)
+CORPUS_CHUNKED = 12
+
+
+def _corpus_rows(session, sql, props=None):
+    """One run of `sql` (under `props` where given, restored after): its
+    rows and wall."""
+    import torch
+    saved = {k: session.properties[k] for k in props or {}}
+    session.properties.update(props or {})
+    try:
+        t = time.monotonic()
+        rows = session.execute(sql).rows
+        torch.cuda.synchronize()
+        return rows, time.monotonic() - t
+    finally:
+        session.properties.update(saved)
+
+
+def _corpus_mismatch(session, schema, suite, sql, rows, want, label):
+    """What a run that differs from the reference's rows looks like: the
+    first canonical row that differs from the reference's head rows,
+    beside the port's CPU Session's answer over the same tables."""
+    import torch_corpus as tc
+    from trino_tpu_torch.exec.session import Session
+    cpu = Session(session.catalog, default_cat=suite, default_schema=schema,
+                  device="cpu")
+    cpu_sum = tc.summary(sql, cpu.execute(sql).rows)
+    got = tc.summary(sql, rows)
+    first = tc.first_difference(sql, rows, want.get("head", []))
+    return (f"{label}: {got['rows']} rows (sha256 {got['sha256'][:12]}) "
+            f"against the reference's {want.get('rows')} "
+            f"({want.get('sha256', '')[:12]}); first differing row "
+            f"{first if first else 'past the reference head'}; "
+            f"card head {got['head']}; reference head {want.get('head')}; "
+            f"port CPU Session {cpu_sum['rows']} rows (sha256 "
+            f"{cpu_sum['sha256'][:12]}, equal to the reference: "
+            f"{cpu_sum['sha256'] == want.get('sha256')}) head "
+            f"{cpu_sum['head']}")
+
+
+def phase_corpus_card(recorder, session, ds_session):
+    """The whole SQL corpus on the card: all 22 TPC-H queries over
+    tpch.sf1 and all 99 TPC-DS queries over tpcds.sf1 through the two
+    cuda Sessions, each held against the reference's rows in
+    tests/torch_corpus_sf1.json (tools/corpus_reference.py), doubles to
+    the last bit. First every generated table's digest against the
+    file's; then, for each query with the counters set to 0 just before
+    and read just after, two runs under `auto` and one with every kernel
+    forced on (FORCED): each run's canonical rows equal the reference's
+    (a query the reference did not answer at sf1 is held against the
+    port CPU Session's answer, which the file keeps as `port_cpu`), the
+    two `auto` runs equal each other; then TPC-H q12 chunked twice
+    (spill_chunk_rows = CHUNK_ROWS; the adapted runs' joins go through
+    K2) against the reference too.
+    Each of K1-K5 must launch in the phase. Every difference is printed
+    with the port CPU Session's rows beside it, and then the run fails."""
+    import torch_corpus as tc
+    ref = tc.load()
+    t0 = time.monotonic()
+    for suite, s, schema in (("tpch", session, TPCH_SCHEMA),
+                             ("tpcds", ds_session, TPCDS_SCHEMA)):
+        require(schema == ref["schema"], f"the file holds {ref['schema']} "
+                f"rows, the {suite} Session runs {schema}")
+        conn = s.catalog.connector(suite)
+        for name, want in sorted(ref["tables"][suite].items()):
+            require(tc.table_digest(conn.get_table(schema, name)) == want,
+                    f"{suite}.{schema}.{name}: generated data differs "
+                    f"from the reference's")
+    log(f"corpus on the card: {sum(map(len, ref['tables'].values()))} "
+        f"generated tables equal the reference's digests "
+        f"({time.monotonic() - t0:.1f} s)")
+    total = {k: 0 for k in _counters()}
+    records, mismatches = {}, []
+    for suite, s, schema in (("tpch", session, TPCH_SCHEMA),
+                             ("tpcds", ds_session, TPCDS_SCHEMA)):
+        queries = tc.suite_queries(suite)
+        for q in sorted(queries):
+            sql, key = queries[q], tc.key(suite, q)
+            want = ref["queries"][key]
+            if "error" in want:
+                # the reference did not answer at sf1: the port CPU
+                # Session's answer, kept in the file by the same tool
+                want = dict(want["port_cpu"],
+                            held_against="port CPU Session")
+            reset_counts()
+            recorder.active, recorder.keep = True, False
+            try:
+                runs = [_corpus_rows(s, sql), _corpus_rows(s, sql)]
+                auto_ran = dict(s.executor.strategy_decisions)
+                runs.append(_corpus_rows(s, sql, FORCED))
+                forced_ran = dict(s.executor.strategy_decisions)
+            except Exception as e:      # counted as a difference below
+                mismatches.append(f"{key}: raised {type(e).__name__}: {e}")
+                log("CORPUS MISMATCH " + mismatches[-1])
+                continue
+            finally:
+                recorder.active, recorder.keep = False, True
+            launches = read_counts()
+            for k, v in launches.items():
+                total[k] += v
+            digests = [tc.summary(sql, rows)["sha256"] for rows, _ in runs]
+            for label, d, (rows, _) in zip(("auto 1", "auto 2", "forced"),
+                                           digests, runs):
+                if d != want["sha256"]:
+                    mismatches.append(_corpus_mismatch(
+                        s, schema, suite, sql, rows, want,
+                        f"{key} {label}"))
+                    log("CORPUS MISMATCH " + mismatches[-1])
+            if digests[0] != digests[1]:
+                mismatches.append(f"{key}: the two auto runs differ")
+            records[key] = {
+                "rows": len(runs[0][0]), "walls_s": [w for _, w in runs],
+                "launches": launches, "auto": auto_ran,
+                "forced": forced_ran}
+            held = want.get("held_against")
+            if held:
+                records[key]["held_against"] = held
+            log(f"corpus card {key}: {len(runs[0][0])} rows; auto "
+                f"{runs[0][1]:.4f} s, {runs[1][1]:.4f} s; forced "
+                f"{runs[2][1]:.4f} s; launches {launches}; auto ran "
+                f"{auto_ran}; forced ran {forced_ran}"
+                + (f"; held against the {held}" if held else ""))
+
+    # K2 runs only in the chunked driver's adapted runs
+    sql, key = tc.suite_queries("tpch")[CORPUS_CHUNKED], \
+        tc.key("tpch", CORPUS_CHUNKED)
+    session.execute(f"SET SESSION spill_chunk_rows = {CHUNK_ROWS}")
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    try:
+        runs = [_corpus_rows(session, sql), _corpus_rows(session, sql)]
+    finally:
+        recorder.active, recorder.keep = False, True
+        session.execute("SET SESSION spill_chunk_rows = 0")
+    launches = read_counts()
+    for k, v in launches.items():
+        total[k] += v
+    for label, (rows, _) in zip(("chunked 1", "chunked 2"), runs):
+        if tc.summary(sql, rows)["sha256"] != ref["queries"][key]["sha256"]:
+            mismatches.append(_corpus_mismatch(
+                session, TPCH_SCHEMA, "tpch", sql, rows,
+                ref["queries"][key], f"{key} {label}"))
+            log("CORPUS MISMATCH " + mismatches[-1])
+    records[key + " chunked"] = {"rows": len(runs[0][0]),
+                                 "walls_s": [w for _, w in runs],
+                                 "launches": launches}
+    log(f"corpus card {key} chunked ({CHUNK_ROWS} rows a chunk): "
+        f"{runs[0][1]:.4f} s, {runs[1][1]:.4f} s; launches {launches}")
+    log("corpus on the card: " + json.dumps({"queries": records,
+                                              "launches": total}))
+    # the largest joins' blocks back to the card for the later phases'
+    # child processes
+    import torch
+    torch.cuda.empty_cache()
+    require(not mismatches, f"{len(mismatches)} corpus runs differ from "
+            f"the reference: " + " | ".join(mismatches[:5]))
+    missing = [k for k, v in total.items() if v == 0]
+    require(not missing, f"corpus on the card: {missing} never launched")
+    log(f"corpus on the card: {len(records) - 1} queries, 3 runs each, "
+        f"equal the reference's rows; launches {total}")
     return total
 
 
@@ -5869,6 +6047,7 @@ def main() -> int:
                               ds_walls),
              phase_stream_build(recorder, session),
              phase_corpus_paths(recorder, session, tables, ds_session),
+             phase_corpus_card(recorder, session, ds_session),
              phase_write_path(recorder, session),
              phase_memory_pressure(recorder, session, tables),
              phase_http_path(recorder, session, tables),

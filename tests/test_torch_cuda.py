@@ -327,14 +327,35 @@ def sessions():
     return Session(device="cuda"), Session(device="cpu")
 
 
+# the corpus tests' two kernel modes: the session defaults, and every
+# kernel forced on (chip_smoke.py's FORCED)
+KERNEL_MODES = {"auto": {}, "forced": {
+    "enable_pallas_gather": "true", "enable_pallas_hash": "true",
+    "enable_multiway_join": "true", "mxu_agg": "true"}}
+
+
+def _rows_in_mode(session, sql, mode):
+    """`sql`'s rows with KERNEL_MODES[mode] set, the properties restored
+    after (the sessions are shared by the module)."""
+    props = KERNEL_MODES[mode]
+    saved = {k: session.properties[k] for k in props}
+    session.properties.update(props)
+    try:
+        return session.execute(sql).rows
+    finally:
+        session.properties.update(saved)
+
+
+@pytest.mark.parametrize("mode", sorted(KERNEL_MODES))
 @pytest.mark.parametrize("qnum", sorted(_tpch_queries()))
-def test_tpch_on_card_equals_cpu(sessions, qnum):
+def test_tpch_on_card_equals_cpu(sessions, qnum, mode):
     """The 22 TPC-H queries at tpch.tiny (q4, q21 and q22 through the
-    semi and anti joins): the card's rows equal the CPU's (the kernels
+    semi and anti joins), under `auto` and with every kernel forced on:
+    the card's rows equal the CPU's under the same settings (the kernels
     against their plain versions, end to end)."""
     gpu, cpu = sessions
     sql = _tpch_queries()[qnum]
-    assert gpu.execute(sql).rows == cpu.execute(sql).rows
+    assert _rows_in_mode(gpu, sql, mode) == _rows_in_mode(cpu, sql, mode)
 
 
 def _star_slots(rng, dev, k=3, n=300_000, slots=1 << 14):
@@ -621,13 +642,20 @@ def test_chunked_prefetch_pipeline_on_card(qnum):
             "scan-prefetch", 0) == 0
 
 
-@pytest.mark.parametrize("qid", [12, 38, 86])
-def test_tpcds_corpus_on_card_equals_cpu(ds_sessions, qid):
-    """TPC-DS q12 (a window sum), q38 (INTERSECT) and q86 (ROLLUP and
-    rank) at tpcds.tiny: the card's rows equal the CPU's."""
+def _tpcds_queries():
     from tpcds_queries import QUERIES
+    return dict(QUERIES)
+
+
+@pytest.mark.parametrize("mode", sorted(KERNEL_MODES))
+@pytest.mark.parametrize("qid", sorted(_tpcds_queries()))
+def test_tpcds_corpus_on_card_equals_cpu(ds_sessions, qid, mode):
+    """All 99 TPC-DS queries at tpcds.tiny, under `auto` and with every
+    kernel forced on: the card's rows equal the CPU's under the same
+    settings."""
     gpu, cpu = ds_sessions
-    assert gpu.execute(QUERIES[qid]).rows == cpu.execute(QUERIES[qid]).rows
+    sql = _tpcds_queries()[qid]
+    assert _rows_in_mode(gpu, sql, mode) == _rows_in_mode(cpu, sql, mode)
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 257, 100_003, 6_000_000])

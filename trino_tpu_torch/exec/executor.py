@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import json
 import os
 import threading
 import time
@@ -70,6 +71,7 @@ from ..ops.project import apply_filter, filter_project, filter_project_fused
 from ..ops.sort import limit_batch, sort_batch
 from ..planner import logical as L
 from ..planner.fragmenter import _subtree_nodes
+from ..server import serde
 from .profiler import RECORDER
 
 # the reference's sort-shape gates, kept so strategy choices match
@@ -174,6 +176,50 @@ def _is_integer(dtype: torch.dtype) -> bool:
     return not dtype.is_floating_point and not dtype.is_complex
 
 
+class _DigestEncoder(serde._Encoder):
+    """The wire encoder for structure digests: a plan node other than
+    `root` encodes as its own digest, a long tuple of JSON values (a
+    string pool) as the digest of its JSON."""
+
+    def __init__(self, executor, root):
+        super().__init__()
+        self.executor, self.root = executor, root
+
+    def enc(self, obj):
+        if type(obj) is tuple and len(obj) >= 256:
+            # every node's output fields carry their pools
+            pool = self.executor._pool_digest(obj)
+            if pool is not None:
+                return {"$pool": pool}
+        if isinstance(obj, L.PlanNode) and obj is not self.root:
+            return {"$plan": self.executor._structure_digest(obj)}
+        return super().enc(obj)
+
+
+def _in_values(ref: ir.InSubqueryRef, col: np.ndarray,
+               valid: np.ndarray) -> tuple:
+    """(sorted distinct non-NULL values as Python values, whether a NULL
+    came) of an IN subquery's column; varchar codes are mapped into the
+    probe's dictionary, and a string absent from it is dropped (it can
+    never match)."""
+    from ..types import TypeKind as TK
+    valid = valid.astype(np.bool_)
+    if ref.arg.dtype.kind is not TK.VARCHAR and (
+            np.issubdtype(col.dtype, np.integer) or col.dtype == np.bool_):
+        return tuple(np.unique(col[valid]).tolist()), not valid.all()
+    vals = []
+    for v in col[valid]:
+        v = v.item() if hasattr(v, "item") else v
+        if ref.arg.dtype.kind is TK.VARCHAR:
+            s = ref.sub_field.dictionary[int(v)]
+            pool = ref.arg_field.dictionary if ref.arg_field else None
+            if pool is None or s not in pool:
+                continue
+            v = pool.index(s)
+        vals.append(v)
+    return tuple(sorted(set(vals))), not valid.all()
+
+
 class Executor:
     def __init__(self, catalog: Catalog, device):
         self.catalog = catalog
@@ -276,6 +322,7 @@ class Executor:
         self._decision_dirty = False
         self._decision_loaded = False
         self._skey_memo: Dict[int, tuple] = {}
+        self._digest_memo: Dict[int, tuple] = {}
 
     # ------------------------------------------------------------------
 
@@ -397,6 +444,7 @@ class Executor:
         self._subst.clear()
         self._subst_opaque.clear()
         self._skey_memo.clear()
+        self._digest_memo.clear()
         try:
             if self.spill_chunk_rows:
                 from .chunked import execute_chunked
@@ -526,8 +574,37 @@ class Executor:
         if not scans or any(s.catalog not in ("tpch", "tpcds", "bench")
                             for s in scans):
             return None
-        from ..server import serde
-        return hashlib.sha256(serde.dumps(node).encode()).hexdigest()
+        return self._structure_digest(node)
+
+    def _structure_digest(self, node: L.PlanNode) -> str:
+        """SHA-256 of `node`'s wire form (server/serde) with every other
+        plan node in it, child or subquery, replaced by its own digest,
+        memoised for the execution: a subtree is encoded once, not once
+        for each ancestor (a folded IN list of 270,000 literals was
+        encoded 190 times in TPC-DS q14)."""
+        hit = self._digest_memo.get(id(node))
+        if hit is not None:
+            return hit[1]
+        enc = _DigestEncoder(self, node)
+        root = enc.enc(node)
+        digest = hashlib.sha256(json.dumps(
+            {"v": 1, "slots": enc.slots, "root": root}).encode()).hexdigest()
+        # the node is held so that its id is not reused while memoised
+        self._digest_memo[id(node)] = (node, digest)
+        return digest
+
+    def _pool_digest(self, pool: tuple) -> Optional[str]:
+        """SHA-256 of a long tuple's JSON, memoised for the execution;
+        None when it holds other than JSON values."""
+        hit = self._digest_memo.get(id(pool))
+        if hit is None:
+            try:
+                text = json.dumps(pool)
+            except TypeError:
+                text = None
+            hit = (pool, text and hashlib.sha256(text.encode()).hexdigest())
+            self._digest_memo[id(pool)] = hit
+        return hit[1]
 
     def _decision_salt(self) -> tuple:
         """Session knobs that change runtime decision values for the same
@@ -1307,25 +1384,8 @@ class Executor:
         values mapped into the probe's dictionary, Kleene NULL when the
         subquery produced one)."""
         if ref not in self._scalar_cache:
-            batch = self.run(ref.plan)
-            arrays, valids = batch_to_numpy(batch)
-            vals, has_null = [], False
-            arg_t = ref.arg.dtype
-            from ..types import TypeKind as TK
-            for v, ok in zip(arrays[0], valids[0]):
-                if not ok:
-                    has_null = True
-                    continue
-                v = v.item() if hasattr(v, "item") else v
-                if arg_t.kind is TK.VARCHAR:
-                    s = ref.sub_field.dictionary[int(v)]
-                    pool = ref.arg_field.dictionary if ref.arg_field \
-                        else None
-                    if pool is None or s not in pool:
-                        continue            # absent: can never match
-                    v = pool.index(s)
-                vals.append(v)
-            self._scalar_cache[ref] = (tuple(sorted(set(vals))), has_null)
+            arrays, valids = batch_to_numpy(self.run(ref.plan))
+            self._scalar_cache[ref] = _in_values(ref, arrays[0], valids[0])
         vals, has_null = self._scalar_cache[ref]
         folded: ir.Expr = ir.InList(
             ref.arg, tuple(ir.Literal(v, ref.arg.dtype) for v in vals))
@@ -1728,46 +1788,18 @@ class Executor:
     def _partitioned_hash_join(self, node: L.JoinNode, probe: Batch,
                                build: Batch) -> Optional[Batch]:
         """Both sides radix-partition by the splitmix64 hash and each
-        partition joins through the host equi-join (duplicates expand)."""
+        partition joins as the host equi-join does (duplicates expand),
+        on the device (exec/spill.partitioned_equi_join)."""
         from ..ops import hashtable as ht
-        from .spill import _host_equi_join, _partition_ids
-        dev = self.device
-        parrs, pvalids = batch_to_numpy(probe)
-        barrs, bvalids = batch_to_numpy(build)
+        from .spill import partitioned_equi_join
         load_cap = ht.MAX_TABLE_SLOTS * ht.LOAD_NUM // ht.LOAD_DEN
-        want = max(2, -(-len(barrs[0]) // load_cap)) if barrs else 2
+        live = int(build.live.sum()) if build.columns else 0
+        want = max(2, -(-live // load_cap))
         count = 2
         while count < want and count < 256:
             count *= 2
-        part_p = _partition_ids(parrs, pvalids, node.left_keys, count)
-        part_b = _partition_ids(barrs, bvalids, node.right_keys, count)
-        outs: List[list] = []
-        outs_v: List[list] = []
-        for p in range(count):
-            mp = part_p == p
-            mb = part_b == p
-            if not mp.any():
-                continue
-            arrs, vals = _host_equi_join(
-                [a[mp] for a in parrs], [v[mp] for v in pvalids],
-                [a[mb] for a in barrs], [v[mb] for v in bvalids],
-                node.left_keys, node.right_keys, node.kind)
-            if arrs and len(arrs[0]):
-                outs.append(arrs)
-                outs_v.append(vals)
-        if not outs:
-            srcs = list(probe.columns)
-            if node.kind in ("inner", "left"):
-                srcs += list(build.columns)
-            out_arrs = [np.zeros(0, c.data.cpu().numpy().dtype)
-                        for c in srcs]
-            out_valids = [np.zeros(0, np.bool_) for _ in srcs]
-            return batch_from_numpy(out_arrs, valids=out_valids, device=dev)
-        ncols = len(outs[0])
-        return batch_from_numpy(
-            [np.concatenate([o[j] for o in outs]) for j in range(ncols)],
-            valids=[np.concatenate([o[j] for o in outs_v])
-                    for j in range(ncols)], device=dev)
+        return partitioned_equi_join(probe, build, node.left_keys,
+                                     node.right_keys, node.kind, count)
 
     def _chunk_lut_join(self, node: L.JoinNode, probe: Batch,
                         build: Batch, domain: int) -> Optional[Batch]:

@@ -228,6 +228,111 @@ def _partition_ids(arrays, valids, key_idxs, count: int) -> np.ndarray:
     return partition_assignment(arrays, valids, key_idxs, count)
 
 
+def _equality_keys(probe, prow, build, brow, pkeys, bkeys):
+    """(pk, pok, bk, bok): one int64 per selected row of each side whose
+    equality is the key tuple's equality where both rows' keys are valid
+    (`_packed_key`'s contract; no overflow case: a multi-column key is
+    the dense ranks of its columns over both sides, combined pairwise)."""
+    import torch
+
+    def cols(batch, rows, idxs):
+        ok = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+        cs = []
+        for i in idxs:
+            cs.append(batch.columns[i].data[rows].to(torch.int64))
+            ok = ok & batch.columns[i].valid[rows]
+        return cs, ok
+
+    pc, pok = cols(probe, prow, pkeys)
+    bc, bok = cols(build, brow, bkeys)
+    if len(pc) == 1:
+        return pc[0], pok, bc[0], bok
+    key = None
+    for p, b in zip(pc, bc):
+        rank = torch.unique(torch.cat([p, b]), return_inverse=True)[1]
+        key = rank if key is None else torch.unique(
+            key * (1 << 32) + rank, return_inverse=True)[1]
+    n = prow.shape[0]
+    return key[:n], pok, key[n:], bok
+
+
+# output rows a slice of the escape join's expansion writes
+EXPAND_ROWS = 1 << 25
+
+
+def _output_batch(columns, n: int, device):
+    """A zeroed Batch with `columns`' dtypes and `n` live rows, laid out
+    as ``batch_from_numpy`` lays out `n` host rows (capacity
+    ``pad_capacity(n)``, zeros and invalid past `n`); the caller writes
+    rows [0, n)."""
+    import torch
+    from ..batch import Batch, Column, pad_capacity
+    cap = pad_capacity(n)
+    cols = tuple(Column(torch.zeros(cap, dtype=c.data.dtype, device=device),
+                        torch.zeros(cap, dtype=torch.bool, device=device))
+                 for c in columns)
+    return Batch(cols, torch.arange(cap, device=device) < n)
+
+
+def partitioned_equi_join(probe, build, pkeys, bkeys, kind: str,
+                          count: int):
+    """The hybrid hash join's escape path, on the batches' device: both
+    sides' live rows radix-partition by ``partition_ids`` and each
+    partition joins as ``_host_equi_join`` joins it, the partitions'
+    outputs concatenated in partition order. Since equal keys share a
+    partition, that is one join of the probe's live rows stably sorted
+    by partition against all build rows: a probe row's matches are the
+    build rows with its key, in their order. The result is the batch the
+    host path builds from the same rows (`_output_batch`), bit for bit.
+    kind: 'inner' | 'left' | 'semi' | 'anti'."""
+    import torch
+    dev = probe.device
+    prow = torch.nonzero(probe.live).flatten()
+    part = partition_ids(probe, pkeys, count)[prow]
+    prow = prow[torch.sort(part, stable=True).indices]
+    brow = torch.nonzero(build.live).flatten()
+    pk, pok, bk, bok = _equality_keys(probe, prow, build, brow, pkeys,
+                                      bkeys)
+    sorted_keys, order = torch.sort(bk[bok], stable=True)
+    border = brow[bok][order]
+    lo = torch.searchsorted(sorted_keys, pk)
+    counts = torch.where(
+        pok, torch.searchsorted(sorted_keys, pk, right=True) - lo, 0)
+    if kind in ("semi", "anti"):
+        keep = prow[(counts > 0) if kind == "semi" else (counts == 0)]
+        out = _output_batch(probe.columns, keep.shape[0], dev)
+        for c, o in zip(probe.columns, out.columns):
+            o.data[:keep.shape[0]] = c.data[keep]
+            o.valid[:keep.shape[0]] = c.valid[keep]
+        return out
+    out_counts = counts if kind == "inner" else counts.clamp(min=1)
+    ends = torch.cumsum(out_counts, 0)
+    total = int(ends[-1]) if ends.shape[0] else 0
+    out = _output_batch(probe.columns + build.columns, total, dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    # the expansion a slice of output rows at a time: its index vectors
+    # stay small however far the join fans out (all at once ran TPC-DS
+    # q72 out of the card's memory)
+    for s in range(0, total, EXPAND_ROWS):
+        pos = torch.arange(s, min(total, s + EXPAND_ROWS), device=dev)
+        at = torch.searchsorted(ends, pos, right=True)
+        has_match = counts[at] > 0
+        bpos = lo[at] + pos - (ends[at] - out_counts[at])
+        bsrc = border[bpos.clamp(0, border.shape[0] - 1)] \
+            if border.shape[0] else zero.expand(pos.shape[0])
+        psrc = prow[at]
+        rows = slice(s, s + pos.shape[0])
+        for c, o in zip(probe.columns, out.columns):
+            o.data[rows] = c.data[psrc]
+            o.valid[rows] = c.valid[psrc]
+        for c, o in zip(build.columns, out.columns[len(probe.columns):]):
+            o.data[rows] = torch.where(has_match, c.data[bsrc],
+                                       torch.zeros((), dtype=c.data.dtype,
+                                                   device=dev))
+            o.valid[rows] = c.valid[bsrc] & has_match
+    return out
+
+
 def _packed_key(parrs, pvalids, barrs, bvalids, pkeys, bkeys):
     """One int64 key per row for each side (range-compressed multi-key
     packing, shared mins so equality is preserved), plus validity masks.

@@ -671,11 +671,13 @@ def _eval_expr(expr: ir.Expr, batch: Batch):
 
     if isinstance(expr, ir.InList):
         d, v = eval_expr(expr.arg, batch)
-        res = torch.zeros_like(v)
-        for lit in expr.values:
-            res = res | (d == torch.tensor(lit.value, dtype=d.dtype,
-                                           device=dev))
-        return res, v
+        # one membership pass, not a compare per literal: a folded IN
+        # subquery can hold 10^5 literals (CUDA cannot sort bool)
+        values = torch.tensor([lit.value for lit in expr.values],
+                              dtype=d.dtype, device=dev)
+        if d.dtype == torch.bool:
+            d, values = d.to(torch.uint8), values.to(torch.uint8)
+        return torch.isin(d, values), v
 
     if isinstance(expr, ir.Between):
         lowered = ir.Logical('and', (
