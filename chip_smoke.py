@@ -182,7 +182,18 @@ Phases, each failing the run with a non-zero exit:
    time in the utilization rows, the timeline's phases summing to the
    wall with a device phase; and approx_distinct (four statements) and
    TIMESTAMP (tests/torch_time_cases.py: pre-epoch rows, every field and
-   truncation) on the card equal to the port's CPU Session; then the mesh (``phase_mesh_path``, counters
+   truncation) on the card equal to the port's CPU Session; then the
+   seven soaks of ``trino_tpu_torch/soak.py`` at smoke length
+   (``phase_soaks``, counters set to 0 just before the first and read
+   just after the last; each soak brings up its own cluster over
+   ``tpch.tiny`` with every Session and worker on cuda): chaos 10 seeds,
+   write chaos 6, coordinator chaos 5 (one kill a phase), overload with
+   its fixed schedule, memory pressure 20 queries, concurrency 100
+   clients x 1, elastic 20 s; every gate of each record must hold, the
+   elastic soak's per-tenant p99 SLOs included, K1 and K3 must launch,
+   and each soak's line prints its gates, wall, launches and the writes
+   that took the coordinator's local path (Queue C 6); then the mesh
+   (``phase_mesh_path``, counters
    set to 0 just before and read just after): ``SET SESSION distributed
    = true`` on a CUDA Session (the card's default mesh, one shard: q1,
    q6), then a MeshExecutor over ``make_mesh(8, "cuda")`` (eight shards
@@ -4612,6 +4623,140 @@ def phase_fault_tolerance(recorder, main_session, tables):
     return launches
 
 
+# the seven soaks (trino_tpu_torch/soak.py) at smoke length on the
+# card: name -> (function, arguments, the record's gates)
+SOAK_DEVICE = "cuda"
+SOAKS = (
+    ("chaos", "chaos_soak", {"n_seeds": 10},
+     lambda r: {"wrong_answers==0": r["wrong_answers"] == 0,
+                "failed_queries==0": r["failed_queries"] == 0,
+                "injected_total>0": r["injected_total"] > 0}),
+    ("write_chaos", "write_chaos_soak", {"n_seeds": 6},
+     lambda r: {"lost_rows==0": r["lost_rows"] == 0,
+                "dup_rows==0": r["dup_rows"] == 0,
+                "orphans==0": r["orphans"] == 0,
+                "passed": r["passed"]}),
+    ("coordinator_chaos", "coordinator_chaos_soak", {"n_seeds": 5},
+     lambda r: {"wrong_results==0": r["wrong_results"] == 0,
+                "lost_rows==0": r["lost_rows"] == 0,
+                "dup_rows==0": r["dup_rows"] == 0,
+                "client_errors==0": r["client_errors"] == 0,
+                "passed": r["passed"]}),
+    ("overload", "overload_soak", {},
+     lambda r: {"wrong_answers==0": r["wrong_answers"] == 0,
+                "deadline_kills==3": r["deadline_kills"] == 3,
+                "canceled==4": r["canceled"] == 4,
+                "tasks_terminal": r["tasks_terminal"],
+                "pools_drained": r["pools_drained"],
+                "rejected_total>0": r["rejected_total"] > 0,
+                "passed": r["passed"]}),
+    ("memory_pressure", "memory_pressure_soak", {"n_queries": 20},
+     lambda r: {"wrong_answers==0": r["wrong_answers"] == 0,
+                "worker_crashes==0": r["worker_crashes"] == 0,
+                "passed": r["passed"]}),
+    ("concurrency", "concurrency_soak",
+     {"n_clients": 100, "queries_per_client": 1},
+     lambda r: {"wrong_answers==0": r["wrong_answers"] == 0,
+                "failed_queries==0": r["failed_queries"] == 0,
+                "result_cache_hits>0": r["result_cache_hits"] > 0,
+                "plan_cache_hits>0": r["plan_cache_hits"] > 0,
+                "router_host>0": r["router_host"] > 0,
+                "router_device>0": r["router_device"] > 0,
+                "invalidation_proven": r["invalidation_proven"],
+                "passed": r["passed"]}),
+    ("elastic", "elastic_soak", {"duration_s": 20.0},
+     lambda r: {"wrong_answers==0": r["wrong_answers"] == 0,
+                "failed_queries==0": r["failed_queries"] == 0,
+                "orphaned_splits==0": r["orphaned_splits"] == 0,
+                "drain_completed": r["drain_completed"],
+                "drained_node_deregistered":
+                    r["drained_node_deregistered"],
+                "join_received_splits": r["join_received_splits"],
+                "writes_visible": r["writes_visible"],
+                "slo_ok": all(t["slo_ok"] for t in r["tenants"].values()),
+                "fair_share_held": r["fair_share_held"],
+                "passed": r["passed"]}),
+)
+# the numbers beside the gates on each soak's line
+SOAK_FIELDS = ("schedules", "seeds", "queries", "queries_run",
+               "injected_total", "recovery_p50_s", "recovery_p95_s",
+               "failover_to_result_p50_ms", "failover_to_result_p99_ms",
+               "resumed_by_mode", "cancel_terminal_p50_ms",
+               "deadline_overshoot_p50_ms", "spill_bytes", "revocations",
+               "working_set_bytes", "pool_limit_bytes", "throughput_qps",
+               "router_host", "router_device", "task_retries",
+               "hedged_tasks", "splits_migrated", "elapsed_s")
+
+
+def phase_soaks(recorder):
+    """The server tier's seven soaks (trino_tpu_torch/soak.py) on
+    the card at smoke length, each bringing up its own cluster over
+    `tpch.tiny` with every Session and worker on cuda, counters set to 0
+    just before the first and read just after the last; every gate of
+    each record must hold, the elastic soak's per-tenant p99 SLOs
+    included, and K1 and K3 must launch."""
+    import contextlib
+    import io
+    from trino_tpu_torch import soak
+    from trino_tpu_torch.connectors.dirtable import StagedWriteMixin
+    t_phase = time.monotonic()
+    failed, per_soak = [], {}
+    # Queue C 6: a staged write that reaches a connector with no query id
+    # commits under `local_<uuid>` (a resumed write on the coordinator's
+    # local path); counted, not gated
+    local_writes = [0]
+    staged_write = StagedWriteMixin._staged_write
+
+    def counting_write(self, *args, query_id=None, **kwargs):
+        if query_id is None:
+            local_writes[0] += 1
+        return staged_write(self, *args, query_id=query_id, **kwargs)
+
+    StagedWriteMixin._staged_write = counting_write
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    try:
+        for name, fn, kwargs, gates in SOAKS:
+            before = read_counts()
+            local_writes[0] = 0
+            t = time.monotonic()
+            out = io.StringIO()
+            # each soak prints its whole record: keep it off this
+            # script's output, whose JSON lines the contract fixes
+            with contextlib.redirect_stdout(out):
+                rec = getattr(soak, fn)(device=SOAK_DEVICE, **kwargs)
+            wall = time.monotonic() - t
+            after = read_counts()
+            launches = {k: after[k] - before[k] for k in after}
+            held = gates(rec)
+            per_soak[name] = {"wall_s": round(wall, 3),
+                              "launches": launches}
+            line = {"gates": held, "wall_s": round(wall, 3),
+                    "launches": launches,
+                    "local_path_writes": local_writes[0]}
+            line.update({k: rec[k] for k in SOAK_FIELDS if k in rec})
+            if name == "concurrency":
+                line["mixes"] = rec["mixes"]
+            if name == "elastic":
+                line["tenants"] = rec["tenants"]
+                line["busy_fraction_mean"] = \
+                    rec["telemetry"]["busy_fraction_mean"]
+            log(f"soak {name}: " + json.dumps(line, default=str))
+            failed += [f"{name}: {g}" for g, ok in held.items() if not ok]
+            if not all(held.values()):
+                log(f"soak {name} record: " + json.dumps(rec, default=str))
+    finally:
+        recorder.active, recorder.keep = False, True
+        StagedWriteMixin._staged_write = staged_write
+    launches = read_counts()
+    log(f"soaks took {time.monotonic() - t_phase:.1f} s, launches "
+        + json.dumps(launches))
+    require(not failed, f"soak gates failed: {failed}")
+    require(launches["K1"] > 0 and launches["K3"] > 0,
+            f"the soaks launched {launches} ({per_soak})")
+    return launches
+
+
 MESH_SHARDS = 8
 # SELECTIVE and PROBE_ROWS of tests/test_mesh_dynamic_filter.py (that file
 # imports the JAX package, which this script must not load)
@@ -6053,6 +6198,7 @@ def main() -> int:
              phase_http_path(recorder, session, tables),
              phase_cluster_path(recorder, session, tables),
              phase_fault_tolerance(recorder, session, tables),
+             phase_soaks(recorder),
              phase_mesh_path(recorder, session, tables, ds_session),
              phase_introspection(recorder, session, tables, ds_session,
                                  smi, fam_before)]

@@ -932,3 +932,111 @@ def test_standby_resumes_distributed_query_after_primary_tasks(tmp_path):
                 c.stop()
             except Exception:  # noqa: BLE001 — killed servers die twice
                 pass
+
+
+def test_announce_rotates_past_a_refused_coordinator():
+    """A refused connection moves the announce to the next address of
+    the failover list within the same attempt: one attempt against
+    [dead primary, live standby] lands on the standby."""
+    live = CoordinatorServer(Session(default_schema="tiny", device="cpu"),
+                             node_id="live").start()
+    w = WorkerServer("rot-w", "http://127.0.0.1:9",       # nothing there
+                     announce_interval_s=3600, device="cpu")
+    try:
+        w.coordinators = ["http://127.0.0.1:9", live.uri]
+        w.coordinator_uri = "http://127.0.0.1:9"
+        w.announce_once(attempts=1)
+        assert w.coordinator_uri == live.uri
+        assert [n.node_id for n in live.state.active_nodes()] == ["rot-w"]
+        # the rotation fences the orphan reaper like a failed round
+        assert w._reap_fence_until > time.monotonic()
+        # with one address there is nowhere to rotate: the refusal
+        # propagates once the attempts are spent
+        w.coordinators = ["http://127.0.0.1:9"]
+        w.coordinator_uri = "http://127.0.0.1:9"
+        with pytest.raises(OSError):
+            w.announce_once(attempts=1)
+    finally:
+        w.kill()
+        live.state.dispatcher.pool.shutdown(wait=False)
+        live.stop()
+
+
+def test_promotion_waits_for_ledger_workers_past_any_worker_wait(tmp_path):
+    """The race of the test above, made deterministic: the standby
+    holds every worker's re-announce until 2 s after its promotion
+    began (past the 1.5 s wait for any worker). The workers the ledger
+    names are waited for, so the resumed query still runs its tasks on
+    them rather than on the coordinator alone."""
+    from trino_tpu_torch.server.failureinjector import HANG
+    ledger = str(tmp_path / "query.ledger")
+    spool = str(tmp_path / "spool")
+    primary = CoordinatorServer(Session(default_schema="tiny", device="cpu"),
+                                ledger_path=ledger, node_id="c1",
+                                spool_root=spool).start()
+    standby = CoordinatorServer(Session(default_schema="tiny", device="cpu"),
+                                ledger_path=ledger, node_id="c2",
+                                role="standby", peer_uri=primary.uri,
+                                spool_root=spool, standby_interval_s=0.1,
+                                auto_promote=False).start()
+    for c in (primary, standby):
+        c.state.scheduler.split_rows = 8192
+    workers = [WorkerServer(f"hw{i}", primary.uri, announce_interval_s=0.1,
+                            device="cpu").start() for i in (1, 2)]
+    held = {"until": None, "held": 0}
+    real_announce = standby.state.announce
+
+    def held_announce(node_id, uri, state="ACTIVE", *a, **k):
+        until = held["until"]
+        if state != "STANDBY" and (until is None or
+                                   time.monotonic() < until):
+            held["held"] += 1
+            time.sleep(max(0.0, (until or time.monotonic() + 0.05) -
+                           time.monotonic()))
+        return real_announce(node_id, uri, state, *a, **k)
+
+    standby.state.announce = held_announce
+    inj = FailureInjector()
+    try:
+        deadline = time.time() + 10
+        while len(primary.state.active_nodes()) < 2 and \
+                time.time() < deadline:
+            time.sleep(0.02)
+        for w in workers:
+            w.announce_once()
+        client = Client([primary.uri, standby.uri], user="ha",
+                        timeout_s=60)
+        want = [list(x) for x in client.execute(DIST_SQL).rows]
+        assert primary.state.scheduler.stats["tasks"] > 0
+        primary.state.scheduler.spool.clear()
+        primary.state.dispatcher.failure_injector = inj
+        inj.inject("EXECUTION", times=1, fault=HANG, delay_s=120.0,
+                   match_sql="l_returnflag")
+        doc = client._submit(DIST_SQL)
+        deadline = time.time() + 30
+        while time.time() < deadline and not any(
+                q.query_id == doc["id"] and q.state == "RUNNING"
+                for q in primary.state.tracker.all()):
+            time.sleep(0.01)
+        primary.kill()
+        t0 = time.monotonic()
+        held["until"] = t0 + 2.0
+        out = standby.state.promote(reason="admin")
+        assert out["promoted"] and time.monotonic() - t0 >= 2.0
+        assert held["held"] > 0
+        assert {n.node_id for n in standby.state.active_nodes()} == \
+            {"hw1", "hw2"}
+        r = client._drain(doc, [], [], time.time() + 60, client.failovers)
+        assert [list(x) for x in r.rows] == want
+        assert r.query_id == doc["id"]
+        assert standby.state.scheduler.stats["tasks"] > 0
+    finally:
+        for w in workers:
+            w.kill()
+        inj.clear()
+        for c in (primary, standby):
+            try:
+                c.state.dispatcher.pool.shutdown(wait=False)
+                c.stop()
+            except Exception:  # noqa: BLE001 — killed servers die twice
+                pass

@@ -1,9 +1,9 @@
 """The port stands alone: importing trino_tpu_torch and running a query,
 in process, on the port's mesh (MeshExecutor over eight CPU shards, a
-partitioned join) or on a port cluster (coordinator, stage scheduler,
-worker, failure detector, verifier), loads neither jax nor the reference
-package (checked in fresh interpreters), and no module of the port or
-chip_smoke.py imports them."""
+partitioned join), on a port cluster (coordinator, stage scheduler,
+worker, failure detector, verifier) or through a soak, loads
+neither jax nor the reference package (checked in fresh interpreters),
+and no module of the port or chip_smoke.py imports them."""
 
 import ast
 import os
@@ -65,6 +65,19 @@ print("LEAKED", bad)
 """
 
 
+_SOAK_PROBE = """
+import sys
+from trino_tpu_torch import soak
+rec = soak.concurrency_soak(n_clients=4, queries_per_client=1,
+                            device="cpu")
+assert rec["wrong_answers"] == 0 and rec["failed_queries"] == 0, rec
+assert rec["queries"] == 4, rec
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu"))
+print("LEAKED", bad)
+"""
+
+
 def _run_probe(probe):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
@@ -83,10 +96,14 @@ def test_fresh_interpreter_cluster_loads_no_jax_or_reference():
     _run_probe(_CLUSTER_PROBE)
 
 
+def test_fresh_interpreter_soak_loads_no_jax_or_reference():
+    _run_probe(_SOAK_PROBE)
+
+
 def test_cluster_modules_are_checked():
     paths = {os.path.relpath(p, REPO) for p in _port_sources()}
     for m in ("server/tasks.py", "server/worker.py", "server/scheduler.py",
-              "server/failuredetector.py", "verifier.py"):
+              "server/failuredetector.py", "verifier.py", "soak.py"):
         assert os.path.join("trino_tpu_torch", m) in paths
 
 

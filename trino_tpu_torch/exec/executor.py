@@ -244,6 +244,7 @@ class Executor:
         self.spiller = None               # lazy HostSpiller
         self._kill_reason: Optional[str] = None    # low-memory killer
         self._cancel_reason: Optional[str] = None  # request_cancel()
+        self._cancel_tag: Optional[str] = None     # ... for this query
         # bounded-memory chunked executor (exec/chunked.py); None = off
         self.spill_chunk_rows: Optional[int] = None
         # chunked-driver prefetch pipeline depth: how many decoded chunks
@@ -345,10 +346,12 @@ class Executor:
         raises MemoryKilledError (surfaced as QUERY_EXCEEDED_MEMORY)."""
         self._kill_reason = reason
 
-    def request_cancel(self, reason: str) -> None:
+    def request_cancel(self, reason: str, tag: Optional[str] = None) -> None:
         """Cancellation's hook: the next cooperative check point raises
-        QueryTerminatedError."""
+        QueryTerminatedError. `tag` names the query it is meant for (the
+        pool's current tag while that query runs)."""
         self._cancel_reason = reason
+        self._cancel_tag = tag
 
     def check_cancel(self) -> None:
         """Cooperative kill/cancel/deadline check, called between plan
@@ -358,7 +361,12 @@ class Executor:
             from .memory import MemoryKilledError
             raise MemoryKilledError(self._kill_reason)
         if self._cancel_reason is not None:
-            raise QueryTerminatedError(self._cancel_reason)
+            if self._cancel_tag in (None, self.pool._current_tag):
+                raise QueryTerminatedError(self._cancel_reason)
+            # meant for a query that is no longer running here: a
+            # distributed query runs no plan on this executor before its
+            # final stage, so its cancel can land after its attempt ended
+            self._cancel_reason = self._cancel_tag = None
         if self.deadline is not None and time.monotonic() > self.deadline:
             raise QueryDeadlineError("query exceeded query_max_run_time_s")
 

@@ -418,7 +418,7 @@ class Dispatcher:
         if ex is not None and pool is not None and \
                 getattr(pool, "_current_tag", "") == query_id:
             ex.request_cancel(
-                f"query {query_id} terminated ({reason})")
+                f"query {query_id} terminated ({reason})", tag=query_id)
         # fan out best-effort DELETEs to every live remote task — the
         # worker side frees buffers, pool reservations and wakes its
         # backpressure waiters
@@ -928,27 +928,24 @@ class CoordinatorState:
     def promote(self, reason: str = "admin",
                 wait_workers_s: float = 1.5) -> dict:
         """Standby -> primary: claim the ledger epoch (fencing every
-        previous holder), wait briefly for workers to re-announce,
-        reconcile ledger state against live task inventories, sweep
-        orphaned spool/staging artifacts, then resume every
-        non-terminal query and start accepting traffic."""
+        previous holder), wait for workers to re-announce, reconcile
+        ledger state against live task inventories, sweep orphaned
+        spool/staging artifacts, then resume every non-terminal query
+        and start accepting traffic."""
         from ..metrics import COORDINATOR_FAILOVERS
         with self._promote_lock:
             if self.role == "PRIMARY":
                 return {"role": self.role, "promoted": False}
             self.role = "RECONCILING"
             epoch = 0
-            if self.ledger is not None:
-                epoch = self.ledger.claim_epoch()
-            # workers re-announce to the standby address they learned
-            # from announce responses; give the first wave a moment so
-            # resumed queries can go distributed / re-attach
-            deadline = time.monotonic() + wait_workers_s
-            while not self.active_nodes() and \
-                    time.monotonic() < deadline:
-                time.sleep(0.02)
             view = None
             if self.ledger is not None:
+                epoch = self.ledger.claim_epoch()
+                view, _ = self.ledger.replay()
+            self._wait_for_workers(view, wait_workers_s)
+            if self.ledger is not None:
+                # again: the fenced primary may have appended until its
+                # next epoch check
                 view, _ = self.ledger.replay()
                 self._sweep_orphans(view)
             self.memory_manager.on_promotion()
@@ -958,6 +955,45 @@ class CoordinatorState:
             COORDINATOR_FAILOVERS.inc()
             return {"role": "PRIMARY", "promoted": True, "epoch": epoch,
                     "reason": reason}
+
+    # a promotion's wait for the workers its ledger names, and for the
+    # rest of them once one is back (a named worker that died with the
+    # primary never returns)
+    NAMED_WORKERS_WAIT_S = 5.0
+    NAMED_WORKERS_SETTLE_S = 0.5
+
+    def _wait_for_workers(self, view, wait_s: float) -> None:
+        """Hold the promotion until workers have re-announced here, so
+        resumed queries go distributed and re-attach. With no worker
+        named in the ledger, the first active node ends the wait (at
+        most `wait_s`). When the ledger names workers, all of them back
+        ends it, or NAMED_WORKERS_SETTLE_S after the first, or
+        NAMED_WORKERS_WAIT_S. A worker re-announces here only after its
+        announce to the dead primary fails, which may take longer than
+        `wait_s` under load."""
+        named = set()
+        if view is not None:
+            for q in view.queries.values():
+                for a in q["assigned"].values():
+                    if a.get("node"):
+                        named.add(a["node"])
+        deadline = time.monotonic() + (self.NAMED_WORKERS_WAIT_S if named
+                                       else wait_s)
+        settle_until = None
+        while True:
+            now = time.monotonic()
+            active = {n.node_id for n in self.active_nodes()}
+            back = (active & named) if named else active
+            if back:
+                if back >= named:
+                    return
+                if settle_until is None:
+                    settle_until = now + self.NAMED_WORKERS_SETTLE_S
+                elif now >= settle_until:
+                    return
+            if now >= deadline:
+                return
+            time.sleep(0.02)
 
     def _replay_ledger(self, view=None) -> int:
         """Fold the ledger into live coordinator state: catalog version,

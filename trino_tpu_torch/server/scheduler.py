@@ -1417,7 +1417,12 @@ class StageScheduler:
                 if isinstance(e, PageIntegrityError):
                     self.stats["checksum_failures"] += 1
                 task.cancel()
-                self._mark_failed(node.node_id, e)
+                # a drain cut short by the query's own deadline (or a
+                # query already terminal) says nothing of the node: it
+                # stays schedulable for the next query
+                if not (self._query_dead() or
+                        (qd is not None and time.time() >= qd)):
+                    self._mark_failed(node.node_id, e)
                 with lock:
                     unit.failed_nodes.add(node.node_id)
                     unit.live -= 1

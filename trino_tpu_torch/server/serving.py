@@ -140,12 +140,14 @@ class PlanCache:
         self._entries: "OrderedDict[tuple, PlanEntry]" = OrderedDict()
         self._bytes = 0
 
-    def get(self, key: tuple) -> Optional[PlanEntry]:
+    def get(self, key: tuple, count_miss: bool = True
+            ) -> Optional[PlanEntry]:
         from ..metrics import PLAN_CACHE_HITS, PLAN_CACHE_MISSES
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
-                PLAN_CACHE_MISSES.inc()
+                if count_miss:
+                    PLAN_CACHE_MISSES.inc()
                 return None
             self._entries.move_to_end(key)
             entry.hits += 1
@@ -528,6 +530,12 @@ class ServingLayer:
             if entry is not None:
                 return entry
         with self.plan_lock:
+            if enabled:
+                # a concurrent planner of the same statement may have
+                # put it while this one waited for the lock
+                entry = self.plan_cache.get(key, count_miss=False)
+                if entry is not None:
+                    return entry
             stmt = parse(sql)
             if not isinstance(stmt, (A.Query, A.SetOp, A.Values)):
                 self._remember_bypass(fp)

@@ -31,6 +31,14 @@ from .routes import STAR, dispatch, register_routes
 
 SERVER_NAME = "worker"
 
+
+def _refused(e: OSError) -> bool:
+    """Did nothing listen at the address? urlopen wraps the socket's
+    ConnectionRefusedError in a URLError's `reason`."""
+    return isinstance(e, ConnectionRefusedError) or \
+        isinstance(getattr(e, "reason", None), ConnectionRefusedError)
+
+
 # (METHOD, pattern, handler method, needs_auth) — see server/routes.py.
 # The task/exchange data plane is cluster-internal: with
 # TRINO_TPU_INTERNAL_SECRET set, callers without the shared-secret
@@ -474,14 +482,34 @@ class WorkerServer:
                 # the memory manager's staleness window
                 doc["memory"] = self.task_manager.memory_info()
             body = json.dumps(doc).encode()
-            req = Request(f"{self.coordinator_uri}/v1/announce", data=body,
-                          headers={"Content-Type": "application/json",
-                                   **internal_headers()})
-            with urlopen(req, timeout=5) as r:
+            # a refused connection means nothing listens at that address
+            # any more (a killed primary): try the next address of the
+            # failover list at once instead of spending the retries on
+            # it, so a promoting standby sees this worker within one
+            # announce round
+            for _ in range(max(1, len(self.coordinators))):
+                uri = self.coordinator_uri
+                req = Request(f"{uri}/v1/announce", data=body,
+                              headers={"Content-Type": "application/json",
+                                       **internal_headers()})
                 try:
-                    resp = json.loads(r.read().decode())
-                except ValueError:
-                    resp = {}
+                    with urlopen(req, timeout=5) as r:
+                        try:
+                            resp = json.loads(r.read().decode())
+                        except ValueError:
+                            resp = {}
+                    break
+                except OSError as e:
+                    if not _refused(e):
+                        raise
+                    self._reap_fence_until = \
+                        time.monotonic() + self.reap_fence_s
+                    self._rotate_coordinator()
+                    if self.coordinator_uri == uri:
+                        raise
+            else:
+                raise ConnectionRefusedError(
+                    "every coordinator address refused the announce")
             self._adopt_coordinators(resp.get("coordinators"))
             self._last_announce_role = resp.get("role", "PRIMARY")
 
