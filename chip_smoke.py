@@ -3925,6 +3925,12 @@ FT_CTAS_SQL = ("CREATE TABLE orc.out.customer_ft AS SELECT c_custkey, "
                "c_name, c_nationkey, c_acctbal, c_mktsegment FROM customer")
 FT_CTAS_COLUMNS = ("c_custkey", "c_name", "c_nationkey", "c_acctbal",
                    "c_mktsegment")
+FT_INSERT_SQL = ("INSERT INTO orc.out.customer_ft SELECT c_custkey, c_name, "
+                 "c_nationkey, c_acctbal, c_mktsegment FROM customer")
+# the coordinator-chaos soak's WRITE_COMMIT seeds (4: detector promotion,
+# 9: admin promotion) with every coordinator at split_rows 4096
+FT_FENCE_SEEDS = (4, 9)
+FT_FENCE_SPLIT_ROWS = 4096
 
 
 def _allocated() -> int:
@@ -4308,23 +4314,195 @@ def _ft_failover(record, conn, tables, expected, tmp):
                     f"after the failover: orc.out.customer_ft.{name} "
                     f"differs from customer")
         tq = standby.state.tracker.get(r.query_id)
-        # a resumed write that found no worker yet runs on the standby
-        # itself, whose local commit is not keyed by the query id
-        # (ROADMAP Queue C): recorded, not required
+        # the standby's commit, distributed or on its own path, is keyed
+        # by the query id (ROADMAP Queue C 6)
+        committed = wp.published_rows_for(table_dir, r.query_id)
+        require(committed == n, f"CTAS across the failover: {committed} "
+                f"rows published under {r.query_id}, customer has {n}")
+        parts = wp.list_parts(table_dir)
+        # the dead primary's thread, released from its hang, goes on into
+        # its commit: the fence refuses the commit and the abort, and the
+        # standby's table stays as it is (Queue C 7)
+        dead = [q for q in primary.state.tracker.all()
+                if q.query_id == r.query_id]
+        inj.release_hangs()
+        _wait_for(lambda: all(q.state_machine.is_done() for q in dead),
+                  "the dead primary's CTAS to end", timeout_s=60)
+        refusals = [(f["op"], f["why"])
+                    for f in primary.state.ledger.fence_refusals]
+        require(dead and all(q.state == "FAILED" and "fenced" in (
+            q.state_machine.error or "") for q in dead),
+            f"the dead primary's CTAS: "
+            f"{[(q.state, q.state_machine.error) for q in dead]}")
+        require(("commit", "sealed") in refusals and
+                ("abort", "sealed") in refusals,
+                f"the dead primary's fence refusals: {refusals}")
+        require(wp.list_parts(table_dir) == parts and
+                wp.published_rows_for(table_dir, r.query_id) == n,
+                "the dead primary's commit changed the table")
         record["kill_write_commit"] = {
             "query_id": r.query_id, "status": status,
             "resumed": getattr(tq, "resumed", None),
             "standby_tasks": standby.state.scheduler.stats["tasks"],
-            "committed_under_query_id":
-                wp.published_rows_for(table_dir, r.query_id) == n,
+            "committed_under_query_id": committed == n,
+            "dead_primary_refusals": refusals,
             "failovers": r.failovers, "kill_to_result_s": after_kill_s,
-            "parts": len(wp.list_parts(table_dir))}
+            "parts": len(parts)}
         log("fault tolerance failover, CTAS killed at WRITE_COMMIT: "
             "customer exactly once; " +
             json.dumps(record["kill_write_commit"]))
     finally:
         down(primary, standby, workers)
         inj.clear()
+
+    # the same CTAS resumed a second time: a third coordinator boots on
+    # the ledger without its terminal records
+    record["ctas_resumed_again"] = _ft_resume_again(
+        conn, orc_root, os.path.join(tmp, "fo2.ledger"), r.query_id,
+        "customer_ft", n, n)
+    log("fault tolerance failover, CTAS resumed again: "
+        + json.dumps(record["ctas_resumed_again"]))
+
+    # a local INSERT on a coordinator with no workers (the path Queue
+    # C 6 broke), then resumed twice the same way
+    ledger = os.path.join(tmp, "fo3.ledger")
+    coord = CoordinatorServer(
+        Session(_ft_catalog(conn, orc_root), default_schema=TPCH_SCHEMA),
+        max_concurrency=8, ledger_path=ledger, node_id="fo3-c").start()
+    try:
+        t0 = time.monotonic()
+        r = Client(coord.uri, user="ft", timeout_s=300).execute(
+            FT_INSERT_SQL)
+        wall = time.monotonic() - t0
+        require(r.rows == [[n]], f"local INSERT: {r.rows}")
+        info = Client(coord.uri, user="ft").query_info(r.query_id)
+        require(info.get("fallbackReason") == "no active workers",
+                f"local INSERT ran {info.get('fallbackReason')!r}")
+        committed = wp.published_rows_for(table_dir, r.query_id)
+        require(committed == n, f"local INSERT: {committed} rows "
+                f"published under {r.query_id}")
+    finally:
+        coord.kill()
+        coord.state.dispatcher.pool.shutdown(wait=False)
+    out = {"query_id": r.query_id, "wall_s": wall}
+    for k in ("first", "second"):
+        out[k] = _ft_resume_again(conn, orc_root, ledger, r.query_id,
+                                  "customer_ft", n, 2 * n)
+    record["local_insert_resumed"] = out
+    log("fault tolerance failover, local INSERT resumed twice: "
+        + json.dumps(out))
+
+
+def _ft_resume_again(conn, orc_root, ledger, qid, table, rows, total):
+    """Resume the write `qid` once more: the ledger rewritten without its
+    terminal records and a coordinator booted on it (the crash between a
+    commit and its terminal record). The resumption must find the commit
+    under `qid`, return `rows`, and leave the parts as they were and the
+    table at `total` rows."""
+    from trino_tpu_torch.connectors.orcdir import OrcConnector
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.server import writeprotocol as wp
+    from trino_tpu_torch.server.coordinator import CoordinatorServer
+    table_dir = os.path.join(orc_root, "out", table)
+    parts = wp.list_parts(table_dir)
+    records, _ = wp.replay_journal(ledger)
+    with open(ledger, "wb") as f:
+        for rec in records:
+            if rec.get("rec") != "terminal":
+                f.write(wp._frame(rec))
+    os.unlink(ledger + ".epoch")
+    t0 = time.monotonic()
+    coord = CoordinatorServer(
+        Session(_ft_catalog(conn, orc_root), default_schema=TPCH_SCHEMA),
+        ledger_path=ledger, node_id=f"resume-{time.monotonic_ns()}")
+    try:
+        tq = coord.state.tracker.get(qid)
+        require(tq is not None and tq.resumed, f"{qid} was not resumed")
+        _wait_for(lambda: tq.state_machine.is_done(),
+                  f"the resumed {qid} to end", timeout_s=120)
+        boot_to_rows_s = time.monotonic() - t0
+        require(tq.state == "FINISHED", f"resumed {qid}: {tq.state} "
+                f"{tq.state_machine.error}")
+        require([tuple(x) for x in tq.result.rows] == [(rows,)],
+                f"resumed {qid} returned {tq.result.rows}")
+        require(wp.list_parts(table_dir) == parts,
+                f"resumed {qid} changed the parts of {table}")
+        require(wp.published_rows_for(table_dir, qid) == rows,
+                f"resumed {qid}: published rows changed")
+        got = OrcConnector(orc_root).get_table("out", table).num_rows
+        require(got == total, f"after resuming {qid}: {table} has {got} "
+                f"rows, {total} expected")
+    finally:
+        coord.kill()
+        coord.state.dispatcher.pool.shutdown(wait=False)
+    return {"resumed": tq.resumed, "boot_to_rows_s": boot_to_rows_s,
+            "parts": len(parts)}
+
+
+class _LocalPathWrites:
+    """Counts the staged writes a coordinator's dispatch thread commits
+    with no query id (`local_<uuid>`, ROADMAP Queue C 6) while active."""
+
+    def __enter__(self):
+        from trino_tpu_torch.server import writeprotocol as wp
+        self.ids, self._wp, self._commit = [], wp, wp.commit
+
+        def counting(table_dir, query_id, *args, **kwargs):
+            if query_id.startswith("local_") and threading.current_thread(
+                    ).name.startswith("dispatch"):
+                self.ids.append(query_id)
+            return self._commit(table_dir, query_id, *args, **kwargs)
+
+        wp.commit = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._wp.commit = self._commit
+
+
+def _ft_write_fence(record):
+    """(f) Queue C 7's configuration: the coordinator-chaos soak's
+    WRITE_COMMIT seeds with both coordinators' sessions at split_rows
+    4096, so the standby's resumed CTAS of orders goes distributed while
+    the killed primary's dispatch thread runs on (its CRASH at
+    WRITE_COMMIT injected). Its fence refusals are printed; no client
+    error, no lost or duplicate row, the table published under the
+    client's query id, and no local-path write."""
+    from trino_tpu_torch import soak
+    from trino_tpu_torch.exec.session import SESSION_PROPERTY_DEFAULTS
+    saved = SESSION_PROPERTY_DEFAULTS["split_rows"]
+    SESSION_PROPERTY_DEFAULTS["split_rows"] = (FT_FENCE_SPLIT_ROWS, int)
+    out = {}
+    try:
+        for seed in FT_FENCE_SEEDS:
+            with _LocalPathWrites() as local:
+                one = soak.coordinator_chaos_seed(seed, device=SOAK_DEVICE)
+            line = {"phase": one["phase"],
+                    "promotion": "admin" if one["admin_promotions"]
+                    else "detector",
+                    "client_error": one["client_error"],
+                    "error": one.get("error"),
+                    "kill_to_rows_s": None if one["failover_ms"] is None
+                    else one["failover_ms"] / 1000,
+                    "resumed": one["resumed"],
+                    "lost_rows": one["lost_rows"],
+                    "dup_rows": one["dup_rows"],
+                    "committed_rows": one["committed_rows"],
+                    "local_path_writes": len(local.ids),
+                    "dead_primary_refusals": [
+                        (f["op"], f["why"], f["target"])
+                        for f in one["fence_refusals"]]}
+            out[seed] = line
+            log(f"fault tolerance write fence, seed {seed}: "
+                + json.dumps(line))
+            require(one["phase"] == "WRITE_COMMIT" and
+                    not one["client_error"] and one["lost_rows"] == 0 and
+                    one["dup_rows"] == 0 and
+                    one["committed_rows"] == 15000 and not local.ids,
+                    f"write fence seed {seed}: {line}")
+    finally:
+        SESSION_PROPERTY_DEFAULTS["split_rows"] = saved
+    record["write_fence"] = out
 
 
 def _ft_resource_groups(record, coord, expected):
@@ -4543,7 +4721,10 @@ def phase_fault_tolerance(recorder, main_session, tables):
     on a coordinator and three workers, (b) coordinator failover with a
     killed query and a write killed at its commit, (c) resource groups
     over HTTP, (d) live stats and the timeline, (e) approx_distinct and
-    TIMESTAMP against the port's CPU Session."""
+    TIMESTAMP against the port's CPU Session, (f) exactly-once writes
+    across failover: the CTAS and a local INSERT resumed a second time,
+    and the write fence under the coordinator-chaos soak's WRITE_COMMIT
+    seeds with a distributed standby."""
     import shutil
     import tempfile
     from trino_tpu_torch.exec.session import Session
@@ -4591,6 +4772,7 @@ def phase_fault_tolerance(recorder, main_session, tables):
                                             expected)),
                 ("failover", lambda: _ft_failover(record, conn, tables,
                                                   expected, tmp)),
+                ("write_fence", lambda: _ft_write_fence(record)),
                 ("resource_groups", lambda: _ft_resource_groups(
                     record, coord, expected)),
                 ("live_timeline", lambda: _ft_live_and_timeline(
@@ -4698,42 +4880,32 @@ def phase_soaks(recorder):
     import contextlib
     import io
     from trino_tpu_torch import soak
-    from trino_tpu_torch.connectors.dirtable import StagedWriteMixin
     t_phase = time.monotonic()
     failed, per_soak = [], {}
-    # Queue C 6: a staged write that reaches a connector with no query id
-    # commits under `local_<uuid>` (a resumed write on the coordinator's
-    # local path); counted, not gated
-    local_writes = [0]
-    staged_write = StagedWriteMixin._staged_write
-
-    def counting_write(self, *args, query_id=None, **kwargs):
-        if query_id is None:
-            local_writes[0] += 1
-        return staged_write(self, *args, query_id=query_id, **kwargs)
-
-    StagedWriteMixin._staged_write = counting_write
     reset_counts()
     recorder.active, recorder.keep = True, False
     try:
         for name, fn, kwargs, gates in SOAKS:
             before = read_counts()
-            local_writes[0] = 0
             t = time.monotonic()
             out = io.StringIO()
             # each soak prints its whole record: keep it off this
-            # script's output, whose JSON lines the contract fixes
-            with contextlib.redirect_stdout(out):
+            # script's output, whose JSON lines the contract fixes;
+            # Queue C 6: a coordinator's write commits under its query id
+            with contextlib.redirect_stdout(out), \
+                    _LocalPathWrites() as local:
                 rec = getattr(soak, fn)(device=SOAK_DEVICE, **kwargs)
             wall = time.monotonic() - t
             after = read_counts()
             launches = {k: after[k] - before[k] for k in after}
             held = gates(rec)
+            if name == "coordinator_chaos":
+                held["local_path_writes==0"] = not local.ids
             per_soak[name] = {"wall_s": round(wall, 3),
                               "launches": launches}
             line = {"gates": held, "wall_s": round(wall, 3),
                     "launches": launches,
-                    "local_path_writes": local_writes[0]}
+                    "local_path_writes": len(local.ids)}
             line.update({k: rec[k] for k in SOAK_FIELDS if k in rec})
             if name == "concurrency":
                 line["mixes"] = rec["mixes"]
@@ -4747,7 +4919,6 @@ def phase_soaks(recorder):
                 log(f"soak {name} record: " + json.dumps(rec, default=str))
     finally:
         recorder.active, recorder.keep = False, True
-        StagedWriteMixin._staged_write = staged_write
     launches = read_counts()
     log(f"soaks took {time.monotonic() - t_phase:.1f} s, launches "
         + json.dumps(launches))

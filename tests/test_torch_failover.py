@@ -1040,3 +1040,367 @@ def test_promotion_waits_for_ledger_workers_past_any_worker_wait(tmp_path):
                 c.stop()
             except Exception:  # noqa: BLE001 — killed servers die twice
                 pass
+
+
+# ---------------------------------------------------------------------------
+# exactly-once writes across failover: a coordinator's local write commits
+# under its query id, and a fenced coordinator leaves shared storage alone
+# ---------------------------------------------------------------------------
+
+WRITE_SRC = ("SELECT o_orderkey, o_custkey, o_orderstatus, o_totalprice "
+             "FROM tpch.tiny.orders")
+SETUP_KEYS = "o_orderkey < 1000"
+
+
+def _orc_session(root):
+    s = Session(default_schema="tiny", device="cpu")
+    s.catalog.register("orc", OrcConnector(root))
+    return s
+
+
+def _forget_terminal(path):
+    """The crash between a write's commit and its ledger terminal
+    record: the ledger without its terminal records, its epoch file gone
+    so the next coordinator boots as the primary and resumes."""
+    records, _ = wp.replay_journal(path)
+    with open(path, "wb") as f:
+        for rec in records:
+            if rec.get("rec") != "terminal":
+                f.write(wp._frame(rec))
+    os.unlink(path + ".epoch")
+
+
+def _wait_done(tq, timeout_s=60):
+    deadline = time.time() + timeout_s
+    while not tq.state_machine.is_done() and time.time() < deadline:
+        time.sleep(0.02)
+
+
+def _canonical(rows):
+    return sorted(tuple(str(v) for v in r) for r in rows)
+
+
+@pytest.mark.parametrize("kind", ["ctas", "insert"])
+def test_local_write_resumed_twice_is_exactly_once(tmp_path, kind):
+    """The local-path twin of test_resumed_committed_write_is_exactly_once:
+    a coordinator with no workers runs a CTAS (or an INSERT into a table
+    a plain Session made) on its own path, which commits under the
+    tracked query's id. The query is then resumed twice from a ledger
+    without its terminal record: each resumption finds the commit,
+    returns its row count, writes nothing and raises nothing. The table
+    holds the JAX Session's rows of its sources, as a multiset."""
+    from trino_tpu.exec.session import Session as JaxSession
+    root = str(tmp_path / "orc")
+    os.makedirs(os.path.join(root, "out"))
+    path = str(tmp_path / "q.ledger")
+    table_dir = os.path.join(root, "out", "t1")
+    sources = [WRITE_SRC]
+    if kind == "ctas":
+        sql = f"CREATE TABLE orc.out.t1 AS {WRITE_SRC}"
+    else:
+        setup_src = f"{WRITE_SRC} WHERE {SETUP_KEYS}"
+        # a plain Session (no coordinator) still writes as local_<uuid>
+        _orc_session(root).execute(f"CREATE TABLE orc.out.t1 AS {setup_src}")
+        sql = f"INSERT INTO orc.out.t1 {WRITE_SRC}"
+        sources.append(setup_src)
+    want = _canonical(r for src in sources
+                      for r in JaxSession(default_schema="tiny")
+                      .execute(src).rows)
+
+    first = CoordinatorServer(_orc_session(root), ledger_path=path,
+                              node_id="c1").start()
+    try:
+        tq = first.state.dispatcher.submit(sql, "alice")
+        _wait_done(tq)
+        assert tq.state == "FINISHED", tq.state_machine.error
+        assert tq.fallback_reason == "no active workers"
+        qid = tq.query_id
+        assert wp.published_rows_for(table_dir, qid) == 15000
+        parts_before = wp.list_parts(table_dir)
+    finally:
+        first.kill()
+        first.state.dispatcher.pool.shutdown(wait=False)
+
+    for node in ("c2", "c3"):
+        _forget_terminal(path)
+        coord = CoordinatorServer(_orc_session(root), ledger_path=path,
+                                  node_id=node)
+        try:
+            tq2 = coord.state.tracker.get(qid)
+            assert tq2 is not None and tq2.resumed == "reexecuted"
+            _wait_done(tq2)
+            assert tq2.state == "FINISHED", tq2.state_machine.error
+            assert [tuple(r) for r in tq2.result.rows] == [(15000,)]
+            assert wp.list_parts(table_dir) == parts_before
+            assert wp.published_rows_for(table_dir, qid) == 15000
+            got = coord.state.session.execute(
+                "SELECT o_orderkey, o_custkey, o_orderstatus, o_totalprice "
+                "FROM orc.out.t1").rows
+            assert _canonical(got) == want
+        finally:
+            coord.kill()
+            coord.state.dispatcher.pool.shutdown(wait=False)
+
+
+def test_plain_session_write_keeps_a_local_id(tmp_path, monkeypatch):
+    """Outside a coordinator's run the connector still mints
+    `local_<uuid>`, one id per statement."""
+    root = str(tmp_path / "orc")
+    os.makedirs(os.path.join(root, "out"))
+    s = _orc_session(root)
+    seen = []
+    real = wp.commit
+
+    def spy(table_dir, query_id, *a, **k):
+        seen.append(query_id)
+        return real(table_dir, query_id, *a, **k)
+
+    monkeypatch.setattr(wp, "commit", spy)
+    s.execute(f"CREATE TABLE orc.out.t1 AS {WRITE_SRC}")
+    s.execute(f"INSERT INTO orc.out.t1 {WRITE_SRC}")
+    assert len(seen) == 2 and all(q.startswith("local_") for q in seen)
+    assert len(set(seen)) == 2
+
+
+def test_one_query_id_stages_one_write(tmp_path):
+    """commit is idempotent per query id, so a second staged write in
+    one coordinator run raises rather than being deduplicated away."""
+    root = str(tmp_path / "orc")
+    os.makedirs(os.path.join(root, "out"))
+    conn = OrcConnector(root)
+    data = _nation()
+    with wp.coordinator_write("q_one"):
+        conn.create_table("out", "a", data)
+        with pytest.raises(RuntimeError, match="already staged a write"):
+            conn.create_table("out", "b", data)
+    assert wp.published_rows_for(conn._table_dir("out", "a"), "q_one") == 25
+    assert not conn.table_exists("out", "b")
+
+
+QID = "20260101_000000_00007_tpu"
+
+
+def _nation():
+    return Session(default_schema="tiny", device="cpu").catalog \
+        .connector("tpch").get_table("tiny", "nation")
+
+
+def _tree(d):
+    """Every file under `d` with its bytes."""
+    out = {}
+    for dirpath, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(dirpath, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, d)] = fh.read()
+    return out
+
+
+@pytest.mark.parametrize("op", ["abort", "recover", "commit"])
+@pytest.mark.parametrize("how", ["sealed", "deposed"])
+def test_fenced_coordinator_leaves_standby_staging(tmp_path, how, op):
+    """The old primary's ledger is sealed (its process died), or another
+    node claimed the epoch: its abort, recovery and commit of a query id
+    raise WriteFencedError and leave the directory byte for byte as it
+    was, the promoted standby's staged attempt of the same id included.
+    The standby then commits that attempt."""
+    path = str(tmp_path / "q.ledger")
+    table_dir = str(tmp_path / "orc" / "out" / "t1")
+    os.makedirs(table_dir)
+    old = QueryLedger(path, node_id="p")
+    old.claim_epoch()
+    new = QueryLedger(path, node_id="s")
+    data = _nation()
+    mine = wp.stage_table_data(table_dir, data, QID, stage=1, partition=0,
+                               attempt="t1", fmt="orc")
+    theirs = wp.stage_table_data(table_dir, data, QID, stage=1,
+                                 partition=0, attempt="t7", fmt="orc")
+    if how == "sealed":
+        old.seal()
+    else:
+        new.claim_epoch()
+    before = _tree(table_dir)
+    with pytest.raises(wp.WriteFencedError, match=how):
+        if op == "abort":
+            wp.abort(table_dir, QID, fence=old)
+        elif op == "recover":
+            wp.recover_table_dir(table_dir, fence=old, query_id=QID)
+        else:
+            wp.commit(table_dir, QID, [mine], fence=old)
+    assert _tree(table_dir) == before
+    assert [r["op"] for r in old.fence_refusals] == [op]
+    if how == "sealed":
+        new.claim_epoch()
+    stats = wp.commit(table_dir, QID, [theirs], fence=new)
+    assert stats["published"] == 1 and stats["rows"] == 25
+    assert wp.published_rows_for(table_dir, QID) == 25
+    assert len(wp.list_parts(table_dir)) == 1
+    assert not os.path.exists(wp.staging_dir(table_dir))
+    assert new.fence_refusals == []
+
+
+@pytest.mark.parametrize("fenced", [False, True])
+def test_stale_and_live_committer_publish_one_part_set(tmp_path, fenced,
+                                                      monkeypatch):
+    """Two committers of one query id on threads. The stale one passes
+    its checks and stops before its INTENT append; meanwhile the live
+    one (with fences: after claiming the epoch, which deposes the stale
+    one) commits its own attempt. The table lock makes the live commit
+    wait, find the stale one's parts and dedup: exactly one part set is
+    published, and neither committer fails."""
+    path = str(tmp_path / "q.ledger")
+    table_dir = str(tmp_path / "orc" / "out" / "t1")
+    os.makedirs(table_dir)
+    old = new = None
+    if fenced:
+        old = QueryLedger(path, node_id="p")
+        old.claim_epoch()
+        new = QueryLedger(path, node_id="s")
+    data = _nation()
+    mine = wp.stage_table_data(table_dir, data, QID, stage=1, partition=0,
+                               attempt="t1", fmt="orc")
+    theirs = wp.stage_table_data(table_dir, data, QID, stage=1,
+                                 partition=0, attempt="t7", fmt="orc")
+    at_intent, go = threading.Event(), threading.Event()
+    real_append = wp.append_journal
+
+    def gated(jpath, rec, injector=None, key=""):
+        if rec.get("rec") == "intent" and \
+                threading.current_thread().name == "stale-committer":
+            at_intent.set()
+            go.wait(10)
+        return real_append(jpath, rec, injector=injector, key=key)
+
+    out = {}
+
+    def run(name, m, fence):
+        kw = {"fence": fence} if fenced else {}
+        try:
+            out[name] = wp.commit(table_dir, QID, [m], **kw)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            out[name] = e
+
+    monkeypatch.setattr(wp, "append_journal", gated)
+    stale = threading.Thread(target=run, args=("stale", mine, old),
+                             name="stale-committer")
+    stale.start()
+    assert at_intent.wait(10)
+    if fenced:
+        new.claim_epoch()
+    live = threading.Thread(target=run, args=("live", theirs, new))
+    live.start()
+    live.join(1.0)               # unlocked, the live commit ends here
+    go.set()
+    stale.join(10)
+    live.join(10)
+    assert isinstance(out["stale"], dict), out["stale"]
+    assert isinstance(out["live"], dict), out["live"]
+    assert out["stale"]["published"] == 1
+    assert out["live"]["published"] == 0 and out["live"]["rows"] == 25
+    assert wp.published_rows_for(table_dir, QID) == 25
+    assert len(wp.list_parts(table_dir)) == 1
+    assert sorted(os.listdir(table_dir)) == wp.list_parts(table_dir)
+    conn = OrcConnector(str(tmp_path / "orc"))
+    assert conn.get_table("out", "t1").num_rows == 25
+
+
+@pytest.mark.parametrize("stmt", ["ctas", "insert", "drop"])
+def test_fenced_local_path_changes_nothing(tmp_path, stmt):
+    """A killed coordinator's local path is fenced too: its CTAS,
+    INSERT or DROP TABLE inside its run raises WriteFencedError and the
+    schema directory stays as it was."""
+    root = str(tmp_path / "orc")
+    os.makedirs(os.path.join(root, "out"))
+    conn = OrcConnector(root)
+    data = _nation()
+    if stmt != "ctas":
+        conn.create_table("out", "t1", data)
+    ledger = QueryLedger(str(tmp_path / "q.ledger"), node_id="p")
+    ledger.claim_epoch()
+    ledger.seal()
+    before = _tree(root)
+    with wp.coordinator_write(QID, fence=ledger):
+        with pytest.raises(wp.WriteFencedError, match="sealed"):
+            if stmt == "ctas":
+                conn.create_table("out", "t1", data)
+            elif stmt == "insert":
+                conn.insert("out", "t1", data.columns, data.valids,
+                            data.schema.fields)
+            else:
+                conn.drop_table("out", "t1")
+    assert _tree(root) == before
+    assert os.listdir(os.path.join(root, "out")) == \
+        ([] if stmt == "ctas" else ["t1"])
+    assert [r["op"] for r in ledger.fence_refusals] == \
+        [{"ctas": "stage", "insert": "stage", "drop": "drop"}[stmt]]
+
+
+def test_concurrent_commits_take_turns(tmp_path):
+    """Many committers of distinct query ids into one table directory,
+    on more threads than cores with a short switch interval: under the
+    table lock each takes the next part number, so every part is
+    published once under a sequence number of its own."""
+    import sys
+    table_dir = str(tmp_path / "orc" / "out" / "t1")
+    os.makedirs(table_dir)
+    data = _nation()
+    n = 2 * (os.cpu_count() or 4)
+    manifests = [wp.stage_table_data(table_dir, data, f"q{i}", stage=1,
+                                     partition=0, attempt="t1", fmt="orc")
+                 for i in range(n)]
+    errors = []
+
+    def run(i):
+        try:
+            wp.commit(table_dir, f"q{i}", [manifests[i]])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    parts = wp.list_parts(table_dir)
+    assert sorted(int(p.split("-")[1]) for p in parts) == list(range(n))
+    assert all(wp.published_rows_for(table_dir, f"q{i}") == 25
+               for i in range(n))
+    assert sorted(os.listdir(table_dir)) == sorted(parts)
+
+
+def test_fenced_coordinator_starts_no_task(tmp_path):
+    """A coordinator whose ledger is sealed starts no task on a worker
+    (a task id it started unrecorded could be minted again by the
+    promoted standby): its distributed query raises FencedError, every
+    worker's task list stays empty, and the refusals are recorded."""
+    from trino_tpu_torch.server.writeprotocol import FencedError
+    coord = CoordinatorServer(Session(default_schema="tiny", device="cpu"),
+                              ledger_path=str(tmp_path / "q.ledger"),
+                              node_id="c1").start()
+    coord.state.scheduler.split_rows = 8192
+    workers = [WorkerServer(f"fw{i}", coord.uri, announce_interval_s=0.1,
+                            device="cpu").start() for i in (1, 2)]
+    try:
+        deadline = time.time() + 10
+        while len(coord.state.active_nodes()) < 2 and \
+                time.time() < deadline:
+            time.sleep(0.02)
+        coord.state.ledger.seal()
+        with pytest.raises(FencedError, match="sealed"):
+            coord.state.scheduler.execute(DIST_SQL, query_id="q_fenced")
+        assert all(not w.task_manager.tasks for w in workers)
+        assert coord.state.ledger.fence_refusals and all(
+            r["op"] == "dispatch" for r in coord.state.ledger.fence_refusals)
+    finally:
+        for w in workers:
+            w.kill()
+        coord.state.dispatcher.pool.shutdown(wait=False)
+        coord.stop()

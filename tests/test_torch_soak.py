@@ -156,6 +156,42 @@ def test_coordinator_chaos_soak_smoke():
     assert rec["passed"], rec
 
 
+@pytest.mark.parametrize("seed", [4, 9])
+def test_coordinator_chaos_write_seed_with_distributed_standby(seed,
+                                                               monkeypatch):
+    """The coordinator-chaos soak's WRITE_COMMIT seeds (4: detector
+    promotion, 9: admin promotion) with both coordinators' sessions at
+    split_rows = 4096, so the standby's resumed CTAS goes distributed
+    while the killed primary's dispatch thread takes its injected CRASH
+    at WRITE_COMMIT and aborts. The fence keeps that abort off the
+    standby's staged files: no client error, no lost or duplicate row,
+    the table published under the client's query id, and no staged
+    write under a `local_<uuid>` id on a coordinator's dispatch
+    thread."""
+    import threading
+    from trino_tpu_torch.exec.session import SESSION_PROPERTY_DEFAULTS
+    from trino_tpu_torch.server import writeprotocol as wp
+    monkeypatch.setitem(SESSION_PROPERTY_DEFAULTS, "split_rows",
+                        (4096, int))
+    local = []
+    real = wp.commit
+
+    def commit(table_dir, query_id, *a, **k):
+        if query_id.startswith("local_") and \
+                threading.current_thread().name.startswith("dispatch"):
+            local.append(query_id)
+        return real(table_dir, query_id, *a, **k)
+
+    monkeypatch.setattr(wp, "commit", commit)
+    one = soak.coordinator_chaos_seed(seed, device="cpu")
+    assert one["phase"] == "WRITE_COMMIT"
+    assert not one["client_error"], one
+    assert one["lost_rows"] == 0 and one["dup_rows"] == 0, one
+    assert one["committed_rows"] == 15000, one
+    assert one["failovers"] >= 1
+    assert local == []
+
+
 def test_memory_pressure_soak_smoke():
     rec = soak.memory_pressure_soak(n_queries=6, device="cpu")
     assert rec["queries"] + rec["oom_user_errors"] == 6

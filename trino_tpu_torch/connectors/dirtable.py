@@ -1,4 +1,7 @@
-"""Port copy of ``trino_tpu/connectors/dirtable.py`` (unchanged).
+"""Port copy of ``trino_tpu/connectors/dirtable.py``. One departure: a
+write inside a coordinator's run of a tracked query
+(`writeprotocol.coordinator_write`) commits under that query's id and
+checks its fence, where the reference always mints `local_<uuid>`.
 
 Directory-table support shared by the orcdir and parquetdir connectors.
 
@@ -177,6 +180,8 @@ class StagedWriteMixin:
 
     def drop_table(self, schema: str, name: str,
                    if_exists: bool = False) -> None:
+        qid, fence = wp.current_write()
+        wp.check_fence(fence, "drop", self._table_dir(schema, name), qid)
         found = False
         fpath = self._table_file(schema, name)
         if os.path.isfile(fpath):
@@ -194,12 +199,16 @@ class StagedWriteMixin:
     def _staged_write(self, schema: str, name: str, data: TableData,
                       query_id: Optional[str] = None, injector=None):
         tdir = self._table_dir(schema, name)
-        os.makedirs(tdir, exist_ok=True)
+        fence = None
+        if query_id is None:
+            query_id, fence = wp.claim_scoped_write()
         qid = query_id or f"local_{uuid.uuid4().hex[:12]}"
+        wp.check_fence(fence, "stage", tdir, qid)
+        os.makedirs(tdir, exist_ok=True)
         m = wp.stage_table_data(tdir, data, qid, stage=0, partition=0,
                                 attempt="a0", fmt=self.fmt,
                                 injector=injector)
-        stats = wp.commit(tdir, qid, [m], injector=injector)
+        stats = wp.commit(tdir, qid, [m], injector=injector, fence=fence)
         self._cache.pop((schema, name), None)
         return stats
 

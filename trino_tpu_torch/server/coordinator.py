@@ -116,17 +116,19 @@ def _is_retryable(e: Exception) -> bool:
     errors too: retrying an OOM reproduces it. Deadline expiry and
     termination never retry (a rerun restarts the clock the user
     bounded), and an exhausted task-amplification budget means retrying
-    is exactly what the budget forbade."""
+    is exactly what the budget forbade. A fenced coordinator never
+    retries: another one holds the ledger epoch (or this one is dead)."""
     from ..exec.executor import QueryDeadlineError, QueryTerminatedError
     from ..exec.memory import ExceededMemoryLimitError
     from ..planner.analyzer import AnalysisError
     from ..sql.tokenizer import SqlSyntaxError
     from .scheduler import RetryBudgetExhaustedError
+    from .writeprotocol import FencedError
     return not isinstance(e, (AnalysisError, SqlSyntaxError,
                               AssertionError, QueryDeclinedError,
                               ExceededMemoryLimitError,
                               QueryDeadlineError, QueryTerminatedError,
-                              RetryBudgetExhaustedError))
+                              RetryBudgetExhaustedError, FencedError))
 
 
 class RegisteredNode:
@@ -685,7 +687,8 @@ class Dispatcher:
         already = wp.published_rows_for(table_dir, tq.query_id)
         if already is None:
             return None
-        wp.recover_table_dir(table_dir)
+        wp.recover_table_dir(table_dir, fence=self.ledger,
+                             query_id=tq.query_id)
         conn._cache.pop((sch, tbl), None)
         self.session.catalog.bump_version()
         self.session.executor.invalidate_scan_cache()
@@ -758,14 +761,18 @@ class Dispatcher:
                 "require_distributed: cluster declined the "
                 f"query ({tq.fallback_reason})")
         if result is None:
-            if serving is not None:
-                # local path through the serving layer: plan cache,
-                # micro-batching, CPU/TPU routing (device executions
-                # take the exec lock inside)
-                result = serving.execute_local(tq)
-            else:
-                with self.exec_lock:
-                    result = self.session.execute(tq.sql)
+            # a staged write on the local path commits under this query
+            # id (a resumed query finds it) and checks the ledger fence
+            from .writeprotocol import coordinator_write
+            with coordinator_write(tq.query_id, fence=self.ledger):
+                if serving is not None:
+                    # local path through the serving layer: plan cache,
+                    # micro-batching, CPU/TPU routing (device executions
+                    # take the exec lock inside)
+                    result = serving.execute_local(tq)
+                else:
+                    with self.exec_lock:
+                        result = self.session.execute(tq.sql)
         tq.elapsed_s = time.monotonic() - t0
         tq.result = result
         tq.rows_returned = len(result.rows)

@@ -1,4 +1,6 @@
-"""Port copy of ``trino_tpu/server/ledger.py`` (no edits).
+"""Port copy of ``trino_tpu/server/ledger.py``; the one addition is
+`QueryLedger.fence_refusals`, the fence's record (the ledger's and
+the epoch file's bytes are the reference's).
 
 Durable coordinator query ledger + epoch-fenced failover state.
 
@@ -155,6 +157,10 @@ class QueryLedger:
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         self.node_id = node_id
         self.sealed = False
+        # changes to shared state (table directories, worker tasks) the
+        # fence refused this node (server/writeprotocol.refuse), oldest
+        # first
+        self.fence_refusals = []
         self._lock = threading.RLock()
         self._owner_checked = 0.0
         self._owner = None          # cached (epoch, node)

@@ -8,7 +8,11 @@ places them via UniformNodeSelector.java:55, HttpRemoteTask.java:135
 the FTE scheduler retries failed tasks on other nodes
 (EventDrivenFaultTolerantQueryScheduler.java:206).
 
-Port of ``trino_tpu/server/scheduler.py``, unchanged but for its imports.
+Port of ``trino_tpu/server/scheduler.py``, with the departures ROADMAP
+lists: a drain cut short by the query's deadline marks no node FAILED,
+and a task's ledger assignment is recorded before it starts, none
+starting while the coordinator is fenced (`FencedError`); the write
+path passes the ledger to the write protocol as its fence.
 One SOURCE stage (the fragmenter's per-split partial program, executed
 worker-side over row-range splits) and one FINAL stage (merge + remainder
 of the plan, executed on the coordinator's device). Workers that
@@ -44,6 +48,7 @@ from .failureinjector import InjectedFailure
 from .pageserde import PageChecksumError, verify_page
 from .retrypolicy import RetryPolicy
 from .tasks import Split, decode_columns, encode_fragment
+from .writeprotocol import FencedError, fenced, refuse
 
 
 class TaskFailedError(RuntimeError):
@@ -384,13 +389,24 @@ class StageScheduler:
         """Record a task/stage assignment in the coordinator's durable
         query ledger (server/ledger.py) — the promoted coordinator
         reconciles these against live worker task inventories to decide
-        re-attach vs re-execute. No-op without a ledger."""
+        re-attach vs re-execute. No-op without a ledger.
+
+        Called before the task starts: a coordinator whose ledger is
+        sealed or deposed raises FencedError instead, so every task id
+        it ever started is in the ledger a promoted standby replays and
+        reserves (a task id the standby minted again would hand it this
+        coordinator's task on the worker)."""
         led = getattr(self.state, "ledger", None)
-        qid = (self.last_query or {}).get("query_id")
-        if led is None or not qid:
+        if led is None:
             return
-        led.assign(qid, task.task_id, task.node.node_id,
-                   self._current_stage)
+        qid = (self.last_query or {}).get("query_id") or ""
+        what = f"task {task.task_id} to {task.node.node_id}"
+        why = fenced(led)
+        if why is None and qid and not led.assign(
+                qid, task.task_id, task.node.node_id, self._current_stage):
+            why = "sealed" if led.sealed else "deposed"
+        if why is not None:
+            refuse(led, why, "dispatch", what, qid)
 
     def _livestats_register(self, task) -> None:
         """Pre-register a launched task with the live-stats store so the
@@ -768,6 +784,10 @@ class StageScheduler:
         qid = (self.last_query or {}).get("query_id") or \
             f"adhoc_{_uuid.uuid4().hex[:10]}"
         table_dir = _os.path.abspath(conn._table_dir(sch, tbl))
+        # the coordinator's ledger fences every change this write makes
+        # to the table directory: a sealed or deposed coordinator's
+        # thread is refused (WriteFencedError), the directory untouched
+        fence = getattr(self.state, "ledger", None)
         # commit-phase wall (stage / commit), surfaced on the EXPLAIN
         # ANALYZE write line and read by the timeline's write-commit
         # attribution when tracing is off; empty on the idempotent
@@ -801,10 +821,10 @@ class StageScheduler:
         # protocol's idempotence — return its result, never re-stage
         already = wp.published_rows_for(table_dir, qid)
         if already is not None:
-            wp.recover_table_dir(table_dir)
+            wp.recover_table_dir(table_dir, fence=fence, query_id=qid)
             return _finish_commit({"rows": already, "phase": "committed"},
                                   0, 0)
-        wp.recover_table_dir(table_dir)
+        wp.recover_table_dir(table_dir, fence=fence, query_id=qid)
         if is_ctas and conn.table_exists(sch, tbl):
             self.fallback_reason = "CTAS target exists (local path " \
                                    "resolves IF NOT EXISTS / errors)"
@@ -879,8 +899,8 @@ class StageScheduler:
                                       injector=self.failure_injector,
                                       traceparent=traceparent,
                                       deadline=qd)
-                    task.start()
                     self._ledger_assign(task)
+                    task.start()
                     self._livestats_register(task)
                     self.stats["tasks"] += 1
                     SCHED_TASKS.inc()
@@ -908,8 +928,8 @@ class StageScheduler:
                                       injector=self.failure_injector,
                                       traceparent=traceparent,
                                       deadline=qd)
-                    task.start()
                     self._ledger_assign(task)
+                    task.start()
                     self._livestats_register(task)
                     self.stats["tasks"] += 1
                     SCHED_TASKS.inc()
@@ -1004,7 +1024,7 @@ class StageScheduler:
                              manifests=len(manifests)):
                 stats = wp.commit(table_dir, qid, manifests,
                                   injector=self.failure_injector,
-                                  tracer=tracer)
+                                  tracer=tracer, fence=fence)
             phase_times["commit"] = time.monotonic() - _t_commit
             WRITE_ATTEMPTS_DEDUPED.inc(stats.get("deduped", 0))
             self.stats["stages"] = self.stats.get("stages", 0) + 2
@@ -1016,7 +1036,7 @@ class StageScheduler:
                     t.cancel()
                 except Exception:  # noqa: BLE001
                     pass
-            wp.abort(table_dir, qid)
+            wp.abort(table_dir, qid, fence=fence)
             committed = wp.published_rows_for(table_dir, qid)
             if committed is not None:
                 # the INTENT was durable: abort rolled the commit
@@ -1379,6 +1399,7 @@ class StageScheduler:
             deadline = min(deadline, qd)
         lock = threading.Lock()
         durations: List[float] = []
+        fence_errors: List[Exception] = []
         # capture the trace context ON THIS THREAD (the source-stage span
         # is open here; drain threads have empty span stacks)
         traceparent = self._tracer().traceparent()
@@ -1396,12 +1417,19 @@ class StageScheduler:
                 unit.tasks.append(task)
             losers: List[RemoteTask] = []
             try:
-                task.start()
                 self._ledger_assign(task)
+                task.start()
                 self._livestats_register(task)
                 self.stats["tasks"] += 1
                 SCHED_TASKS.inc()
                 drained = task.drain(deadline)
+            except FencedError as e:
+                # this coordinator is fenced, not the node: the stage
+                # ends with the error once the round has drained
+                with lock:
+                    fence_errors.append(e)
+                    unit.live -= 1
+                return
             except (TaskFailedError, InjectedFailure, URLError,
                     HTTPError, OSError) as e:
                 if isinstance(e, HTTPError) and e.code == 409:
@@ -1514,6 +1542,8 @@ class StageScheduler:
                     launch(u, candidate)
             time.sleep(0.02)
 
+        if fence_errors:
+            raise fence_errors[0]
         failed_splits: List[Split] = []
         failed_nodes: Set[str] = set()
         migrated = 0
@@ -1684,8 +1714,8 @@ class StageScheduler:
                                   injector=self.failure_injector,
                                   traceparent=traceparent,
                                   deadline=qd)
-                task.start()
                 self._ledger_assign(task)
+                task.start()
                 self._livestats_register(task)
                 self.stats["tasks"] += 1
                 SCHED_TASKS.inc()
@@ -1717,8 +1747,8 @@ class StageScheduler:
                               injector=self.failure_injector,
                               traceparent=traceparent,
                               deadline=qd)
-            task.start()
             self._ledger_assign(task)
+            task.start()
             self._livestats_register(task)
             self.stats["tasks"] += 1
             SCHED_TASKS.inc()

@@ -1,5 +1,6 @@
-"""Port copy of ``trino_tpu/server/writeprotocol.py`` (no edits beyond
-the logger's name).
+"""Port copy of ``trino_tpu/server/writeprotocol.py``, with a fence, a
+table lock and a coordinator's write scope that the reference lacks
+(ROADMAP, "Where the port departs from the reference on purpose").
 
 Exactly-once staged-write commit protocol for directory connectors.
 
@@ -25,8 +26,26 @@ Single-writer-per-table is assumed (the coordinator serializes DDL/DML on
 one exec lock; the session-local path is in-process); recovery additionally
 runs on connector startup so an unclean shutdown can never leak staging
 files, journals, or torn tables.
+
+Across a coordinator failover two coordinators can hold one query id: the
+old primary's dispatch thread runs on after its ledger is sealed (or a
+newer primary claimed the ledger epoch) while the promoted standby
+resumes the query. Every call that changes a table directory (`commit`,
+`abort`, `recover_table_dir`) therefore takes an exclusive lock on the
+directory (`table_lock`) and, under it, checks the caller's fence: the
+coordinator's query ledger, or None without one. A sealed or deposed
+ledger makes the call raise `WriteFencedError` with the directory as it
+was. A stale committer thus either committed before the standby's claim
+(and the standby's commit dedups) or is refused.
+
+A coordinator's local run of a tracked query (`coordinator_write`) gives
+the connector's staged write that query's id and fence, so a resumed
+query finds its own commit (`published_rows_for`) whichever path made it.
 """
 
+import contextlib
+import contextvars
+import fcntl
 import json
 import logging
 import os
@@ -42,6 +61,7 @@ from .pageserde import _crc32c
 log = logging.getLogger("trino_tpu_torch.write")
 
 STAGING_DIR = ".staging"
+LOCK_NAME = ".write.lock"
 JOURNAL_MAGIC = b"TWJ1"
 _PART_RE = re.compile(r"^part-(\d+)-([0-9a-f]+)-r(\d+)\.(orc|parquet)$")
 
@@ -92,6 +112,133 @@ def published_rows_for(table_dir: str, query_id: str):
             seen = True
             rows += int(m.group(3))
     return rows if seen else None
+
+
+# --------------------------------------------------------------------------
+# fence, table lock and a coordinator's write scope
+# --------------------------------------------------------------------------
+
+class FencedError(RuntimeError):
+    """This coordinator's ledger is sealed (its process is dead), or
+    another node claimed the ledger epoch: it may change no shared state,
+    no table directory and no task on a worker. Not retried: the query's
+    client has moved to the coordinator that holds the epoch."""
+
+
+class WriteFencedError(FencedError):
+    """A fenced coordinator asked to change a table directory: refused,
+    and the directory left as it was."""
+
+
+def fenced(fence):
+    """Why `fence` (a coordinator's QueryLedger, or None for a
+    coordinator without one) forbids its holder to change shared state:
+    "sealed", "deposed", or None when it does not. The epoch is read from
+    disk, not from the ledger's cache."""
+    if fence is None:
+        return None
+    if fence.sealed:
+        return "sealed"
+    return None if fence.owns_epoch(force=True) else "deposed"
+
+
+def refuse(fence, why: str, op: str, what: str, query_id: str,
+           error=FencedError):
+    """Record a refusal in `fence.fence_refusals` and raise `error`."""
+    fence.fence_refusals.append({"op": op, "query": query_id,
+                                 "target": what, "why": why})
+    log.warning("%sfenced: %s (%s ledger) may not %s %s",
+                query_context(query_id), fence.node_id, why, op, what)
+    raise error(f"fenced: coordinator {fence.node_id} ({why} ledger) may "
+                f"not {op} {what} (query {query_id})")
+
+
+def check_fence(fence, op: str, table_dir: str, query_id: str) -> None:
+    """Raise WriteFencedError if `fence` forbids the `op` of `query_id`
+    on `table_dir`."""
+    why = fenced(fence)
+    if why is not None:
+        refuse(fence, why, op, f"in {table_dir}", query_id,
+               WriteFencedError)
+
+
+@contextlib.contextmanager
+def table_lock(table_dir: str):
+    """Hold the table directory's write lock: `flock` on `LOCK_NAME`
+    inside it, which excludes other processes and other threads alike
+    (each open is its own lock). The file is removed on release; a
+    waiter that wakes on a removed file opens the new one."""
+    path = os.path.join(table_dir, LOCK_NAME)
+    while True:
+        fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            held = os.fstat(fd)
+            try:
+                cur = os.stat(path)
+            except FileNotFoundError:
+                cur = None
+        except BaseException:
+            os.close(fd)
+            raise
+        if cur is not None and (cur.st_ino, cur.st_dev) == \
+                (held.st_ino, held.st_dev):
+            break
+        os.close(fd)
+    try:
+        yield
+    finally:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        os.close(fd)
+
+
+class _WriteScope:
+    __slots__ = ("query_id", "fence", "writes")
+
+    def __init__(self, query_id: str, fence):
+        self.query_id, self.fence, self.writes = query_id, fence, 0
+
+
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "coordinator_write", default=None)
+
+
+@contextlib.contextmanager
+def coordinator_write(query_id: str, fence=None):
+    """A coordinator's local run of the tracked query `query_id`: a
+    staged write made inside commits under `query_id` and checks
+    `fence`. Outside one, a connector write mints `local_<uuid>`."""
+    token = _SCOPE.set(_WriteScope(query_id, fence))
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def current_write():
+    """(query_id, fence) of the enclosing coordinator_write, or (None,
+    None) outside one."""
+    scope = _SCOPE.get()
+    return (None, None) if scope is None else (scope.query_id, scope.fence)
+
+
+def claim_scoped_write():
+    """(query_id, fence) for a staged write inside a coordinator_write,
+    (None, None) outside one. A query id commits one staged write
+    (`commit` is idempotent per id), so a second one in the same run
+    raises instead of being deduplicated away."""
+    scope = _SCOPE.get()
+    if scope is None:
+        return None, None
+    if scope.writes:
+        raise RuntimeError(f"query {scope.query_id} already staged a "
+                           f"write: a second staged write in one "
+                           f"statement needs an id of its own")
+    scope.writes += 1
+    return scope.query_id, scope.fence
 
 
 # --------------------------------------------------------------------------
@@ -230,54 +377,58 @@ def dedup_manifests(manifests):
 
 
 def commit(table_dir: str, query_id: str, manifests, injector=None,
-           tracer=None) -> dict:
+           tracer=None, fence=None) -> dict:
     """Publish deduped staged files transactionally. The INTENT journal
     record (durable before any rename) is the commit point: recovery
     rolls the full rename set forward from it; without it, staged files
     are swept. Idempotent per query id. `tracer`, when given, nests
     write-publish / write-sweep child spans under the caller's
-    write-commit span so the commit's phases show in the query trace."""
+    write-commit span so the commit's phases show in the query trace.
+    The fence check, the already-committed check and the whole publish
+    run under the table lock."""
     from ..utils.tracing import NOOP
     tracer = tracer or NOOP
     chosen, deduped = dedup_manifests(manifests)
     tok = qtoken(query_id)
     if injector is not None:
         injector.maybe_fail(WRITE_COMMIT, query_id)
-    already = published_rows_for(table_dir, query_id)
-    if already is not None:          # prior attempt already committed
-        sweep_query(table_dir, query_id)
-        return {"published": 0, "rows": already, "deduped": deduped,
-                "bytes": 0, "phase": "committed"}
-    seq0 = len(list_parts(table_dir))
-    files = []
-    for i, m in enumerate(chosen):
-        ext = os.path.splitext(m["path"])[1].lstrip(".")
-        files.append({"src": m["path"],
-                      "dst": os.path.join(table_dir, part_filename(
-                          seq0 + i, tok, m["rows"], ext)),
-                      "rows": m["rows"], "crc": m["crc"],
-                      "zones": m.get("zones", {})})
-    jpath = journal_path(table_dir, query_id)
-    append_journal(jpath, {"rec": "intent", "query": query_id,
-                           "files": [{k: f[k] for k in
-                                      ("src", "dst", "rows", "crc")}
-                                     for f in files]},
-                   injector=injector, key=query_id)
-    # ---- point of no return: roll forward from here ----
-    with tracer.span("write-publish", files=len(files)):
-        for f in files:
-            if injector is not None:
-                injector.maybe_fail(WRITE_PUBLISH, f["dst"])
-            _publish_one(f["src"], f["dst"])
-        fsync_dir(table_dir)
-        append_journal(jpath, {"rec": "commit", "query": query_id})
-    with tracer.span("write-sweep"):
-        sweep_query(table_dir, query_id)
-        try:
-            os.unlink(jpath)
-        except OSError:
-            pass
-        fsync_dir(table_dir)
+    with table_lock(table_dir):
+        check_fence(fence, "commit", table_dir, query_id)
+        already = published_rows_for(table_dir, query_id)
+        if already is not None:          # prior attempt already committed
+            _sweep_query(table_dir, query_id)
+            return {"published": 0, "rows": already, "deduped": deduped,
+                    "bytes": 0, "phase": "committed"}
+        seq0 = len(list_parts(table_dir))
+        files = []
+        for i, m in enumerate(chosen):
+            ext = os.path.splitext(m["path"])[1].lstrip(".")
+            files.append({"src": m["path"],
+                          "dst": os.path.join(table_dir, part_filename(
+                              seq0 + i, tok, m["rows"], ext)),
+                          "rows": m["rows"], "crc": m["crc"],
+                          "zones": m.get("zones", {})})
+        jpath = journal_path(table_dir, query_id)
+        append_journal(jpath, {"rec": "intent", "query": query_id,
+                               "files": [{k: f[k] for k in
+                                          ("src", "dst", "rows", "crc")}
+                                         for f in files]},
+                       injector=injector, key=query_id)
+        # ---- point of no return: roll forward from here ----
+        with tracer.span("write-publish", files=len(files)):
+            for f in files:
+                if injector is not None:
+                    injector.maybe_fail(WRITE_PUBLISH, f["dst"])
+                _publish_one(f["src"], f["dst"])
+            fsync_dir(table_dir)
+            append_journal(jpath, {"rec": "commit", "query": query_id})
+        with tracer.span("write-sweep"):
+            _sweep_query(table_dir, query_id)
+            try:
+                os.unlink(jpath)
+            except OSError:
+                pass
+            fsync_dir(table_dir)
     WRITE_COMMITS.inc(outcome="committed")
     rows = sum(f["rows"] for f in files)
     log.info("%scommitted %d parts (%d rows, %d deduped) in %s",
@@ -295,20 +446,24 @@ def _publish_one(src: str, dst: str) -> None:
         raise IOError(f"write commit lost {src} (and {dst} absent)")
 
 
-def abort(table_dir: str, query_id: str) -> None:
+def abort(table_dir: str, query_id: str, fence=None) -> None:
     """Abandon a write that never reached its INTENT record: sweep this
     query's staging attempts and any torn journal."""
-    recs, _ = replay_journal(journal_path(table_dir, query_id))
-    if any(r.get("rec") == "intent" for r in recs):
-        # intent is durable: the write must roll forward, not abort
-        recover_table_dir(table_dir)
+    if not os.path.isdir(table_dir):
         return
-    n = sweep_query(table_dir, query_id)
-    try:
-        os.unlink(journal_path(table_dir, query_id))
-        n += 1
-    except OSError:
-        pass
+    with table_lock(table_dir):
+        check_fence(fence, "abort", table_dir, query_id)
+        recs, _ = replay_journal(journal_path(table_dir, query_id))
+        if any(r.get("rec") == "intent" for r in recs):
+            # intent is durable: the write must roll forward, not abort
+            _recover(table_dir)
+            return
+        n = _sweep_query(table_dir, query_id)
+        try:
+            os.unlink(journal_path(table_dir, query_id))
+            n += 1
+        except OSError:
+            pass
     if n:
         WRITE_ORPHANS_SWEPT.inc(n)
     WRITE_COMMITS.inc(outcome="aborted")
@@ -316,9 +471,9 @@ def abort(table_dir: str, query_id: str) -> None:
              query_context(query_id), n, table_dir)
 
 
-def sweep_query(table_dir: str, query_id: str) -> int:
+def _sweep_query(table_dir: str, query_id: str) -> int:
     """Remove this query's staging attempts (all of them — duplicates
-    from hedged attempts included)."""
+    from hedged attempts included). The caller holds the table lock."""
     sdir = staging_dir(table_dir)
     tok = qtoken(query_id)
     n = 0
@@ -345,15 +500,22 @@ def _rmdir_if_empty(d: str) -> None:
 # recovery (abort path + connector startup)
 # --------------------------------------------------------------------------
 
-def recover_table_dir(table_dir: str) -> dict:
+def recover_table_dir(table_dir: str, fence=None,
+                      query_id: str = "") -> dict:
     """Replay any journals in a table directory and finish or undo the
     protocol: durable INTENT -> roll the renames forward; torn or absent
     INTENT -> roll back. Then sweep all remaining staging files and temp
     names. Idempotent — safe to run any number of times, after a crash
-    at any point."""
-    out = {"rolled_forward": 0, "swept": 0}
+    at any point. `query_id` names the caller's query in a refusal."""
     if not os.path.isdir(table_dir):
-        return out
+        return {"rolled_forward": 0, "swept": 0}
+    with table_lock(table_dir):
+        check_fence(fence, "recover", table_dir, query_id)
+        return _recover(table_dir)
+
+
+def _recover(table_dir: str) -> dict:
+    out = {"rolled_forward": 0, "swept": 0}
     for jf in sorted(os.listdir(table_dir)):
         if not jf.endswith(".journal"):
             continue

@@ -657,32 +657,15 @@ def coordinator_chaos_soak(n_seeds=None, out_path=None, device="cuda"):
     failover). Promotion alternates by seed parity between
     detector-driven and admin `PUT /v1/info/state`. The client must
     finish every seed with bit-exact rows and NO visible error: 0 wrong
-    results, 0 lost rows, 0 duplicate rows."""
-    import shutil
-    import tempfile
-    from collections import Counter
-    from urllib.request import Request, urlopen
-
-    from .client.client import Client
-    from .connectors.orcdir import OrcConnector
-    from .exec.session import Session
+    results, 0 lost rows, 0 duplicate rows. One seed is
+    `coordinator_chaos_seed`."""
     from .metrics import COORDINATOR_FAILOVERS
-    from .server import ledger as led
-    from .server.coordinator import CoordinatorServer
-    from .server.failureinjector import (CRASH, DELAY, WRITE_COMMIT,
-                                         FailureInjector)
-    from .server.security import internal_headers
-    from .server.worker import WorkerServer
 
     n = n_seeds if n_seeds is not None else \
         int(os.environ.get("TRINO_TPU_COORD_CHAOS_SEEDS", 20))
     budget_s = float(os.environ.get("TRINO_TPU_COORD_CHAOS_BUDGET_S",
                                     600))
     t_start = time.monotonic()
-    read_sql = ("SELECT n_regionkey, count(*) AS c FROM nation "
-                "GROUP BY n_regionkey ORDER BY n_regionkey")
-    read_expect = [(0, 5), (1, 5), (2, 5), (3, 5), (4, 5)]
-    write_src = WRITE_CHAOS_SRC
     rec = {"metric": "coordinator_chaos", "seeds": 0,
            "wrong_results": 0, "lost_rows": 0, "dup_rows": 0,
            "client_errors": 0, "failovers": 0,
@@ -690,138 +673,29 @@ def coordinator_chaos_soak(n_seeds=None, out_path=None, device="cuda"):
            "kills_by_phase": {}, "resumed_by_mode": {},
            "budget_exhausted": False}
     fo_walls = []
-    write_baseline = None
     for seed in range(n):
         if time.monotonic() - t_start > budget_s:
             rec["budget_exhausted"] = True
             break
-        phase = COORD_CHAOS_PHASES[seed % len(COORD_CHAOS_PHASES)]
-        admin = seed % 2 == 1           # else detector-driven
-        write_phase = phase == "WRITE_COMMIT"
-        root = tempfile.mkdtemp(prefix="coord_chaos_")
-        ledger = os.path.join(root, "query.ledger")
-        spool = os.path.join(root, "spool")
-        s1 = Session(default_schema="tiny", device=device)
-        s2 = Session(default_schema="tiny", device=device)
-        if write_phase:
-            os.makedirs(os.path.join(root, "orc", "out"))
-            s1.catalog.register("orc", OrcConnector(
-                os.path.join(root, "orc")))
-            s2.catalog.register("orc", OrcConnector(
-                os.path.join(root, "orc")))
-        primary = CoordinatorServer(s1, ledger_path=ledger,
-                                    node_id=f"p{seed}",
-                                    spool_root=spool).start()
-        standby = CoordinatorServer(s2, ledger_path=ledger,
-                                    node_id=f"s{seed}", role="standby",
-                                    peer_uri=primary.uri,
-                                    spool_root=spool,
-                                    standby_interval_s=0.1,
-                                    auto_promote=not admin).start()
-        workers = [WorkerServer(f"cc{seed}w{i}", primary.uri,
-                                announce_interval_s=0.1,
-                                catalog=s1.catalog,
-                                device=device).start()
-                   for i in range(2)]
-        deadline = time.time() + 10
-        while len(primary.state.active_nodes()) < 2 and \
-                time.time() < deadline:
-            time.sleep(0.02)
-        for w in workers:
-            w.announce_once()           # learn the standby address now
-        inj = FailureInjector(seed=seed)
-        if write_phase:
-            primary.state.scheduler.split_rows = 4096
-            primary.state.scheduler.failure_injector = inj
-            # the commit dies mid-flight on the (sealed) primary; the
-            # promoted standby re-executes and must dedup to one table
-            inj.inject(WRITE_COMMIT, times=1, fault=CRASH)
-            sql = f"CREATE TABLE orc.out.c{seed} AS {write_src}"
-        else:
-            primary.state.dispatcher.failure_injector = inj
-            if phase in ("RUNNING", "FINISHING"):
-                inj.inject("EXECUTION", times=1, fault=DELAY,
-                           delay_s=1.5, match_sql="n_regionkey")
-            sql = read_sql
-        client = Client([primary.uri, standby.uri],
-                        user=f"chaos{seed}", timeout_s=120)
-        out = {}
-
-        def run(client=client, sql=sql, out=out):
-            try:
-                out["r"] = client.execute(sql)
-            except Exception as e:  # noqa: BLE001 — the gate counts it
-                out["err"] = e
-
-        t = threading.Thread(target=run)
-        t.start()
-        # kill when the primary's registry first shows the query at (or
-        # past) the target phase — a bounded watch, so late phases that
-        # flash by still get a kill near the boundary
-        target = "RUNNING" if write_phase else phase
-        observed = None
-        deadline = time.time() + 8
-        while time.time() < deadline and observed is None:
-            for tq in primary.state.tracker.all():
-                if led._rank(tq.state) >= led._rank(target):
-                    observed = tq.state
-                    break
-            if observed is None:
-                time.sleep(0.002)
-        if phase == "FINISHING" and observed == "RUNNING":
-            time.sleep(1.2)             # drift toward the boundary
-        t_kill = time.monotonic()
-        primary.kill()
+        one = coordinator_chaos_seed(seed, device=device)
+        phase = one["phase"]
         rec["kills_by_phase"][phase] = \
             rec["kills_by_phase"].get(phase, 0) + 1
-        if admin:
-            try:
-                req = Request(f"{standby.uri}/v1/info/state",
-                              data=json.dumps(
-                                  {"state": "PRIMARY"}).encode(),
-                              headers={"Content-Type":
-                                       "application/json",
-                                       **internal_headers()},
-                              method="PUT")
-                with urlopen(req, timeout=15):
-                    pass
-                rec["admin_promotions"] += 1
-            except Exception:  # noqa: BLE001 — the client error gates
-                pass
-        else:
-            rec["detector_promotions"] += 1
-        t.join(timeout=120)
+        rec["admin_promotions"] += one["admin_promotions"]
+        rec["detector_promotions"] += one["detector_promotions"]
         rec["seeds"] += 1
-        if "r" not in out or t.is_alive():
+        if one["client_error"]:
             rec["client_errors"] += 1
-        else:
-            r = out["r"]
-            fo_walls.append((time.monotonic() - t_kill) * 1000)
-            rec["failovers"] += r.failovers
-            if write_phase:
-                got = Counter(_chaos_rows(s2.execute(
-                    f"SELECT o_orderkey, o_custkey, o_orderstatus, "
-                    f"o_totalprice FROM orc.out.c{seed}").rows))
-                if write_baseline is None:
-                    write_baseline = Counter(
-                        _chaos_rows(s2.execute(write_src).rows))
-                rec["lost_rows"] += sum(
-                    (write_baseline - got).values())
-                rec["dup_rows"] += sum((got - write_baseline).values())
-            else:
-                if [tuple(x) for x in r.rows] != read_expect:
-                    rec["wrong_results"] += 1
-            tq = standby.state.tracker.get(r.query_id)
-            mode = getattr(tq, "resumed", None) if tq else None
-            if mode:
-                rec["resumed_by_mode"][mode] = \
-                    rec["resumed_by_mode"].get(mode, 0) + 1
-        for w in workers:
-            w.kill()
-        standby.kill()
-        for c in (primary, standby):
-            c.state.dispatcher.pool.shutdown(wait=False)
-        shutil.rmtree(root, ignore_errors=True)
+            continue
+        fo_walls.append(one["failover_ms"])
+        rec["failovers"] += one["failovers"]
+        rec["lost_rows"] += one["lost_rows"]
+        rec["dup_rows"] += one["dup_rows"]
+        rec["wrong_results"] += one["wrong_results"]
+        mode = one["resumed"]
+        if mode:
+            rec["resumed_by_mode"][mode] = \
+                rec["resumed_by_mode"].get(mode, 0) + 1
     if fo_walls:
         ws = sorted(fo_walls)
         rec["failover_to_result_p50_ms"] = round(ws[len(ws) // 2], 1)
@@ -834,6 +708,176 @@ def coordinator_chaos_soak(n_seeds=None, out_path=None, device="cuda"):
                      and rec["client_errors"] == 0
                      and rec["failovers"] >= rec["seeds"] > 0)
     return _emit(rec, out_path)
+
+
+def coordinator_chaos_seed(seed: int, device="cuda") -> dict:
+    """One seed of the coordinator-chaos soak: phase `seed % 5` of
+    COORD_CHAOS_PHASES, admin promotion on odd seeds. Returns the seed's
+    outcome: `client_error`, `failover_ms`, `failovers`, `lost_rows`,
+    `dup_rows`, `wrong_results`, `resumed`, and for a write seed the rows
+    published under the client's query id (`committed_rows`) and the
+    table-directory changes the dead primary's write fence refused
+    (`fence_refusals`; its query is awaited, up to 30 s, before the
+    seed's directory goes). Both coordinators' schedulers take
+    `split_rows` from their Session's properties; the primary's is set to
+    4096 for a write seed."""
+    import shutil
+    import tempfile
+    from collections import Counter
+    from urllib.request import Request, urlopen
+
+    from .client.client import Client
+    from .connectors.orcdir import OrcConnector
+    from .exec.session import Session
+    from .server import ledger as led
+    from .server import writeprotocol as wp
+    from .server.coordinator import CoordinatorServer
+    from .server.failureinjector import (CRASH, DELAY, WRITE_COMMIT,
+                                         FailureInjector)
+    from .server.security import internal_headers
+    from .server.worker import WorkerServer
+
+    read_sql = ("SELECT n_regionkey, count(*) AS c FROM nation "
+                "GROUP BY n_regionkey ORDER BY n_regionkey")
+    read_expect = [(0, 5), (1, 5), (2, 5), (3, 5), (4, 5)]
+    write_src = WRITE_CHAOS_SRC
+    phase = COORD_CHAOS_PHASES[seed % len(COORD_CHAOS_PHASES)]
+    admin = seed % 2 == 1           # else detector-driven
+    write_phase = phase == "WRITE_COMMIT"
+    one = {"phase": phase, "admin_promotions": 0,
+           "detector_promotions": 0, "client_error": False,
+           "failover_ms": None, "failovers": 0, "lost_rows": 0,
+           "dup_rows": 0, "wrong_results": 0, "resumed": None,
+           "query_id": None, "committed_rows": None,
+           "fence_refusals": []}
+    root = tempfile.mkdtemp(prefix="coord_chaos_")
+    ledger = os.path.join(root, "query.ledger")
+    spool = os.path.join(root, "spool")
+    s1 = Session(default_schema="tiny", device=device)
+    s2 = Session(default_schema="tiny", device=device)
+    if write_phase:
+        os.makedirs(os.path.join(root, "orc", "out"))
+        s1.catalog.register("orc", OrcConnector(
+            os.path.join(root, "orc")))
+        s2.catalog.register("orc", OrcConnector(
+            os.path.join(root, "orc")))
+    primary = CoordinatorServer(s1, ledger_path=ledger,
+                                node_id=f"p{seed}",
+                                spool_root=spool).start()
+    standby = CoordinatorServer(s2, ledger_path=ledger,
+                                node_id=f"s{seed}", role="standby",
+                                peer_uri=primary.uri,
+                                spool_root=spool,
+                                standby_interval_s=0.1,
+                                auto_promote=not admin).start()
+    workers = [WorkerServer(f"cc{seed}w{i}", primary.uri,
+                            announce_interval_s=0.1,
+                            catalog=s1.catalog,
+                            device=device).start()
+               for i in range(2)]
+    deadline = time.time() + 10
+    while len(primary.state.active_nodes()) < 2 and \
+            time.time() < deadline:
+        time.sleep(0.02)
+    for w in workers:
+        w.announce_once()           # learn the standby address now
+    inj = FailureInjector(seed=seed)
+    if write_phase:
+        primary.state.scheduler.split_rows = 4096
+        primary.state.scheduler.failure_injector = inj
+        # the commit dies mid-flight on the (sealed) primary; the
+        # promoted standby re-executes and must dedup to one table
+        inj.inject(WRITE_COMMIT, times=1, fault=CRASH)
+        sql = f"CREATE TABLE orc.out.c{seed} AS {write_src}"
+    else:
+        primary.state.dispatcher.failure_injector = inj
+        if phase in ("RUNNING", "FINISHING"):
+            inj.inject("EXECUTION", times=1, fault=DELAY,
+                       delay_s=1.5, match_sql="n_regionkey")
+        sql = read_sql
+    client = Client([primary.uri, standby.uri],
+                    user=f"chaos{seed}", timeout_s=120)
+    out = {}
+
+    def run():
+        try:
+            out["r"] = client.execute(sql)
+        except Exception as e:  # noqa: BLE001 — the gate counts it
+            out["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    # kill when the primary's registry first shows the query at (or
+    # past) the target phase — a bounded watch, so late phases that
+    # flash by still get a kill near the boundary
+    target = "RUNNING" if write_phase else phase
+    observed = None
+    deadline = time.time() + 8
+    while time.time() < deadline and observed is None:
+        for tq in primary.state.tracker.all():
+            if led._rank(tq.state) >= led._rank(target):
+                observed = tq.state
+                break
+        if observed is None:
+            time.sleep(0.002)
+    if phase == "FINISHING" and observed == "RUNNING":
+        time.sleep(1.2)             # drift toward the boundary
+    t_kill = time.monotonic()
+    primary.kill()
+    if admin:
+        try:
+            req = Request(f"{standby.uri}/v1/info/state",
+                          data=json.dumps(
+                              {"state": "PRIMARY"}).encode(),
+                          headers={"Content-Type":
+                                   "application/json",
+                                   **internal_headers()},
+                          method="PUT")
+            with urlopen(req, timeout=15):
+                pass
+            one["admin_promotions"] = 1
+        except Exception:  # noqa: BLE001 — the client error gates
+            pass
+    else:
+        one["detector_promotions"] = 1
+    t.join(timeout=120)
+    if "r" not in out or t.is_alive():
+        one["client_error"] = True
+        one["error"] = repr(out.get("err"))
+    else:
+        r = out["r"]
+        one["query_id"] = r.query_id
+        one["failover_ms"] = (time.monotonic() - t_kill) * 1000
+        one["failovers"] = r.failovers
+        if write_phase:
+            got = Counter(_chaos_rows(s2.execute(
+                f"SELECT o_orderkey, o_custkey, o_orderstatus, "
+                f"o_totalprice FROM orc.out.c{seed}").rows))
+            want = Counter(_chaos_rows(s2.execute(write_src).rows))
+            one["lost_rows"] = sum((want - got).values())
+            one["dup_rows"] = sum((got - want).values())
+            one["committed_rows"] = wp.published_rows_for(
+                os.path.join(root, "orc", "out", f"c{seed}"), r.query_id)
+        elif [tuple(x) for x in r.rows] != read_expect:
+            one["wrong_results"] = 1
+        tq = standby.state.tracker.get(r.query_id)
+        one["resumed"] = getattr(tq, "resumed", None) if tq else None
+    if write_phase:
+        # the dead primary's dispatch thread runs on into its commit;
+        # let it end before the directory goes
+        deadline = time.time() + 30
+        while time.time() < deadline and not all(
+                q.state_machine.is_done()
+                for q in primary.state.tracker.all()):
+            time.sleep(0.02)
+        one["fence_refusals"] = list(primary.state.ledger.fence_refusals)
+    for w in workers:
+        w.kill()
+    standby.kill()
+    for c in (primary, standby):
+        c.state.dispatcher.pool.shutdown(wait=False)
+    shutil.rmtree(root, ignore_errors=True)
+    return one
 
 
 # ---------------------------------------------------------------------------
