@@ -225,7 +225,22 @@ Phases, each failing the run with a non-zero exit:
    library, the second run compiles nothing; EXPLAIN ANALYZE of q3 on a
    port coordinator with two workers (deviceMs > 0 in every task's
    TaskStats and in the operator rollup); and q3's steady wall with
-   profiling off and on, five runs each, interleaved;
+   profiling off and on, five runs each, interleaved; then the scale
+   phase (``phase_scale``, counters set to 0 just before and read just
+   after): the reference's end-to-end configurations through
+   ``trino_tpu_torch/e2e.run_e2e`` with their data in a temporary
+   directory outside the checkout (generated, with the oracles'
+   results, by a child process running ``e2e.prepare`` from the end of
+   the kernel build on, beside the phases before), q5-shaped at SF10
+   (cut from the reference's SF100; 59,994,842 lineitem rows in two
+   chunks of 33,554,432 from the narrowed fact cache) and TPC-H q3 at
+   ``tpch.sf10``, each once cold and three times steady, then one more
+   steady q5 under torch.profiler and a cold q5 in a fresh Session
+   under cProfile; rows equal to the numpy oracles to the cent, q5's
+   steady runs slice their chunks from the fact cache, K1 launches, no
+   file is left under the checkout, and each star dimension's verdict
+   (fused, its degrade reason, or the ladder) is printed; each phase's
+   wall is logged as ``<phase> took N s``;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -260,6 +275,8 @@ Phases, each failing the run with a non-zero exit:
    time; beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
    masked-sum `direct` arm) on q12's batch, with its key redrawn over 2 to
    16 groups, to place the crossover that `mxu_agg = auto` models;
+   and each launch of the scale phase larger than the main paths'
+   largest of the same kernel (K1 per path), timed the same way;
 8. a `kernels` JSON line (K1 with a row per tile size), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 
@@ -1315,12 +1332,8 @@ def _strategy_lines(session, sql):
 
 
 def _counters():
-    from trino_tpu_torch.ops import direct_agg as k5
-    from trino_tpu_torch.ops import gather as k1
-    from trino_tpu_torch.ops import hashtable as ht
-    return {"K1": k1.gather_columns, "K2": k1.gather_word_windowed,
-            "K3": ht.hash_insert_multi, "K4": ht.multiway_probe,
-            "K5": k5.direct_group_aggregate_mxu}
+    from trino_tpu_torch.e2e import kernel_counters
+    return kernel_counters()
 
 
 def reset_counts():
@@ -4928,6 +4941,207 @@ def phase_soaks(recorder):
     return launches
 
 
+# the scale phase: the reference's end-to-end configurations (bench.py's
+# default mode) through trino_tpu_torch/e2e.py. q5-shaped is cut from
+# the reference's SF100 to SF10 (at SF100 its generation and upload alone
+# take minutes of the script's limit); q3 runs at the reference's own
+# tpch.sf10
+SCALE_Q5 = 10
+SCALE_CHUNK_ROWS = 33_554_432
+SCALE_Q3_SCHEMA = "sf10"
+SCALE_RUNS = 3
+
+
+# the scale phase's set-up, run by a child process from the script's
+# start: its tables and oracles' results into the phase's data root
+_SCALE_PREPARE = (
+    "import sys\n"
+    "from trino_tpu_torch import e2e\n"
+    "print(e2e.prepare('q5,q3', float(sys.argv[1]), "
+    "q3_schema=sys.argv[2]))\n")
+
+
+class ScaleData:
+    """The scale phase's data root: a temporary directory outside the
+    checkout, filled by a child process (``e2e.prepare``: generation and
+    the numpy oracles) that runs beside the phases before the scale
+    phase; on close the child is stopped and the directory removed."""
+
+    def __init__(self):
+        import tempfile
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+        self.log_path = os.path.join(self.root, "prepare.log")
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", _SCALE_PREPARE, str(SCALE_Q5),
+                 SCALE_Q3_SCHEMA], cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, TRINO_TPU_DATA_CACHE=self.root))
+
+    def wait(self, timeout_s: float = 600.0) -> str:
+        """Wait for the child; its output (the seconds each
+        configuration's set-up took)."""
+        t = time.monotonic()
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(self.log_path) as f:
+            text = f.read().strip()
+        require(rc == 0, f"the scale data's child process ended with "
+                         f"{rc}: {text[-2000:]}")
+        log(f"scale data ready (waited {time.monotonic() - t:.1f} s for "
+            f"the child): {text[-300:]}")
+        return text
+
+    def close(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def _tree_files() -> set:
+    """Every file of the checkout this script runs from, but git's,
+    Python's caches, the kernel build and the git-ignored run-output
+    folder: what a phase may not leave behind."""
+    skip = {".git", "__pycache__", "_build", "chiprun_out"}
+    out = set()
+    for dirpath, dirnames, files in os.walk(HERE):
+        dirnames[:] = [d for d in dirnames if d not in skip]
+        out.update(os.path.join(dirpath, f) for f in files)
+    return out
+
+
+class _StarDimensions:
+    """Wraps the executor's star sizing (``_multijoin_tables``) while
+    active: per star, each dimension's tables and whether it was fused
+    or the reason it degraded to the pairwise ladder."""
+
+    def __enter__(self):
+        from trino_tpu_torch.exec import executor as X
+        self.stars = {}
+        real = self._real = X.Executor._multijoin_tables
+        stars = self.stars
+
+        def sized(ex, node, fact, dims):
+            noted = []
+            note = ex._note_multijoin_degrade
+
+            def noting(reason, count=1):
+                noted.append(reason)
+                return note(reason, count)
+            ex._note_multijoin_degrade = noting
+            try:
+                fused, degraded = real(ex, node, fact, dims)
+            finally:
+                del ex._note_multijoin_degrade
+            verdict = dict(zip(degraded, noted))
+            for d in (fused[0] if fused is not None else ()):
+                verdict[d] = "fused"
+            # a dimension that fit, left alone: a star needs two fused
+            # dimensions, or the whole star runs the pairwise ladder
+            alone = "ladder (the only dimension that fit)"
+            names = [",".join(sorted(sc.table for sc in
+                                     X._subtree_scans(node.dims[d])))
+                     for d in range(len(node.dims))]
+            stars[id(node)] = {names[d]: verdict.get(d, alone)
+                               for d in range(len(names))}
+            return fused, degraded
+        X.Executor._multijoin_tables = sized
+        return self
+
+    def __exit__(self, *exc):
+        from trino_tpu_torch.exec import executor as X
+        X.Executor._multijoin_tables = self._real
+        return False
+
+
+def phase_scale(recorder, data):
+    """The reference's end-to-end configurations at scale
+    (``trino_tpu_torch/e2e.run_e2e``), counters set to 0 just before and
+    read just after: q5-shaped at SF10 streamed through the chunked
+    driver from the narrowed fact cache (33,554,432-row chunks) and
+    TPC-H q3 at ``tpch.sf10``, each once cold and three times steady,
+    with its data under a temporary directory outside the checkout
+    (generated by `data`'s child process beside the earlier phases),
+    then one more steady q5 under torch.profiler and a cold q5 in a
+    fresh Session under cProfile. Gates: rows equal to
+    the numpy oracles, q5's steady runs slicing chunks from the fact
+    cache, K1 launched, and no file left under the checkout."""
+    from trino_tpu_torch import e2e
+    from trino_tpu_torch.exec.session import Session
+    t_phase = time.monotonic()
+    before = _tree_files()
+    data.wait()
+    profiles, cold = {}, {}
+
+    def on_session(key, session, rec):
+        if key.startswith("q5_"):
+            profiles[key] = _device_profile(session, e2e.Q5, top=10)
+            # a cold run in a fresh Session over the same tables (the
+            # narrowed columns come back from the disk tier): where its
+            # host time goes
+            fresh = Session(catalog=session.catalog, default_cat="bench",
+                            default_schema="q5")
+            fresh.properties["spill_chunk_rows"] = SCALE_CHUNK_ROWS
+            fresh.executor.spill_chunk_rows = SCALE_CHUNK_ROWS
+            cold[key] = _host_profile(fresh, e2e.Q5, top=30)
+
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    recorder.scale = ScaleLaunches()
+    try:
+        with _StarDimensions() as stars:
+            rec = e2e.run_e2e(only="q5,q3", q5_scale=SCALE_Q5,
+                              chunk_rows=SCALE_CHUNK_ROWS,
+                              q3_schema=SCALE_Q3_SCHEMA, runs=SCALE_RUNS,
+                              data_cache=data.root, log=log,
+                              on_session=on_session)
+    finally:
+        recorder.active, recorder.keep = False, True
+        data.close()
+    launches = read_counts()
+    left = sorted(_tree_files() - before)
+    d = rec["detail"]
+    q5, q3 = d[f"q5_sf{SCALE_Q5:g}"], d[f"q3_{SCALE_Q3_SCHEMA}"]
+    for key, c in ((f"q5 SF{SCALE_Q5:g}", q5),
+                   (f"q3 tpch.{SCALE_Q3_SCHEMA}", q3)):
+        line = {k: c.get(k) for k in (
+            "verified", "gen_s", "cpu_ms", "cold_ms", "steady_ms",
+            "steady_runs_ms", "rows_lineitem", "fact_cache_chunks",
+            "steady_fact_cache_chunks", "chunk_lut_joins", "launches",
+            "peak_allocated_bytes", "fact_cache_device_bytes",
+            "scan_cache_bytes", "pool_peak_bytes",
+            "multijoin_degrade_reasons", "strategy")}
+        log(f"scale {key}: " + json.dumps(line))
+    verdicts = {json.dumps(v, sort_keys=True) for v in stars.stars.values()}
+    log("scale q5 star dimensions (fused or the degrade reason), each "
+        "distinct verdict of its runs: " + ", ".join(sorted(verdicts)))
+    for key, prof in profiles.items():
+        log(f"scale {key} device profile (one more steady run): "
+            + json.dumps(prof))
+        log(f"scale {key} host profile of a cold run in a fresh Session "
+            f"(narrowed columns from the disk tier): "
+            + json.dumps(cold[key]))
+    log(f"scale: card {d['card']}, {d['power_limit']}; host "
+        f"{d['host_mem_total_kb']} kB, {d['host_cpus']} CPUs; phase "
+        f"{time.monotonic() - t_phase:.1f} s, launches "
+        + json.dumps(launches) + "; by size: "
+        + json.dumps(recorder.scale.sizes))
+    require(q5["verified"] and q3["verified"],
+            f"scale rows differ from the oracles: q5 "
+            f"{q5.get('rows')} vs {q5.get('want')}; q3 {q3.get('rows')} "
+            f"vs {q3.get('want')}")
+    require(q5["steady_fact_cache_chunks"] > 0,
+            "q5's steady runs sliced no chunk from the fact cache")
+    require(launches["K1"] > 0, f"the scale phase launched {launches}")
+    require(not left and not os.path.exists(data.root),
+            f"the scale phase left data under the checkout: {left[:5]}")
+    return launches
+
+
 MESH_SHARDS = 8
 # SELECTIVE and PROBE_ROWS of tests/test_mesh_dynamic_filter.py (that file
 # imports the JAX package, which this script must not load)
@@ -5652,6 +5866,30 @@ def k1_path(tables) -> str:
     return K1_PATHS[0] if any(p.big_tile for p in plans) else K1_PATHS[1]
 
 
+class ScaleLaunches:
+    """The scale phase's largest launch of each kernel (K1's per path) and
+    its launch counts, kept apart from the main-path shapes the timing
+    phase times; read with the same timing helpers."""
+
+    def __init__(self):
+        self.k1, self.k1_launches = {}, {}
+        self.k2 = self.k3 = self.k4 = None
+        self.sizes = {}
+        self.launches = {"K2": 0, "K3": 0, "K4": 0}
+
+    def keep(self, kernel: str, args, size: int) -> None:
+        self.launches[kernel] += 1
+        if size > self.sizes.get(kernel, -1):
+            self.sizes[kernel] = size
+            setattr(self, kernel.lower(), args)
+
+    def keep_k1(self, path: str, args, launches: int) -> None:
+        self.k1_launches[path] = self.k1_launches.get(path, 0) + launches
+        kept = self.k1.get(path)
+        if kept is None or args[1].shape[0] > kept[1].shape[0]:
+            self.k1[path] = args
+
+
 class LaunchRecorder:
     """Keeps the inputs of the largest launch of each kernel in the main
     paths (by rows) so that the timing phase times the kernels on them.
@@ -5681,6 +5919,9 @@ class LaunchRecorder:
         # memory-pressure path's resident and spilled aggregates)
         self.capture = None
         self.captured = {}        # label -> (largest launch, launches)
+        # the scale phase's largest launches, apart from the timed
+        # main-path shapes (ScaleLaunches)
+        self.scale = None
 
     def recording(self) -> bool:
         return self.active and self.keep
@@ -5703,6 +5944,8 @@ class LaunchRecorder:
             if self.recording() and (self.k2 is None or
                                      idx.shape[0] > self.k2[1].shape[0]):
                 self.k2 = (planes, idx)
+            if self.active and self.scale is not None:
+                self.scale.keep("K2", (planes, idx), idx.shape[0])
             return real_k2(planes, idx)
         k1._launch_window = k2_launch
 
@@ -5711,6 +5954,9 @@ class LaunchRecorder:
                                      live.shape[0] > len(self.k4[1]) *
                                      self.k4[0].shape[0]):
                 self.k4 = (live, list(keys), tkey, src)
+            if self.active and self.scale is not None:
+                self.scale.keep("K4", (live, list(keys), tkey, src),
+                                len(keys) * live.shape[0])
             return real_k4(live, keys, tkey, src)
 
         def k5_launch(batch, key_indices, domains, aggs):
@@ -5746,8 +5992,11 @@ class LaunchRecorder:
             with self._k1_lock:
                 before = k1.gather_columns.launches
                 out = real_k1(tables, idx, fills)
-                self.k1_launches[path] = self.k1_launches.get(path, 0) + \
-                    k1.gather_columns.launches - before
+                n = k1.gather_columns.launches - before
+                self.k1_launches[path] = self.k1_launches.get(path, 0) + n
+            if self.scale is not None:
+                self.scale.keep_k1(path, (list(tables), idx, list(fills)),
+                                   n)
             return out
 
         def k3_launch(key, mask, tid, planes, layout, nstates, T, G,
@@ -5771,6 +6020,8 @@ class LaunchRecorder:
                     kept[0].shape[0] * kept[7]):
                 self.k3[site] = args
             self.k3_launches[site] = self.k3_launches.get(site, 0) + 1
+            if self.scale is not None:
+                self.scale.keep("K3", args, key.shape[0] * G)
             return real_k3(*args)
 
         def at_site(name, method):
@@ -5816,6 +6067,40 @@ def phase_timing(recorder, launches):
     out.extend(_time_k3(recorder))
     out.append(_time_k4(recorder, launches))
     out.extend(_time_k5(recorder, launches))
+    out.extend(_time_scale(recorder, flush))
+    return out
+
+
+def _time_scale(recorder, flush):
+    """The scale phase's launches that are larger than the main-path
+    launch the rows above time for the same kernel (K1 per path), each
+    timed the same way and named for the scale phase."""
+    sc = recorder.scale
+    if sc is None:
+        return []
+    tag = (f" at scale (q5-shaped SF{SCALE_Q5:g}, q3 "
+           f"tpch.{SCALE_Q3_SCHEMA})")
+    out = []
+    for path in K1_PATHS:
+        if path in sc.k1 and \
+                sc.k1[path][1].shape[0] > recorder.k1[path][1].shape[0]:
+            out.append(_time_k1(sc, path, flush))
+    if sc.k2 is not None and \
+            sc.k2[1].shape[0] > recorder.k2[1].shape[0]:
+        out.append(_time_k2(sc, sc.launches, flush))
+    main_k3 = max([a[0].shape[0] * a[7] for a in recorder.k3.values()] +
+                  [a[0].shape[0] * a[7]
+                   for a, _n in recorder.captured.values()])
+    if sc.k3 is not None and sc.sizes["K3"] > main_k3:
+        out.append(_k3_row("the scale phase's largest", sc.k3,
+                           sc.launches["K3"]))
+    if sc.k4 is not None and \
+            sc.sizes["K4"] > len(recorder.k4[1]) * recorder.k4[0].shape[0]:
+        out.append(_time_k4(sc, sc.launches))
+    for row in out:
+        row["name"] += tag
+    log("scale launches beyond the main paths' largest: "
+        + json.dumps([row["name"] for row in out]))
     return out
 
 
@@ -6346,39 +6631,11 @@ def main() -> int:
     # statement replay only what this run recorded
     remove_decision_file()
     smi = phase_card()
-    phase_k1(dev)
-    phase_k2(dev)
-    phase_k3(dev)
-    phase_k4(dev)
-    phase_k5(dev)
-    recorder = LaunchRecorder()
-    recorder.install()
-    fam_before = families_snapshot()
-    session, tables, launches = phase_tpch_path(recorder)
-    ds_launches, ds_session, ds_tables, ds_expected, ds_walls = \
-        phase_tpcds_path(recorder)
-    paths = [ds_launches, phase_q12_path(recorder, session, tables),
-             phase_chunked_path(recorder, session, tables),
-             phase_ds_chunked(recorder, ds_session, ds_tables, ds_expected,
-                              ds_walls),
-             phase_stream_build(recorder, session),
-             phase_corpus_paths(recorder, session, tables, ds_session),
-             phase_corpus_card(recorder, session, ds_session),
-             phase_write_path(recorder, session),
-             phase_memory_pressure(recorder, session, tables),
-             phase_http_path(recorder, session, tables),
-             phase_cluster_path(recorder, session, tables),
-             phase_fault_tolerance(recorder, session, tables),
-             phase_soaks(recorder),
-             phase_mesh_path(recorder, session, tables, ds_session),
-             phase_introspection(recorder, session, tables, ds_session,
-                                 smi, fam_before)]
-    for path in paths:
-        for name, count in path.items():
-            launches[name] += count
-    log("main paths, launches in all: " + json.dumps(launches))
-    phase_device_profiles(session, ds_session)
-    kernels = phase_timing(recorder, launches)
+    scale_data = ScaleData()
+    try:
+        kernels = _run_phases(dev, smi, scale_data)
+    finally:
+        scale_data.close()
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "trino_tpu."))
               or m == "trino_tpu"]
@@ -6389,6 +6646,54 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _timed(fn, *args):
+    """Run one phase and log its wall."""
+    t = time.monotonic()
+    out = fn(*args)
+    log(f"{fn.__name__} took {time.monotonic() - t:.1f} s")
+    return out
+
+
+def _run_phases(dev, smi, scale_data) -> list:
+    """Every phase after the card's: the kernels against their plain
+    versions, the main paths (their launches summed), the device
+    profiles and the timing; returns the kernels line's rows."""
+    for check in (phase_k1, phase_k2, phase_k3, phase_k4, phase_k5):
+        _timed(check, dev)
+    recorder = LaunchRecorder()
+    recorder.install()
+    fam_before = families_snapshot()
+    session, tables, launches = _timed(phase_tpch_path, recorder)
+    ds_launches, ds_session, ds_tables, ds_expected, ds_walls = \
+        _timed(phase_tpcds_path, recorder)
+    paths = [ds_launches,
+             _timed(phase_q12_path, recorder, session, tables),
+             _timed(phase_chunked_path, recorder, session, tables),
+             _timed(phase_ds_chunked, recorder, ds_session, ds_tables,
+                    ds_expected, ds_walls),
+             _timed(phase_stream_build, recorder, session),
+             _timed(phase_corpus_paths, recorder, session, tables,
+                    ds_session),
+             _timed(phase_corpus_card, recorder, session, ds_session),
+             _timed(phase_write_path, recorder, session),
+             _timed(phase_memory_pressure, recorder, session, tables),
+             _timed(phase_http_path, recorder, session, tables),
+             _timed(phase_cluster_path, recorder, session, tables),
+             _timed(phase_fault_tolerance, recorder, session, tables),
+             _timed(phase_soaks, recorder),
+             _timed(phase_mesh_path, recorder, session, tables,
+                    ds_session),
+             _timed(phase_introspection, recorder, session, tables,
+                    ds_session, smi, fam_before),
+             _timed(phase_scale, recorder, scale_data)]
+    for path in paths:
+        for name, count in path.items():
+            launches[name] += count
+    log("main paths, launches in all: " + json.dumps(launches))
+    _timed(phase_device_profiles, session, ds_session)
+    return _timed(phase_timing, recorder, launches)
 
 
 if __name__ == "__main__":

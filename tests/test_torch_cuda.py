@@ -1264,3 +1264,106 @@ def test_timestamp_pre_epoch_on_card_equals_cpu():
             sess.execute(sql)
     for sql in TS_QUERIES:
         assert gpu.execute(sql).rows == cpu.execute(sql).rows, sql
+
+
+# ---------------------------------------------------------------------------
+# the scale path's largest launches (trino_tpu_torch/e2e.py, q5-shaped at
+# SF100 in 33,554,432-row chunks): each as large as the run made it
+# ---------------------------------------------------------------------------
+
+SCALE_CHUNK = 33_554_432
+# the planner rounds q5-shaped SF100's o_orderkey domain (max key
+# 599,999,976, plus 2) up to 2^30: the dense LUT has 2^30 + 1 entries
+SF100_ORDERKEY_LUT = (1 << 30) + 1
+
+
+def _chunk_keys(dev, g, width, n):
+    """A chunk of sorted keys in [0, width), every 1009th past the top
+    and every 997th negative (misses)."""
+    idx = torch.randint(0, width, (n,), dtype=torch.int64, device=dev,
+                        generator=g).sort().values
+    idx[::1009] = width + 7
+    idx[1::997] = -3
+    return idx
+
+
+def _k1_equal(tables, idx, fills):
+    before = k1.gather_columns.launches
+    got = k1.gather_columns(tables, idx, fills)
+    want = k1.gather_columns_plain(tables, idx, fills)
+    torch.cuda.synchronize()
+    assert k1.gather_columns.launches > before
+    for gv, wv in zip(got, want):
+        assert gv.dtype == wv.dtype and gv.shape == (idx.shape[0],)
+        assert torch.equal(gv, wv)
+
+
+def test_k1_scale_chunk_into_sf100_orderkey_lut_on_card():
+    """K1's widest launch on the scale path: a chunk of 33,554,432 int64
+    order keys into the dense int32 LUT of 2^30 + 1 entries that
+    q5-shaped SF100's orders hop builds (csrc/gather.cu narrows each
+    index to int, so a table's width must stay under 2^31), against the
+    plain version: equal words."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    lut = torch.randint(-(1 << 30), 1 << 30, (SF100_ORDERKEY_LUT,),
+                        dtype=torch.int32, device=dev, generator=g)
+    idx = _chunk_keys(dev, g, SF100_ORDERKEY_LUT, SCALE_CHUNK)
+    _k1_equal([lut], idx, [0])
+    # and the last entry, which only a table past 2^30 rows has
+    edge = torch.tensor([SF100_ORDERKEY_LUT - 1, 0], device=dev)
+    _k1_equal([lut], edge, [0])
+
+
+def test_k1_scale_chunk_payload_gather_on_card():
+    """K1's payload gather on the scale path: a chunk of 33,554,432
+    int32 row ids into the five columns (int64, int64, int32, int64,
+    int64) of the orders hop's 25,165,824-row build, with fills,
+    against the plain version."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    w = 25_165_824
+    dts = [torch.int64, torch.int64, torch.int32, torch.int64, torch.int64]
+    tables = [torch.randint(-(1 << 30), 1 << 30, (w,), dtype=dt,
+                            device=dev, generator=g) for dt in dts]
+    idx = _chunk_keys(dev, g, w, SCALE_CHUNK).to(torch.int32)
+    _k1_equal(tables, idx, [-1, 0, 7, -5, 3])
+
+
+def test_k4_scale_chunk_widest_tables_on_card():
+    """K4 on a whole scale chunk (33,554,432 fact rows) against two
+    dimensions at the widest table a star may take (MAX_TABLE_SLOTS
+    slots; 28,000 keys each, load 0.21, so no chain escapes): the launch
+    q5's star would make at scale if its dimensions fit (its orders
+    dimension degrades for `vmem` at SF10 and SF100, so the star runs
+    the pairwise ladder and the run itself launches none), against the
+    plain version: found and miss bit-exact, one launch."""
+    from trino_tpu_torch.batch import Batch, Column
+    dev = _card()
+    rng = np.random.default_rng(20)
+    n, slots, m = SCALE_CHUNK, ht.MAX_TABLE_SLOTS, 28_000
+    builds, cols = [], []
+    for d in range(2):
+        keys = rng.choice(1 << 30, m, replace=False)
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        builds.append(Batch((Column(torch.from_numpy(keys).to(dev),
+                                    ones),), ones))
+        fk = np.where(rng.random(n) < 0.7, keys[rng.integers(0, m, n)],
+                      rng.integers(1 << 30, (1 << 31) - 1, n))
+        cols.append(Column(torch.from_numpy(fk).to(dev),
+                           torch.from_numpy(rng.random(n) > 0.01).to(dev)))
+    probe = Batch(tuple(cols), torch.from_numpy(rng.random(n) > 0.02).to(
+        dev))
+    tkey, src, dup, esc = ht.build_join_tables(builds, [(0,)] * 2, slots)
+    assert int(dup.sum()) == int(esc.sum()) == 0
+    pk = ((0,), (1,))
+    before = ht.multiway_probe.launches
+    found, miss = ht.multiway_probe(probe, tkey, src, pk)
+    torch.cuda.synchronize()
+    assert ht.multiway_probe.launches == before + 1
+    found2, miss2 = ht._multiway_probe_keys_plain(
+        probe.live, [(c.data, c.valid) for c in cols], tkey, src)
+    assert torch.equal(found, found2) and torch.equal(miss, miss2)
+    assert int(miss[0]) > 0 and int((found[1] >= 0).sum()) > 0

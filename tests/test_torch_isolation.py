@@ -1,7 +1,8 @@
 """The port stands alone: importing trino_tpu_torch and running a query,
 in process, on the port's mesh (MeshExecutor over eight CPU shards, a
 partitioned join), on a port cluster (coordinator, stage scheduler,
-worker, failure detector, verifier) or through a soak, loads
+worker, failure detector, verifier), through a soak or through the
+end-to-end configurations (e2e.py), loads
 neither jax nor the reference package (checked in fresh interpreters),
 and no module of the port or chip_smoke.py imports them."""
 
@@ -78,6 +79,19 @@ print("LEAKED", bad)
 """
 
 
+_E2E_PROBE = """
+import sys
+from trino_tpu_torch import e2e
+code = e2e.main(["--q5-scale", "0.01", "--chunk-rows", "16384",
+                 "--q6-schema", "tiny", "--q3-schema", "tiny",
+                 "--device", "cpu"])
+assert code == 0, code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu", "bench"))
+print("LEAKED", bad)
+"""
+
+
 def _run_probe(probe):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
@@ -100,10 +114,15 @@ def test_fresh_interpreter_soak_loads_no_jax_or_reference():
     _run_probe(_SOAK_PROBE)
 
 
+def test_fresh_interpreter_e2e_loads_no_jax_or_reference():
+    _run_probe(_E2E_PROBE)
+
+
 def test_cluster_modules_are_checked():
     paths = {os.path.relpath(p, REPO) for p in _port_sources()}
     for m in ("server/tasks.py", "server/worker.py", "server/scheduler.py",
-              "server/failuredetector.py", "verifier.py", "soak.py"):
+              "server/failuredetector.py", "verifier.py", "soak.py",
+              "e2e.py"):
         assert os.path.join("trino_tpu_torch", m) in paths
 
 
@@ -135,7 +154,7 @@ def test_no_module_imports_jax_or_reference(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib",
-                                              "trino_tpu"), \
+                                              "trino_tpu", "bench"), \
                 f"{path}:{node.lineno} imports {name}"
 
 
