@@ -239,8 +239,27 @@ Phases, each failing the run with a non-zero exit:
    under cProfile; rows equal to the numpy oracles to the cent, q5's
    steady runs slice their chunks from the fact cache, K1 launches, no
    file is left under the checkout, and each star dimension's verdict
-   (fused, its degrade reason, or the ladder) is printed; each phase's
-   wall is logged as ``<phase> took N s``;
+   (fused, its degrade reason, or the ladder) is printed; then the
+   bench-modes phase (``phase_bench_modes``, counters set to 0 just
+   before and read just after): the four kernel micro-benchmarks of
+   ``trino_tpu_torch/micro.py`` at the card's shapes (K1 and K2 against
+   ``index_select`` over tables of 4,096-65,536 rows and 2^22 probes; the
+   sort, direct and hash arms from 10^2 to 10^7 groups over 2^24 rows;
+   the fused star against the pairwise ladder at four widths and hit
+   rates over 2^22 fact rows; the scan path at 2^22 rows), each record
+   written into a temporary directory and parsed back by
+   ``regressions.load_bench_round``, then ``coldstart.cold_start`` for
+   q3, q5 and q6 at ``tpch.tiny`` with fresh child processes and an
+   empty kernel build directory; K1's outputs equal ``index_select``'s,
+   K2's words and escapes its plain version's, the aggregate arms the
+   same groups, every star equal to its ladder and fused unless K3's
+   build of a dimension escaped (the reference's gate), the scan's
+   rows identical with pruning on and off and at both prefetch depths,
+   the decode counts equal to a CPU process's run of the same function,
+   every cold child's rows the steady session's, K1-K4 launched and no
+   file left under the checkout; the cold gate's ratios and verdict are
+   printed, not required; each phase's wall is logged as ``<phase> took
+   N s``;
 7. timing of each kernel on the inputs of its largest launch in the main
    paths before the corpus paths (whose launches are counted but whose
    inputs are not kept, so the timed shapes stay comparable): K1 on each
@@ -275,8 +294,9 @@ Phases, each failing the run with a non-zero exit:
    time; beside K5, the two arms of a direct aggregate (K5's `mxu` arm and the
    masked-sum `direct` arm) on q12's batch, with its key redrawn over 2 to
    16 groups, to place the crossover that `mxu_agg = auto` models;
-   and each launch of the scale phase larger than the main paths'
-   largest of the same kernel (K1 per path), timed the same way;
+   and each launch of the scale and bench-modes phases larger than the
+   main paths' largest of the same kernel (K1 per path), timed the same
+   way;
 8. a `kernels` JSON line (K1 with a row per tile size), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 
@@ -5091,7 +5111,7 @@ def phase_scale(recorder, data):
 
     reset_counts()
     recorder.active, recorder.keep = True, False
-    recorder.scale = ScaleLaunches()
+    recorder.scale = recorder.extra = ScaleLaunches()
     try:
         with _StarDimensions() as stars:
             rec = e2e.run_e2e(only="q5,q3", q5_scale=SCALE_Q5,
@@ -5101,6 +5121,7 @@ def phase_scale(recorder, data):
                               on_session=on_session)
     finally:
         recorder.active, recorder.keep = False, True
+        recorder.extra = None
         data.close()
     launches = read_counts()
     left = sorted(_tree_files() - before)
@@ -5139,6 +5160,141 @@ def phase_scale(recorder, data):
     require(launches["K1"] > 0, f"the scale phase launched {launches}")
     require(not left and not os.path.exists(data.root),
             f"the scale phase left data under the checkout: {left[:5]}")
+    return launches
+
+
+# the bench-modes phase: bench.py's measurement modes through
+# trino_tpu_torch/micro.py and coldstart.py. The scan micro is cut from
+# its 2^24 rows to 2^22 (its zlib ORC write and reads are host work of
+# tens of seconds at 2^24; `python -m trino_tpu_torch.micro scan` runs
+# the full size), the cold start to one prewarmed child a query beside
+# the seed child (the reference's default is two)
+BENCH_SCAN_ROWS = 1 << 22
+BENCH_COLD_RUNS = 1
+
+# the scan micro's decode counts in a process of their own on the CPU
+# (host work only), started with the phase and read at its end
+_DECODE_CHILD = (
+    "import json, sys\n"
+    "from trino_tpu_torch import micro\n"
+    "rows = int(sys.argv[1])\n"
+    "print(json.dumps(micro.decode_counts(micro.scan_table(rows), "
+    "micro.zone_rows_for(rows))))\n")
+
+
+def phase_bench_modes(recorder):
+    """The four kernel micro-benchmarks at the card's shapes, then the
+    fresh-process cold start of q3, q5 and q6 with an empty kernel
+    build directory, counters set to 0 just before and read just after.
+    Each record is written into a temporary directory outside the
+    checkout, parsed back by ``regressions.load_bench_round`` (the
+    gather record, which no series of the gate reads, loaded back),
+    printed and checked: K1 equal to ``index_select``, K2 to its plain
+    version, the aggregate arms the same groups, every star equal to its
+    ladder and fused unless K3's build escaped (the reference's gate:
+    its own K3 escapes one key of a 4,096-key dimension at 8,192
+    slots), the scan identical with pruning on and off and across
+    prefetch depths, its decode counts equal to a CPU process's, every
+    cold child's rows the steady session's. The cold gate's ratios and
+    verdict are measured outcomes: printed, not required."""
+    import shutil
+    import tempfile
+
+    import torch
+    from trino_tpu_torch import coldstart, e2e, micro, regressions
+    before = _tree_files()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    decode_child = subprocess.Popen(
+        [sys.executable, "-c", _DECODE_CHILD, str(BENCH_SCAN_ROWS)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    saved_build = os.environ.get("TRINO_TPU_CUDA_BUILD_DIR")
+    records, walls = {}, {}
+    reset_counts()
+    recorder.active, recorder.keep = True, False
+    recorder.bench = recorder.extra = ScaleLaunches()
+    try:
+        for mode in micro.MODES:
+            kwargs = {"rows": BENCH_SCAN_ROWS} if mode == "scan" else {}
+            t = time.monotonic()
+            records[mode] = micro.RUNNERS[mode](
+                out_path=os.path.join(tmp, micro.FILES[mode]), **kwargs)
+            walls[mode] = round(time.monotonic() - t, 1)
+            log(f"bench {mode}_micro ({walls[mode]} s): "
+                + json.dumps(records[mode]))
+            e2e._release(torch.device("cuda"))
+        # the children build every kernel library they launch into an
+        # empty directory: the seed child of the first query runs nvcc
+        os.environ["TRINO_TPU_CUDA_BUILD_DIR"] = os.path.join(tmp, "build")
+        t = time.monotonic()
+        cold = coldstart.cold_start(
+            cold_runs=BENCH_COLD_RUNS,
+            out_path=os.path.join(tmp, "BENCH_cold_r01.json"), log=log)
+        walls["cold_start"] = round(time.monotonic() - t, 1)
+    finally:
+        recorder.active, recorder.keep = False, True
+        recorder.extra = None
+        if saved_build is None:
+            os.environ.pop("TRINO_TPU_CUDA_BUILD_DIR", None)
+        else:
+            os.environ["TRINO_TPU_CUDA_BUILD_DIR"] = saved_build
+        try:
+            decode_out, _ = decode_child.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            decode_child.kill()
+            decode_out, _ = decode_child.communicate()
+        # the gate's series parse into their configs; the gather record
+        # belongs to none (as in the reference's gate) and reads back
+        parsed = {name: regressions.load_bench_round(os.path.join(tmp, name))
+                  for name in ("BENCH_agg_micro.json",
+                               "BENCH_star_micro.json",
+                               "BENCH_scan_micro.json",
+                               "BENCH_cold_r01.json")}
+        gather_path = os.path.join(tmp, micro.FILES["gather"])
+        gather_back = None
+        if os.path.exists(gather_path):
+            with open(gather_path) as f:
+                gather_back = json.load(f)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    log(f"bench cold start ({walls['cold_start']} s): " + json.dumps(cold))
+    for r in cold["records"]:
+        log(f"bench cold gate {r['query']}: ratio {r['ratio']} (cold "
+            f"{r['cold_ms']} ms / steady {r['steady_ms']} ms, gate "
+            f"{cold['ratio_gate']}), passed {r['passed']}; seed "
+            f"{r['seed_ms']} ms with {r['seed_fresh_compiles']} nvcc "
+            f"builds in {r['seed_compile_s']} s")
+    log(f"bench cold gate passed {cold['passed']}")
+    log("bench modes: launches " + json.dumps(launches) + " (by mode: "
+        + json.dumps({m: records[m]["launches"] for m in records})
+        + "), walls " + json.dumps(walls) + ", parsed rounds "
+        + json.dumps(parsed))
+    for r in records["star"]["records"]:
+        log(f"bench star k={r['dims']} hit rate {r['hit_rate']}: "
+            f"{r['fused_probes']} fused runs, degrades "
+            f"{r['degrade_reasons']}, fused {r['fused_ms']} ms, pairwise "
+            f"{r['pairwise_ms']} ms")
+    # a star may take the ladder only where K3's build escaped (the
+    # reference's own verdict on these dimensions)
+    bad = [b for rec in records.values() for b in micro.failures(rec)]
+    require(not bad, f"the micro-benchmarks' arms disagree: {bad[:3]}")
+    try:
+        cpu_decode = json.loads(decode_out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        cpu_decode = None
+    require(decode_child.returncode == 0 and
+            cpu_decode == records["scan"]["decode"],
+            f"the scan micro's decode counts differ from the CPU run's: "
+            f"{records['scan']['decode']} vs {decode_out[-2000:]}")
+    require(all(r["answers_steady"] for r in cold["records"]),
+            "a cold child's rows differ from the steady session's")
+    require(all(parsed.values()) and gather_back == records["gather"],
+            f"a record does not parse as a round: {parsed}")
+    require(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")),
+            f"the bench modes launched {launches}")
+    left = sorted(_tree_files() - before)
+    require(not left and not os.path.exists(tmp),
+            f"the bench modes left files under the checkout: {left[:5]}")
     return launches
 
 
@@ -5867,9 +6023,10 @@ def k1_path(tables) -> str:
 
 
 class ScaleLaunches:
-    """The scale phase's largest launch of each kernel (K1's per path) and
-    its launch counts, kept apart from the main-path shapes the timing
-    phase times; read with the same timing helpers."""
+    """A phase's largest launch of each kernel (K1's per path) and its
+    launch counts (the scale and bench-modes phases), kept apart from
+    the main-path shapes the timing phase times; read with the same
+    timing helpers."""
 
     def __init__(self):
         self.k1, self.k1_launches = {}, {}
@@ -5919,9 +6076,10 @@ class LaunchRecorder:
         # memory-pressure path's resident and spilled aggregates)
         self.capture = None
         self.captured = {}        # label -> (largest launch, launches)
-        # the scale phase's largest launches, apart from the timed
-        # main-path shapes (ScaleLaunches)
-        self.scale = None
+        # the scale and bench-modes phases' largest launches, apart from
+        # the timed main-path shapes (ScaleLaunches); `extra` is the one
+        # the running phase fills
+        self.scale = self.bench = self.extra = None
 
     def recording(self) -> bool:
         return self.active and self.keep
@@ -5944,8 +6102,8 @@ class LaunchRecorder:
             if self.recording() and (self.k2 is None or
                                      idx.shape[0] > self.k2[1].shape[0]):
                 self.k2 = (planes, idx)
-            if self.active and self.scale is not None:
-                self.scale.keep("K2", (planes, idx), idx.shape[0])
+            if self.active and self.extra is not None:
+                self.extra.keep("K2", (planes, idx), idx.shape[0])
             return real_k2(planes, idx)
         k1._launch_window = k2_launch
 
@@ -5954,8 +6112,8 @@ class LaunchRecorder:
                                      live.shape[0] > len(self.k4[1]) *
                                      self.k4[0].shape[0]):
                 self.k4 = (live, list(keys), tkey, src)
-            if self.active and self.scale is not None:
-                self.scale.keep("K4", (live, list(keys), tkey, src),
+            if self.active and self.extra is not None:
+                self.extra.keep("K4", (live, list(keys), tkey, src),
                                 len(keys) * live.shape[0])
             return real_k4(live, keys, tkey, src)
 
@@ -5994,8 +6152,8 @@ class LaunchRecorder:
                 out = real_k1(tables, idx, fills)
                 n = k1.gather_columns.launches - before
                 self.k1_launches[path] = self.k1_launches.get(path, 0) + n
-            if self.scale is not None:
-                self.scale.keep_k1(path, (list(tables), idx, list(fills)),
+            if self.extra is not None:
+                self.extra.keep_k1(path, (list(tables), idx, list(fills)),
                                    n)
             return out
 
@@ -6020,8 +6178,8 @@ class LaunchRecorder:
                     kept[0].shape[0] * kept[7]):
                 self.k3[site] = args
             self.k3_launches[site] = self.k3_launches.get(site, 0) + 1
-            if self.scale is not None:
-                self.scale.keep("K3", args, key.shape[0] * G)
+            if self.extra is not None:
+                self.extra.keep("K3", args, key.shape[0] * G)
             return real_k3(*args)
 
         def at_site(name, method):
@@ -6067,19 +6225,22 @@ def phase_timing(recorder, launches):
     out.extend(_time_k3(recorder))
     out.append(_time_k4(recorder, launches))
     out.extend(_time_k5(recorder, launches))
-    out.extend(_time_scale(recorder, flush))
+    out.extend(_time_beyond(recorder, recorder.scale, flush,
+                            "the scale phase",
+                            f" at scale (q5-shaped SF{SCALE_Q5:g}, q3 "
+                            f"tpch.{SCALE_Q3_SCHEMA})"))
+    out.extend(_time_beyond(recorder, recorder.bench, flush,
+                            "the bench-modes phase",
+                            " at the micro-benchmarks' shapes"))
     return out
 
 
-def _time_scale(recorder, flush):
-    """The scale phase's launches that are larger than the main-path
+def _time_beyond(recorder, sc, flush, phase, tag):
+    """A phase's launches (`sc`) that are larger than the main-path
     launch the rows above time for the same kernel (K1 per path), each
-    timed the same way and named for the scale phase."""
-    sc = recorder.scale
+    timed the same way and named with `tag`."""
     if sc is None:
         return []
-    tag = (f" at scale (q5-shaped SF{SCALE_Q5:g}, q3 "
-           f"tpch.{SCALE_Q3_SCHEMA})")
     out = []
     for path in K1_PATHS:
         if path in sc.k1 and \
@@ -6092,14 +6253,14 @@ def _time_scale(recorder, flush):
                   [a[0].shape[0] * a[7]
                    for a, _n in recorder.captured.values()])
     if sc.k3 is not None and sc.sizes["K3"] > main_k3:
-        out.append(_k3_row("the scale phase's largest", sc.k3,
+        out.append(_k3_row(f"{phase}'s largest", sc.k3,
                            sc.launches["K3"]))
     if sc.k4 is not None and \
             sc.sizes["K4"] > len(recorder.k4[1]) * recorder.k4[0].shape[0]:
         out.append(_time_k4(sc, sc.launches))
     for row in out:
         row["name"] += tag
-    log("scale launches beyond the main paths' largest: "
+    log(f"{phase}'s launches beyond the main paths' largest: "
         + json.dumps([row["name"] for row in out]))
     return out
 
@@ -6687,7 +6848,8 @@ def _run_phases(dev, smi, scale_data) -> list:
                     ds_session),
              _timed(phase_introspection, recorder, session, tables,
                     ds_session, smi, fam_before),
-             _timed(phase_scale, recorder, scale_data)]
+             _timed(phase_scale, recorder, scale_data),
+             _timed(phase_bench_modes, recorder)]
     for path in paths:
         for name, count in path.items():
             launches[name] += count

@@ -1367,3 +1367,34 @@ def test_k4_scale_chunk_widest_tables_on_card():
         probe.live, [(c.data, c.valid) for c in cols], tkey, src)
     assert torch.equal(found, found2) and torch.equal(miss, miss2)
     assert int(miss[0]) > 0 and int((found[1] >= 0).sum()) > 0
+
+
+def test_star_rows_equal_ladder_whatever_k3_escapes_on_card():
+    """Queue C 8 on the card: the star micro's k = 5 shape (4,096-key
+    dimensions at 8,192 slots), whose K3 builds escape one key in some
+    runs and none in others; six fused runs in one Session, each equal
+    to the numpy sum, whichever dimensions each run fused."""
+    dev = _card()
+    from trino_tpu_torch import e2e, micro
+    from trino_tpu_torch.catalog import Catalog
+    from trino_tpu_torch.exec.session import Session
+    k, fact_rows, dim_rows = 5, 1 << 20, 4096
+    t = micro._star_tables(k, fact_rows, dim_rows, 0.9)
+    f = t["fact"].columns
+    m = np.ones(fact_rows, bool)
+    tot = f[k].copy()
+    for i in range(k):
+        ok = f[i] < dim_rows
+        m &= ok
+        tot = tot + np.where(ok, t[f"dim{i}"].columns[1][
+            np.minimum(f[i], dim_rows - 1)], 0)
+    cat = Catalog()
+    cat.register("bench", e2e.BenchConnector(t, "star"))
+    s = Session(catalog=cat, default_cat="bench", default_schema="star",
+                device=dev)
+    s.execute("SET SESSION enable_multiway_join = 'true'")
+    verdicts = set()
+    for _ in range(6):
+        assert s.execute(micro.star_sql(k)).rows == [(int(tot[m].sum()),)]
+        verdicts.add(s.executor.strategy_decisions["MultiJoinNode"])
+    assert verdicts

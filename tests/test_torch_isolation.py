@@ -1,8 +1,9 @@
 """The port stands alone: importing trino_tpu_torch and running a query,
 in process, on the port's mesh (MeshExecutor over eight CPU shards, a
 partitioned join), on a port cluster (coordinator, stage scheduler,
-worker, failure detector, verifier), through a soak or through the
-end-to-end configurations (e2e.py), loads
+worker, failure detector, verifier), through a soak, through the
+end-to-end configurations (e2e.py) or through a cold-start child and
+the micro-benchmarks (coldstart.py, micro.py, regressions.py), loads
 neither jax nor the reference package (checked in fresh interpreters),
 and no module of the port or chip_smoke.py imports them."""
 
@@ -92,6 +93,23 @@ print("LEAKED", bad)
 """
 
 
+_COLD_PROBE = """
+import sys
+from trino_tpu_torch import coldstart, micro, regressions
+rec = coldstart.cold_child("q6", "cpu")
+assert rec["rows"] == 1 and rec["fresh_compiles"] == 0, rec
+rec = micro.gather_micro(table_sizes=[1024], probe_rows=1024, runs=1,
+                         device="cpu")
+assert not micro.failures(rec), rec
+assert regressions.parse_round({"metric": "cold_start", "records": [
+    {"query": "q6", "cold_ms": 1.0, "ratio": 1.0}]}) == {
+    "cold_q6": 1.0, "cold_q6_ratio": 1.0}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "trino_tpu", "bench"))
+print("LEAKED", bad)
+"""
+
+
 def _run_probe(probe):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
@@ -118,11 +136,15 @@ def test_fresh_interpreter_e2e_loads_no_jax_or_reference():
     _run_probe(_E2E_PROBE)
 
 
+def test_fresh_interpreter_cold_child_loads_no_jax_or_reference():
+    _run_probe(_COLD_PROBE)
+
+
 def test_cluster_modules_are_checked():
     paths = {os.path.relpath(p, REPO) for p in _port_sources()}
     for m in ("server/tasks.py", "server/worker.py", "server/scheduler.py",
               "server/failuredetector.py", "verifier.py", "soak.py",
-              "e2e.py"):
+              "e2e.py", "micro.py", "coldstart.py", "regressions.py"):
         assert os.path.join("trino_tpu_torch", m) in paths
 
 

@@ -1285,8 +1285,11 @@ class Executor:
         if fits:
             out, esc, occ = ht.hash_group_aggregate(
                 child, kmins, keys, bits, aggs, slots)
+            # never replayed from the decision cache: which rows K3's
+            # parallel insert escapes differs from run to run, and a
+            # replayed 0 would drop this run's escaped rows (Queue C 8)
             esc_h, n_groups = self.fetch_ints(
-                node, f"hashagg{slots}", esc, occ)
+                None, f"hashagg{slots}", esc, occ)
             if esc_h == 0:
                 if node is not None:
                     self._record_groups(node, n_groups)
@@ -1768,7 +1771,8 @@ class Executor:
             if rec is None:
                 tkey, src, dup, esc = ht.build_join_table(
                     build, node.right_keys, slots)
-                dup_h, esc_h = self.fetch_ints(node, f"hashbuild{slots}",
+                # K3's escapes, fetched every run (Queue C 8)
+                dup_h, esc_h = self.fetch_ints(None, f"hashbuild{slots}",
                                                dup, esc)
                 rec = (tkey, src, dup_h, esc_h)
                 if self.chunk_mode:
@@ -2010,8 +2014,10 @@ class Executor:
             tkey, src, dup, esc = ht.build_join_tables(
                 [dims[d] for d, _s in sized],
                 [node.dim_keys[d] for d, _s in sized], table_slots)
-            # ONE fused validation fetch for all k builds
-            vals = self.fetch_ints(node, f"mjbuild{table_slots}", dup, esc)
+            # ONE fused validation fetch for all k builds, every run:
+            # K3's escapes differ from run to run, and a replayed verdict
+            # could fuse a dimension whose table lost a key (Queue C 8)
+            vals = self.fetch_ints(None, f"mjbuild{table_slots}", dup, esc)
             m = len(sized)
             keep = []
             for i, (d, _s) in enumerate(sized):

@@ -252,8 +252,10 @@ class MeshExecutor(Executor):
             build.capacity * (len(build.columns) * 9 + 1))
         self.stats.hash_join_calls += 1
         self.stats.mesh_partitioned_joins += 1
+        # K3's escapes differ from run to run: fetched every run, never
+        # replayed from the decision cache (Queue C 8)
         dup, esc, pruned = self.fetch_ints(
-            node, f"meshjoin{slots}", dup, esc, pruned)
+            None, f"meshjoin{slots}", dup, esc, pruned)
         if pruned:
             self._note_pruned(pruned)
         if esc > 0:
