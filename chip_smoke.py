@@ -197,12 +197,19 @@ Phases, each failing the run with a non-zero exit:
    set to 0 just before and read just after): ``SET SESSION distributed
    = true`` on a CUDA Session (the card's default mesh, one shard: q1,
    q6), then a MeshExecutor over ``make_mesh(8, "cuda")`` (eight shards
-   on the one card) with partitioned joins: TPC-H q1, q6, q3 and the
+   on the one card, each scan split into their blocks and the filters,
+   projections, partial aggregates and join probes run per shard) with
+   partitioned joins: TPC-H q1, q6, q3 and the
    SELECTIVE and PROBE_ROWS joins of tests/test_mesh_dynamic_filter.py,
    one cold and three steady runs each, rows equal to numpy oracles and
    the single card's, K3 eight launches a partitioned join, SELECTIVE
-   pruning rows, EXPLAIN's ``join distribution: partitioned``, the
-   card's idle share over one steady q3; TPC-DS q3 on the ladder
+   pruning rows, each query's ``mesh_gathers`` (none for q1 and q6) and
+   each card's bytes after the scans, q3 once more with broadcast joins,
+   EXPLAIN's ``join distribution: partitioned``, the
+   card's idle share over one steady q3; ``mesh_cards: N`` and, with two
+   cards or more, q1, q6 and q3 on a mesh over every card with each
+   card's K1 and K3 launches (with one card, q3 on a 2-shard mesh over
+   cuda:0 twice checks that count); TPC-DS q3 on the ladder
    (degrade reason mesh, no K4); and, after the counts are read, the
    join and aggregate stage programs called directly over lineitem and
    orders, bit-exact against the single card's operators; then the
@@ -5352,17 +5359,19 @@ def _mesh_stage_checks(mesh, tables):
     single-card operators on the same batches: the join's rows (sorted)
     against `join_unique_build`, bit for bit; the aggregate against
     `direct_group_aggregate` (its integer states single-device, its
-    double sum against the sharded order `shards=8`, which is the one a
-    mesh sums in)."""
+    double sum against `sum_like_reference` of each group's rows in 8
+    blocks, the order a mesh sums in)."""
     import numpy as np
     import torch
     from trino_tpu_torch import ir
     from trino_tpu_torch.batch import Column, batch_from_numpy
     from trino_tpu_torch.ops import hashtable as ht
     from trino_tpu_torch.ops.aggregate import (AggSpec,
-                                               direct_group_aggregate)
+                                               direct_group_aggregate,
+                                               sum_like_reference)
     from trino_tpu_torch.ops.join import join_unique_build
     from trino_tpu_torch.ops.project import apply_filter
+    from trino_tpu_torch.parallel.mesh import concat_rows
     from trino_tpu_torch.parallel.stages import (partitioned_hash_join_step,
                                                  sharded_agg_step)
     from trino_tpu_torch.types import DATE
@@ -5384,8 +5393,9 @@ def _mesh_stage_checks(mesh, tables):
                                        2 * build.capacity // n))
     k3 = ht.hash_insert_multi.launches
     t = time.monotonic()
-    joined, dup, esc, pruned = partitioned_hash_join_step(
+    shards, dup, esc, pruned = partitioned_hash_join_step(
         mesh, n, (0,), (0,), "inner", slots, "on")(probe, build)
+    joined = concat_rows(shards)
     torch.cuda.synchronize()
     step_s = time.monotonic() - t
     k3 = ht.hash_insert_multi.launches - k3
@@ -5416,26 +5426,120 @@ def _mesh_stage_checks(mesh, tables):
     agg_s = time.monotonic() - t
     local = apply_filter(fact, flt)
     plain = direct_group_aggregate(local, (4, 5), tuple(pools), aggs)
-    sharded = direct_group_aggregate(local, (4, 5), tuple(pools), aggs,
-                                     shards=n)
+    # the double sum in the sharded order: each group's masked column
+    # summed by `sum_like_reference` in n blocks, then in block order
+    gid = local.columns[4].data.to(torch.int32).clamp(0, pools[0] - 1) * \
+        pools[1] + local.columns[5].data.to(torch.int32).clamp(
+            0, pools[1] - 1)
+    rows = local.live & local.columns[4].valid & local.columns[5].valid & \
+        local.columns[7].valid
+    sharded_sum = torch.stack([sum_like_reference(torch.where(
+        rows & (gid == g), local.columns[7].data, 0.0), shards=n)
+        for g in range(pools[0] * pools[1])])
     require(torch.equal(merged.live, plain.live), "the sharded aggregate's "
             "groups differ")
-    for i, (m, p, q) in enumerate(zip(merged.columns, plain.columns,
-                                      sharded.columns)):
-        want_col = q if i == 3 else p          # the double sum
-        require(torch.equal(m.valid, want_col.valid) and
+    for i, (m, p) in enumerate(zip(merged.columns, plain.columns)):
+        want = (sharded_sum.view(torch.int64) if i == 3 else
+                p.data.view(torch.int64) if p.data.dtype == torch.float64
+                else p.data)
+        require(torch.equal(m.valid, p.valid) and
                 torch.equal(m.data.view(torch.int64) if
                             m.data.dtype == torch.float64 else m.data,
-                            want_col.data.view(torch.int64) if
-                            want_col.data.dtype == torch.float64 else
-                            want_col.data),
+                            want),
                 f"sharded_agg_step's column {i} differs from the single "
                 f"card's")
     return {"join_rows": len(got[0][0]), "join_step_s": step_s,
             "join_k3_launches": k3, "join_pruned": int(pruned),
             "table_slots": slots, "agg_step_s": agg_s,
             "double_sum_single_vs_sharded_equal": bool(torch.equal(
-                plain.columns[3].data, sharded.columns[3].data))}
+                plain.columns[3].data, sharded_sum))}
+
+
+def _mesh_scan_bytes(executor):
+    """Bytes the mesh executor's cached scans hold, per card."""
+    out = {}
+    for b in executor._scan_cache.values():
+        for d, n in b.bytes_by_device().items():
+            out[d] = out.get(d, 0) + n
+    return out
+
+
+def _mesh_every_card(cat, sqls, expected, main_session):
+    """q1, q6 and q3 on a mesh over every card, partitioned, each run
+    twice: rows against the oracles and the single card's, each card's K1
+    and K3 launches (a spy on the launch helper of the two wrappers'
+    modules attributes each launch to the card it entered; the wrappers
+    count inside that helper's block). With one card the several cards
+    are not measured; the same code then runs q3 once on a 2-shard mesh
+    over cuda:0 twice, which checks the spy's count on the card."""
+    import contextlib
+
+    import torch
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.ops import gather as k1
+    from trino_tpu_torch.ops import hashtable as ht
+    from trino_tpu_torch.ops.cuda_build import _card
+    from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+    from trino_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    if n >= 2:
+        log(f"mesh_cards: {n}")
+        mesh, names, runs = make_mesh(device="cuda"), ("q1", "q6", "q3"), 2
+    else:
+        log("mesh_cards: 1 (the several-cards part did not run: it needs "
+            "two cards; this is not a failure; its per-card launch count "
+            "is checked on a 2-shard mesh over cuda:0 twice)")
+        mesh, names, runs = make_mesh(2, "cuda"), ("q3",), 1
+    cards = sorted({str(d) for d in mesh.devices})
+    by_card = {}
+
+    def spy(module, counter, name):
+        real = module.launch_on
+
+        @contextlib.contextmanager
+        def entered(device):
+            before = counter.launches
+            with real(device) as stream:
+                yield stream
+                key = f"{name}@{_card(device)}"
+                by_card[key] = by_card.get(key, 0) + \
+                    counter.launches - before
+        return real, entered
+    real1, spy1 = spy(k1, k1.gather_columns, "K1")
+    real3, spy3 = spy(ht, ht.hash_insert_multi, "K3")
+    session = Session(cat, default_schema=TPCH_SCHEMA, device="cuda")
+    session.executor = MeshExecutor(cat, mesh)
+    session.execute("SET SESSION join_distribution_type = 'partitioned'")
+    session.execute("SET SESSION enable_pallas_hash = true")
+    out = {"cards": n, "ran": n >= 2, "mesh": [str(d) for d in mesh.devices],
+           "queries": {}}
+    k3_0 = ht.hash_insert_multi.launches
+    k1.launch_on, ht.launch_on = spy1, spy3
+    try:
+        for name in names:
+            g0 = session.executor.stats.mesh_gathers
+            rows, walls = _timed_runs(session, sqls[name], runs)
+            single = main_session.execute(sqls[name]).rows
+            require(rows == expected[name] == single,
+                    f"{name} on the mesh over {cards} differs from the "
+                    f"oracle or the single card")
+            out["queries"][name] = {
+                "walls_s": walls,
+                "mesh_gathers": (session.executor.stats.mesh_gathers -
+                                 g0) / runs}
+    finally:
+        k1.launch_on, ht.launch_on = real1, real3
+    k3 = ht.hash_insert_multi.launches - k3_0
+    out["launches_by_card"] = by_card
+    out["scan_bytes_by_card"] = _mesh_scan_bytes(session.executor)
+    require(k3 > 0 and sum(v for k, v in by_card.items()
+                           if k.startswith("K3@")) == k3,
+            f"the spy attributed {by_card} of K3's {k3} launches")
+    require(all(by_card.get(f"K3@{c}", 0) > 0 for c in cards),
+            f"K3 did not launch on every card of the mesh: {by_card}")
+    log(f"mesh over {cards}: rows equal the oracles and the single card; "
+        + json.dumps(out))
+    return out
 
 
 def phase_mesh_path(recorder, main_session, tables, ds_session):
@@ -5449,12 +5553,21 @@ def phase_mesh_path(recorder, main_session, tables, ds_session):
     tests/test_mesh_dynamic_filter.py, one cold and three steady runs
     each, rows equal to the oracles and to the single-card Session's,
     every partitioned join building one K3 table per shard, SELECTIVE
-    pruning rows; EXPLAIN's `join distribution: partitioned`; the card's
-    idle share over one steady q3. (3) TPC-DS q3 on the 8-shard mesh: the
-    star degrades to the ladder (reason mesh), no K4 launch, rows equal
-    to the single card's. (4) `partitioned_hash_join_step` and
-    `sharded_agg_step` called directly over lineitem and orders,
-    bit-exact against the single-card operators."""
+    pruning rows; each query's all-gathers (`mesh_gathers`: none for q1
+    and q6) and each card's bytes of the sharded scans; q3 once more
+    under the broadcast distribution (the probe per shard, the build
+    replicated); EXPLAIN's `join distribution: partitioned`; the card's
+    idle share over one steady q3. (2b) With two cards or more, q1, q6
+    and q3 on a mesh over every card (`make_mesh("cuda")`), partitioned:
+    rows equal to the oracles and the single card's, each card's K1 and
+    K3 launches counted and K3 required on every card; with one card the
+    part does not run, which `mesh_cards: 1` says, and q3 on a 2-shard
+    mesh over cuda:0 twice checks the per-card count instead. (3) TPC-DS
+    q3 on the 8-shard mesh: the star degrades to the ladder (reason
+    mesh), no K4 launch, rows equal to the single card's. (4)
+    `partitioned_hash_join_step` and `sharded_agg_step` called directly
+    over lineitem and orders, bit-exact against the single-card
+    operators."""
     import statistics as st
     from tpcds_queries import QUERIES as DS
     from trino_tpu_torch.catalog import Catalog
@@ -5509,12 +5622,14 @@ def phase_mesh_path(recorder, main_session, tables, ds_session):
         for name, sql in sqls.items():
             pj0 = ex.stats.mesh_partitioned_joins
             pruned0 = ex.stats.dynamic_filter_rows_pruned
+            gathers0 = ex.stats.mesh_gathers
             bytes0 = MESH_REPARTITION_BYTES.value()
             before = read_counts()
             rows, walls = _timed_runs(session, sql, 4)
             after = read_counts()
             delta = {k: after[k] - before[k] for k in after}
             joins = ex.stats.mesh_partitioned_joins - pj0
+            gathers = (ex.stats.mesh_gathers - gathers0) / len(walls)
             single_rows, single_walls = _timed_runs(main_session, sql, 2)
             require(rows == expected[name] == single_rows,
                     f"{name} on the 8-shard mesh differs from the oracle "
@@ -5532,9 +5647,33 @@ def phase_mesh_path(recorder, main_session, tables, ds_session):
                 else None,
                 "rows_pruned": ex.stats.dynamic_filter_rows_pruned - pruned0,
                 "repartition_bytes": MESH_REPARTITION_BYTES.value() - bytes0,
+                "mesh_gathers": gathers,
                 "launches": delta}
             log(f"mesh {name}: rows equal the oracle and the single card; "
                 + json.dumps(per_query[name]))
+            log(f"mesh_gathers {name}: {gathers:g} a run")
+        require(per_query["q1"]["mesh_gathers"] == 0 and
+                per_query["q6"]["mesh_gathers"] == 0,
+                "q1 or q6 all-gathered on the mesh")
+        record["scan_bytes_by_card"] = _mesh_scan_bytes(ex)
+        log("mesh scans, bytes each card holds: " +
+            json.dumps(record["scan_bytes_by_card"]))
+        # q3 under the broadcast distribution: the probe per shard, the
+        # build replicated, the dynamic filter per shard
+        bcast = Session(cat, default_schema=TPCH_SCHEMA, device=dev)
+        bcast.executor = MeshExecutor(cat, mesh)
+        g0 = bcast.executor.stats.mesh_gathers
+        rows, walls = _timed_runs(bcast, Q3, 3)
+        require(rows == expected["q3"], "q3 under the broadcast "
+                "distribution on the mesh differs from the oracle")
+        record["q3_broadcast"] = {
+            "walls_s": walls, "strategies": bcast.executor.strategy_decisions,
+            "mesh_gathers": (bcast.executor.stats.mesh_gathers - g0) / 3}
+        log("mesh q3, broadcast joins: " + json.dumps(record["q3_broadcast"]))
+        del bcast
+        # 2b. a mesh over every card
+        record["several_cards"] = _mesh_every_card(cat, sqls, expected,
+                                                   main_session)
         require(sum(q["partitioned_joins"] for q in per_query.values()) > 0,
                 "no join ran partitioned on the mesh")
         require(per_query["selective"]["rows_pruned"] > 0,

@@ -1398,3 +1398,76 @@ def test_star_rows_equal_ladder_whatever_k3_escapes_on_card():
         assert s.execute(micro.star_sql(k)).rows == [(int(tot[m].sum()),)]
         verdicts.add(s.executor.strategy_decisions["MultiJoinNode"])
     assert verdicts
+
+
+# -- several cards: each launch enters its tensors' card -----------------
+
+def _second_card() -> torch.device:
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (runs on one card: the mesh tests "
+                    "above lay eight shards on it)")
+    return torch.device("cuda", 1)
+
+
+# each wrapper's card test, run on cuda:1 while cuda:0 is current
+SECOND_CARD_CASES = {
+    "K1": lambda: test_k1_matches_plain_on_card(),
+    "K2": lambda: test_k2_matches_plain_on_card("int32"),
+    "K3": lambda: test_k3_matches_plain_on_card(),
+    "K4": lambda: test_k4_matches_plain_on_card(),
+    "K5": lambda: test_k5_matches_plain_on_card(),
+    "glibc": lambda: test_glibc_math_kernel_equals_replay_and_glibc_on_card(),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(SECOND_CARD_CASES))
+def test_wrapper_launches_on_its_tensors_card(monkeypatch, kernel):
+    """Each kernel's wrapper over tensors on cuda:1 while cuda:0 is the
+    current card: the launch enters cuda:1 (a launch to a stream of
+    another card than the current one fails), the result equals the
+    plain version, and cuda:0 is current again afterwards."""
+    dev = _second_card()
+    monkeypatch.setitem(globals(), "_card", lambda: dev)
+    with torch.cuda.device(0):
+        SECOND_CARD_CASES[kernel]()
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+
+
+def test_q3_on_a_mesh_over_every_card_equals_single_card():
+    """TPC-H q3 and a partitioned join on a mesh over every card
+    (make_mesh("cuda")): the single card's rows, lineitem's scan split
+    into one block a card, one K3 table a shard on each card."""
+    from tpch_full import QUERIES
+    from trino_tpu_torch.exec.session import Session
+    from trino_tpu_torch.parallel.dist_executor import MeshExecutor
+    from trino_tpu_torch.parallel.mesh import make_mesh
+    _second_card()
+    n = torch.cuda.device_count()
+    single = Session(device="cuda")
+    s = Session(device="cuda")
+    s.executor = MeshExecutor(s.catalog, make_mesh(device="cuda"))
+    assert s.executor.n_shards == n
+    s.execute("SET SESSION join_distribution_type = 'partitioned'")
+    s.execute("SET SESSION enable_pallas_hash = true")
+    probe_rows = ("SELECT l_orderkey, l_linenumber, o_totalprice "
+                  "FROM lineitem, orders WHERE l_orderkey = o_orderkey "
+                  "AND o_totalprice > 400000 "
+                  "ORDER BY l_orderkey, l_linenumber")
+    cards = {}
+    real = ht.hash_insert_multi
+
+    def spy(key, *a, **k):
+        cards[key.device] = cards.get(key.device, 0) + 1
+        return real(key, *a, **k)
+    try:
+        ht.hash_insert_multi = spy
+        for q in (probe_rows, QUERIES[3]):
+            assert s.execute(q).rows == single.execute(q).rows
+    finally:
+        ht.hash_insert_multi = real
+    assert s.executor.stats.mesh_partitioned_joins > 0
+    assert sorted(d.index for d in cards) == list(range(n))
+    for b in s.executor._scan_cache.values():
+        assert [x.device.index for x in b.shards] == list(range(n))

@@ -190,9 +190,12 @@ def test_mesh_join_keeps_no_shard_table_that_escaped_this_run(monkeypatch):
             calls.append(1)
             if len(calls) == 2:
                 # a shard's table lost a key this run: its probe rows drop
-                live = out.live.clone()
+                # (the step leaves its output sharded: a list of shards)
+                out = list(out)
+                i = next(i for i, o in enumerate(out) if bool(o.live.any()))
+                live = out[i].live.clone()
                 live[int(torch.nonzero(live)[0])] = False
-                out = type(out)(columns=out.columns, live=live)
+                out[i] = type(out[i])(columns=out[i].columns, live=live)
                 esc = torch.ones_like(torch.as_tensor(esc))
             return out, dup, esc, pruned
         return step_run

@@ -1404,3 +1404,47 @@ def test_fenced_coordinator_starts_no_task(tmp_path):
             w.kill()
         coord.state.dispatcher.pool.shutdown(wait=False)
         coord.stop()
+
+
+def test_poll_outlasts_a_slow_promotion_until_the_deadline():
+    """A standby that answers 503 past the client's retry budget (its
+    promotion slowed by the host's load) does not fail the query: the
+    poll goes on until the query's deadline, then takes the promoted
+    coordinator's page. Without a deadline the budget still ends it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.error import HTTPError
+    ready_at = time.monotonic() + 1.5
+
+    class Promoting(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body, code = b'{"error": "standby"}', 503
+            if time.monotonic() >= ready_at:
+                body, code = json.dumps(
+                    {"id": "q1", "columns": [{"name": "c"}],
+                     "data": [[1]], "stats": {"state": "FINISHED"}}
+                ).encode(), 200
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Promoting)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    uri = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        import dataclasses
+        client = Client([uri], user="ha", timeout_s=30)
+        client.retry_policy = dataclasses.replace(
+            client.retry_policy, max_attempts=2, max_delay_s=0.1)
+        with pytest.raises(HTTPError):
+            client._poll(f"{uri}/v1/statement/q1/1")
+        doc = client._poll(f"{uri}/v1/statement/q1/1",
+                           deadline=time.time() + 30)
+        assert doc["data"] == [[1]] and time.monotonic() >= ready_at
+    finally:
+        httpd.shutdown()
+        httpd.server_close()

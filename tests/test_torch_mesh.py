@@ -271,11 +271,32 @@ def test_partitioned_hash_join_step_equals_reference(meshes,
     got = tst.partitioned_hash_join_step(
         tm, N, (1,), (0,), "inner", slots, "off",
         dynamic_filter=dynamic_filter)(tp, tb)
-    _same(want[0], got[0])
+    assert len(got[0]) == N
+    _same(want[0], tmesh.concat_rows(got[0]))
     assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]]
     assert (int(got[3]) > 0) == dynamic_filter
     # the CPU runs K3's plain version: no launch is counted here
     assert tht.hash_insert_multi.launches == before
+
+
+@pytest.mark.parametrize("dynamic_filter", [True, False])
+def test_partitioned_hash_join_step_takes_sharded_sides(meshes,
+                                                        dynamic_filter):
+    """Sides that arrive as shards (a ShardedBatch's list) give the rows
+    and totals of the same sides given whole."""
+    jm, tm = meshes
+    (pcols, pvalids), (bcols, bvalids), cap = _inputs(n=1500, cap=2048)
+    _jp, tp = _both(pcols, pvalids, cap)
+    _jb, tb = _both(bcols, bvalids, 512)
+    step = tst.partitioned_hash_join_step(
+        tm, N, (1,), (0,), "inner", 1024, "off",
+        dynamic_filter=dynamic_filter)
+    whole = step(tp, tb)
+    sharded = step(tmesh.split_rows(tp, tm).shards,
+                   tmesh.shard_rows(tb, tm))
+    for a, b in zip(whole[0], sharded[0]):
+        _same(a, b)
+    assert [int(x) for x in sharded[1:]] == [int(x) for x in whole[1:]]
 
 
 @pytest.mark.parametrize("case", ["unique", "dups", "escapes"])

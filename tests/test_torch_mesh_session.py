@@ -167,7 +167,8 @@ def test_six_shard_mesh_pads_odd_capacity():
     (tb,) = ts.executor._scan_cache.values()
     (jb,) = js.executor._scan_cache.values()
     assert tb.capacity % 6 == 0 and tb.capacity == jb.capacity
-    assert int(tb.live.sum()) == int(jb.live.sum())
+    assert [s.capacity for s in tb.shards] == [tb.capacity // 6] * 6
+    assert sum(int(s.live.sum()) for s in tb.shards) == int(jb.live.sum())
     js, ts = _jax_mesh(6), _port_mesh(6)
     assert ts.execute(PROBE_ROWS).rows == js.execute(PROBE_ROWS).rows
     assert ts.executor.stats.mesh_partitioned_joins == 1
@@ -227,3 +228,141 @@ def test_q77_on_port_mesh_with_filtering_on(tpcds_single):
     assert Counter(map(repr, got)) == \
         Counter(map(repr, tpcds_single.execute(sql).rows))
     assert ts.executor.stats.dynamic_filter_rows_pruned > 0
+
+
+# the per-shard data plane: what runs on the shards' devices and what
+# the all-gather brings to the first one
+D_WIDE = ("SELECT {sel}, sum(l_quantity), min(l_discount), max(l_tax), "
+          "count(*) FROM lineitem, orders WHERE l_orderkey = o_orderkey")
+BROADCAST_SQL = [
+    # the dense-LUT probe per shard keeps the scan's layout: the reference
+    # sums the float over it shard by shard
+    D_WIDE.format(sel=f"o_orderpriority, sum({D})") +
+    " GROUP BY o_orderpriority ORDER BY 1",
+    D_WIDE.format(sel=f"sum({D})") + " AND o_totalprice > 100000",
+    f"SELECT sum({D}), sum(CAST(o_totalprice AS double) * 1.1), max(l_tax),"
+    " count(*) FROM lineitem, orders WHERE l_orderkey = o_orderkey "
+    "AND l_quantity > 5",
+    # a selective join compacts: the reference sums over it as one array
+    D_WIDE.format(sel=f"sum({D})") + " AND o_totalprice > 300000",
+    D_WIDE.format(sel=f"o_orderpriority, sum({D})") +
+    " AND o_totalprice > 250000 GROUP BY o_orderpriority ORDER BY 1",
+]
+# q3's one all-gather: its hash aggregate reads every row of the joins
+Q3_GATHERS = 1
+
+
+def _gathers(s, sql):
+    g = s.executor.stats.mesh_gathers
+    rows = s.execute(sql).rows
+    return rows, s.executor.stats.mesh_gathers - g
+
+
+@pytest.mark.parametrize("qnum", [1, 6])
+def test_q1_q6_aggregate_on_the_shards_without_a_gather(single, meshes,
+                                                        qnum):
+    ts = meshes["port", True]
+    rows, gathers = _gathers(ts, TPCH[qnum])
+    assert rows == single.execute(TPCH[qnum]).rows
+    assert gathers == 0
+    scans = [b for b in ts.executor._scan_cache.values()
+             if b.first.num_columns and b.capacity >= 60_000]
+    assert scans, "lineitem's scan is not cached"
+    for b in scans:
+        assert b.sum_by_shard and b.n_shards == 8
+        assert [s.capacity for s in b.shards] == [b.capacity // 8] * 8
+
+
+def test_q3_gathers_once_for_its_hash_aggregate(single, meshes):
+    ts = meshes["port", True]
+    rows, gathers = _gathers(ts, TPCH[3])
+    assert rows == single.execute(TPCH[3]).rows
+    assert gathers == Q3_GATHERS
+    assert ts.executor.stats.mesh_partitioned_joins >= 2
+
+
+@pytest.mark.parametrize("sql", BROADCAST_SQL)
+def test_broadcast_join_per_shard_equals_reference_mesh_bits(meshes, sql):
+    js, ts = meshes["jax", False], meshes["port", False]
+    want = _bits(js.execute(sql).rows)
+    rows, gathers = _gathers(ts, sql)
+    assert _bits(rows) == want
+    assert ts.executor.strategy_decisions["JoinNode"] == "dense-lut"
+    # the build is replicated (one gather); a compacted join's output is
+    # gathered for the float sum
+    assert 1 <= gathers <= 2
+
+
+@pytest.mark.parametrize("n", [2, 6, 8])
+def test_mesh_sizes_give_reference_mesh_rows_and_bits(n):
+    """Meshes of 2, 6 (lineitem's capacity padded to a multiple of 48)
+    and 8 shards: the reference mesh's rows and DOUBLE bits, the scans
+    split into n equal blocks."""
+    sqls = [next(iter(FACT2)), GROUPED, DOUBLE_SQL[6], BROADCAST_SQL[0],
+            "SELECT l_returnflag, count(*), sum(l_quantity) FROM lineitem "
+            "WHERE l_shipdate > DATE '1995-01-01' GROUP BY l_returnflag "
+            "ORDER BY 1"]
+    for partitioned in (False, True):
+        js, ts = _jax_mesh(n, partitioned), _port_mesh(n, partitioned)
+        for sql in sqls:
+            assert _bits(ts.execute(sql).rows) == \
+                _bits(js.execute(sql).rows), (n, partitioned, sql)
+        for b in ts.executor._scan_cache.values():
+            assert b.capacity % n == 0
+            assert [s.capacity for s in b.shards] == [b.capacity // n] * n
+
+
+def test_two_phase_dense_join_per_shard_equals_single_device(monkeypatch,
+                                                             single):
+    """The large-probe paths of the per-shard broadcast join (the dynamic
+    filter's and the probe's compaction per shard, the two-phase dense
+    probe with its compacted payload gathers), reached at tpch.tiny by
+    lowering the port's size gates: the 8-shard mesh gives the
+    reference's single-device rows (integer and decimal results, which
+    the gates do not change), the slots restoring the global layout."""
+    from trino_tpu_torch.exec import executor as ex_mod
+    monkeypatch.setattr(ex_mod.Executor, "COMPACT_MIN_ROWS", 4096)
+    monkeypatch.setattr(ex_mod, "SORT_SMALL_ROWS", 4096)
+    sqls = [
+        "SELECT l_orderkey, l_linenumber, o_totalprice, l_quantity "
+        "FROM lineitem, orders WHERE l_orderkey = o_orderkey "
+        "AND o_totalprice > 400000 ORDER BY l_orderkey, l_linenumber",
+        "SELECT o_orderpriority, count(*), sum(l_quantity), "
+        "sum(l_extendedprice) FROM lineitem, orders "
+        "WHERE l_orderkey = o_orderkey AND o_orderkey < 3000 "
+        "GROUP BY o_orderpriority ORDER BY 1",
+        TPCH[3], TPCH[10]]
+    ts = _port_mesh(8, False)
+    for sql in sqls:
+        c0 = ts.executor.stats.dynamic_filter_compactions
+        assert ts.execute(sql).rows == single.execute(sql).rows, sql
+        assert ts.executor.stats.dynamic_filter_compactions > c0, sql
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT l_orderkey, l_linenumber FROM lineitem WHERE l_quantity > 45 "
+    "ORDER BY 1, 2 LIMIT 7",
+    TPCH[3]])
+def test_a_gathered_output_is_reserved_beside_its_shards(single, sql):
+    """Every all-gather (a sort's input, q3's hash aggregate input and
+    replicated builds) reserves its whole copy in the query's pool beside
+    the shards, freed when the operator that gathered it returns: after
+    each run the pool holds the nodes' outputs and nothing else."""
+    from trino_tpu_torch.exec.memory import batch_bytes
+    ts = _port_mesh(8, False)
+    ex = ts.executor
+    copies = []
+    real_gather = ex.gather
+
+    def gather(batch):
+        before = ex.pool.reserved
+        out = real_gather(batch)
+        if out is not batch:
+            copies.append((ex.pool.reserved - before, batch_bytes(out)))
+        return out
+    ex.gather = gather
+    for _ in range(2):
+        assert ts.execute(sql).rows == single.execute(sql).rows
+        assert ex.pool.reserved == sum(ex._node_bytes.values()) + \
+            ex._gathered_bytes
+    assert copies and all(got == want for got, want in copies)

@@ -118,11 +118,22 @@ class Batch:
         return self.live.shape[0]
 
     @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, i: int) -> Column:
+        return self.columns[i]
+
+    @property
     def device(self) -> torch.device:
         return self.live.device
 
     def with_live(self, live: torch.Tensor) -> "Batch":
         return Batch(columns=self.columns, live=live)
+
+    def select_columns(self, indices: Sequence[int]) -> "Batch":
+        return Batch(columns=tuple(self.columns[i] for i in indices),
+                     live=self.live)
 
 
 # --------------------------------------------------------------------------

@@ -242,9 +242,9 @@ class Client:
             state = doc.get("stats", {}).get("state", "")
             if state in ("QUEUED", "PLANNING", "RUNNING", "STARTING"):
                 time.sleep(self.poll_interval_s)
-            doc = self._poll(next_uri)
+            doc = self._poll(next_uri, deadline)
 
-    def _poll(self, next_uri: str) -> dict:
+    def _poll(self, next_uri: str, deadline: Optional[float] = None) -> dict:
         """One nextUri advance, retried with backoff through the
         coordinator address list: a reset/refused/dropped connection or
         an explicit COORDINATOR_UNAVAILABLE answer rotates the target
@@ -254,10 +254,18 @@ class Client:
         survives its coordinator dying mid-poll without surfacing an
         error; HTTP status errors other than 502/503 are real answers
         and propagate (StatementClientV1.advance retries the same
-        way)."""
+        way).
+
+        Past the attempt budget, a poll whose coordinators answered with
+        a retryable status (a standby still promoting) goes on at the
+        policy's longest delay until the query's `deadline` (time.time()):
+        how long a promotion takes (detector misses, the wait for workers,
+        the ledger's replay) grows with the host's load, while the
+        budget's jittered delays may sum to a few seconds."""
         delays = self.retry_policy.delays()
         last: Optional[Exception] = None
-        for _ in range(self.retry_policy.max_attempts):
+        answered = False
+        while True:
             base = self.uri
             try:
                 return self._request("GET",
@@ -266,12 +274,16 @@ class Client:
                 if not self._retryable_http(e):
                     raise
                 last = e
+                answered = True
             except (OSError, http.client.HTTPException) as e:
                 last = e
             self._next_coordinator(base)
             d = next(delays, None)
             if d is None:
-                break
+                if not (answered and deadline is not None and
+                        time.time() < deadline):
+                    break
+                d = self.retry_policy.max_delay_s
             time.sleep(max(d, self.poll_interval_s))
         raise last if isinstance(last, HTTPError) else \
             QueryError(f"lost every coordinator while polling: {last}",

@@ -41,6 +41,7 @@
 
 #define MAX_TABLES 64
 #define THREADS 512
+#define MAX_DEVICES 16          // cards whose occupancy a process caches
 #define LANES 4                 // consecutive indices per thread and group
 
 struct K1Args {
@@ -165,22 +166,25 @@ template <typename IdxT, int GROUPS>
 static int launch(const void* idx, int64_t n, int64_t width, const K1Args& a,
                   cudaStream_t s) {
   auto kern = gather_kernel<IdxT, GROUPS>;
-  // per instance, once: the blocks that fit on the card at a time
-  static int64_t resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  // per instance and card, once: the blocks that fit on the current card
+  // (the caller made the tensors' card current) at a time
+  static int64_t resident[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident = (int64_t)sms * per_sm;
+    resident[dev] = (int64_t)sms * per_sm;
   }
   const int64_t tile = (int64_t)THREADS * LANES * GROUPS;
   int64_t grid = (n + tile - 1) / tile;
-  if (grid > resident) grid = resident;
+  if (grid > resident[dev]) grid = resident[dev];
   kern<<<(unsigned)grid, THREADS, 0, s>>>((const IdxT*)idx, n, width, a);
   return (int)cudaGetLastError();
 }

@@ -99,6 +99,8 @@ class ExecStats:
     hash_join_escapes: int = 0       # builds that overflowed the table
     mesh_partitioned_joins: int = 0  # joins hash-repartitioned over the
                                      # mesh (parallel/dist_executor.py)
+    mesh_gathers: int = 0            # row-sharded batches all-gathered
+                                     # onto the mesh's first device
     dynamic_filter_rows_pruned: int = 0   # probe rows cut by build-side
                                           # bounds before the join ran
     scan_zones_pruned: int = 0       # zone-map row ranges skipped at scan
@@ -566,7 +568,7 @@ class Executor:
                         t1 - t0)
         device_s = t2 - t1
         host_s = (t1 - t0) - compile_s
-        rows = int(out.live.sum())
+        rows = sum(int(b.live.sum()) for b in getattr(out, "shards", (out,)))
         self.node_stats[id(node)] = (t2 - t0, rows, device_s, host_s,
                                      compile_s)
         OPERATOR_ROWS.inc(rows, operator=op)
@@ -806,23 +808,37 @@ class Executor:
         self._skey_memo[nid] = (node, skey)
         return skey
 
+    def run_sharded(self, node: L.PlanNode) -> Batch:
+        """`node`'s output as its operator leaves it: on one device, what
+        `run` returns (the mesh keeps a row-sharded output sharded)."""
+        return self.run(node)
+
+    @staticmethod
+    def per_shard(batch: Batch, fn) -> Batch:
+        """`fn` over a batch (the mesh applies it to every shard)."""
+        return fn(batch)
+
     def dispatch(self, node: L.PlanNode) -> Batch:
         if isinstance(node, L.ScanNode):
             return self.run_scan(node)
         if isinstance(node, L.FilterNode):
             pred = self.fold_scalars(node.predicate)
             if isinstance(node.child, L.ProjectNode):
-                child = self.run(node.child.child)
-                return filter_project_fused(
-                    child, self.fold_scalars_tuple(node.child.exprs), pred)
-            return apply_filter(self.run(node.child), pred)
+                child = self.run_sharded(node.child.child)
+                exprs = self.fold_scalars_tuple(node.child.exprs)
+                return self.per_shard(
+                    child, lambda b: filter_project_fused(b, exprs, pred))
+            return self.per_shard(self.run_sharded(node.child),
+                                  lambda b: apply_filter(b, pred))
         if isinstance(node, L.ProjectNode):
             exprs = self.fold_scalars_tuple(node.exprs)
             if isinstance(node.child, L.FilterNode):
-                child = self.run(node.child.child)
-                return filter_project(
-                    child, self.fold_scalars(node.child.predicate), exprs)
-            return filter_project(self.run(node.child), None, exprs)
+                child = self.run_sharded(node.child.child)
+                pred = self.fold_scalars(node.child.predicate)
+                return self.per_shard(
+                    child, lambda b: filter_project(b, pred, exprs))
+            return self.per_shard(self.run_sharded(node.child),
+                                  lambda b: filter_project(b, None, exprs))
         if isinstance(node, L.AggregateNode):
             return self.run_aggregate(node)
         if isinstance(node, L.JoinNode):
@@ -1055,14 +1071,17 @@ class Executor:
             f"zone-pruned:{pruned}/{zm.num_zones}"
         return arrays, valids, kept_rows
 
-    def run_aggregate(self, node: L.AggregateNode) -> Batch:
-        aggs = tuple(AggSpec(
+    @staticmethod
+    def agg_specs(node: L.AggregateNode) -> tuple:
+        return tuple(AggSpec(
             a.func,
             a.arg.index if a.arg is not None else None,
             a.distinct)
             for a in node.aggs)
+
+    def run_aggregate(self, node: L.AggregateNode) -> Batch:
         child = self.run(node.child)
-        return self.aggregate_batch(node, child, aggs)
+        return self.aggregate_batch(node, child, self.agg_specs(node))
 
     def gather_mode(self) -> str:
         """Resolved K1 mode: 'on' | 'off' (ops/gather.resolve_mode)."""
@@ -1167,17 +1186,11 @@ class Executor:
             self.record_decision(("aggfinal", skey, self._decision_salt()),
                                  (n_groups,))
 
-    def row_shards(self, node: L.PlanNode, batch: Batch) -> int:
-        """The blocks a float sum over `batch`, `node`'s output, adds in:
-        1 on one device (parallel.MeshExecutor overrides it)."""
-        return 1
-
     def aggregate_batch(self, node: L.AggregateNode, child: Batch, aggs):
         """One partial aggregation (the PARTIAL step)."""
         if node.strategy == "global":
             self._note_strategy("AggregateNode", "global", "agg")
-            return global_aggregate(child, aggs,
-                                    self.row_shards(node.child, child))
+            return global_aggregate(child, aggs)
         if node.strategy == "direct":
             if self.use_mxu_agg(child, aggs, node.key_domains):
                 from ..ops.direct_agg import direct_group_aggregate_mxu
@@ -1187,8 +1200,7 @@ class Executor:
                     child, node.group_keys, node.key_domains, aggs)
             self._note_strategy("AggregateNode", "direct", "agg")
             return direct_group_aggregate(
-                child, node.group_keys, node.key_domains, aggs,
-                self.row_shards(node.child, child))
+                child, node.group_keys, node.key_domains, aggs)
         if node.strategy == "hash":
             out = self.hash_aggregate(node, child, aggs)
             if out is not None:
@@ -1423,24 +1435,36 @@ class Executor:
             self._scalar_cache[ref] = val
         return self._scalar_cache[ref]
 
-    # compact when live rows fit in 1/SHRINK of capacity
+    # compact when live rows fit in 1/SHRINK of capacity, from this many
+    # rows (a row count costs a sync; below it compaction does not pay)
     COMPACT_SHRINK = 2
+    COMPACT_MIN_ROWS = 1 << 16
+
+    def compact_capacity(self, live: int, capacity: int,
+                         shrink: Optional[int] = None) -> Optional[int]:
+        """The capacity a batch of `capacity` rows, `live` of them live,
+        compacts to when they fit in 1/`shrink` of it (default
+        COMPACT_SHRINK; counted as a compaction), else None."""
+        new_cap = bucket_capacity(live)
+        if new_cap * (shrink or self.COMPACT_SHRINK) > capacity:
+            return None
+        self.stats.dynamic_filter_compactions += 1
+        return new_cap
 
     def maybe_compact(self, batch: Batch, live: Optional[int] = None,
-                      node: Optional[L.PlanNode] = None) -> Batch:
+                      node: Optional[L.PlanNode] = None,
+                      shrink: Optional[int] = None,
+                      tag: str = "complive") -> Batch:
         """Compact when live rows shrank enough (`live` from the caller's
-        own sync when it has one)."""
+        own sync when it has one; else fetched under `tag`)."""
         if live is None:
-            if batch.capacity < (1 << 16):
+            if batch.capacity < self.COMPACT_MIN_ROWS:
                 return batch          # too small for compaction to pay
             if self.chunk_mode:
                 return batch          # the chunked loop stays sync-free
-            live = self.fetch_ints(node, "complive", batch.live.sum())[0]
-        new_cap = bucket_capacity(live)
-        if new_cap * self.COMPACT_SHRINK <= batch.capacity:
-            self.stats.dynamic_filter_compactions += 1
-            return compact_batch(batch, new_cap)
-        return batch
+            live = self.fetch_ints(node, tag, batch.live.sum())[0]
+        new_cap = self.compact_capacity(live, batch.capacity, shrink)
+        return batch if new_cap is None else compact_batch(batch, new_cap)
 
     def run_join(self, node: L.JoinNode) -> Batch:
         probe = self.run(node.left)
@@ -1455,6 +1479,12 @@ class Executor:
                 if out is not None:
                     return out
         build = self.run(node.right)
+        return self.join_batches(node, probe, build)
+
+    def join_batches(self, node: L.JoinNode, probe: Batch,
+                     build: Batch) -> Batch:
+        """The join of its two sides' batches (multi-column keys packed
+        into one where 32 bits do not hold them)."""
         packed = self.pack_join_keys(probe, build, node.left_keys,
                                      node.right_keys, node=node)
         if packed is not None:
@@ -1547,13 +1577,26 @@ class Executor:
         if node.kind in ("semi", "anti"):
             return self.run_membership_join(node, probe, build)
         probe = self.maybe_compact(probe, node=node)
-        domain = node.build_key_domain
+        return self._join_pruned(node, probe, build)
+
+    def _join_pruned(self, node: L.JoinNode, probe: Batch,
+                     build: Batch) -> Batch:
+        """An inner or left join after the dynamic filter and the probe's
+        compaction: a unique-build path, else the expansion."""
         if node.build_unique:
-            out = self.try_unique_join(node, probe, build, domain)
+            out = self.try_unique_join(node, probe, build,
+                                       node.build_key_domain)
             if out is not None:
                 return out
             # the planner's uniqueness proof was wrong — degrade
             self.stats.join_fallbacks += 1
+        return self._join_expand(node, probe, build)
+
+    def _join_expand(self, node: L.JoinNode, probe: Batch,
+                     build: Batch) -> Batch:
+        """The expansion join: output capacity grown until every match
+        fits."""
+        domain = node.build_key_domain
         cap = probe.capacity
         while True:
             out, total, oob = join_expand(probe, build, node.left_keys,
@@ -1572,6 +1615,15 @@ class Executor:
             cap = bucket_capacity(total)
             self.stats.join_expansion_retries += 1
 
+    def merge_join_ok(self, node: L.JoinNode, n_probe_cols: int,
+                      n_build_cols: int, rows: int) -> bool:
+        """Does a unique-build join of this shape take the sort-merge path
+        (small shapes: few sort operands, `rows` of both sides)?"""
+        n_sort_ops = 2 * (n_probe_cols + n_build_cols) + 4
+        return node.kind in ("inner", "left") and self.enable_merge_join \
+            and n_sort_ops <= MAX_SORT_OPERANDS and rows <= SORT_SMALL_ROWS \
+            and n_probe_cols <= 63 and n_build_cols <= 63
+
     def try_unique_join(self, node: L.JoinNode, probe: Batch,
                         build: Batch, domain) -> Optional[Batch]:
         """Unique-build fast paths (sort-merge at small shapes, dense LUT,
@@ -1586,12 +1638,8 @@ class Executor:
         gm = self.gather_mode()
         if gm != "off":
             self.stats.pallas_gather_calls += 1
-        n_sort_ops = 2 * (len(probe.columns) + len(build.columns)) + 4
-        merge_ok = self.enable_merge_join and \
-            n_sort_ops <= MAX_SORT_OPERANDS and \
-            (probe.capacity + build.capacity) <= SORT_SMALL_ROWS
-        if node.kind in ("inner", "left") and merge_ok and \
-                len(probe.columns) <= 63 and len(build.columns) <= 63:
+        if self.merge_join_ok(node, len(probe.columns), len(build.columns),
+                              probe.capacity + build.capacity):
             out, dup = join_unique_build_merge(
                 probe, build, node.left_keys, node.right_keys, node.kind)
             dup, live = self.fetch_ints(node, "jmerge", dup,
@@ -1601,43 +1649,60 @@ class Executor:
                 return self.maybe_compact(out, live=live)
             return None
         if domain is not None:
-            if node.kind == "inner" and probe.capacity > SORT_SMALL_ROWS:
-                # two-phase: probe the LUT, then decide — a selective join
-                # compacts matched rows before the payload gathers
-                from ..ops.join import dense_join_compacted, dense_probe
+            from ..ops.join import dense_join_compacted, dense_probe
+            keys = (node.left_keys, node.right_keys)
+            two_phase = self.dense_two_phase(node, probe.capacity)
+            if two_phase:
                 src, matched, dup, oob, live = dense_probe(
-                    probe, build, node.left_keys, node.right_keys, domain,
-                    gm)
-                dup, oob, live = self.fetch_ints(
-                    node, f"jdense2:{domain}", dup, oob, live)
-                if oob == 0:
-                    if dup != 0:
-                        return None
-                    self._note_strategy("JoinNode", "dense-lut", "join")
-                    new_cap = bucket_capacity(live)
-                    if new_cap * self.COMPACT_SHRINK <= probe.capacity:
-                        self.stats.dynamic_filter_compactions += 1
-                        return dense_join_compacted(
-                            probe, src, matched, build, node.left_keys,
-                            node.right_keys, new_cap, gm)
-                    out, _dup2, _oob2 = join_unique_build_dense(
-                        probe, build, node.left_keys, node.right_keys,
-                        node.kind, domain, gm)
-                    return out
-                self.stats.join_domain_fallbacks += 1
+                    probe, build, *keys, domain, gm)
+                vals = self.fetch_ints(node, f"jdense2:{domain}", dup, oob,
+                                       live)
             else:
                 out, dup, oob = join_unique_build_dense(
-                    probe, build, node.left_keys, node.right_keys,
-                    node.kind, domain, gm)
-                dup, oob, live = self.fetch_ints(
-                    node, f"jdense:{domain}", dup, oob, out.live.sum())
-                if oob == 0:
-                    if dup != 0:
-                        return None
-                    self._note_strategy("JoinNode", "dense-lut", "join")
-                    return self.maybe_compact(out, live=live)
-                self.stats.join_domain_fallbacks += 1
-        # sparse key domain: the hybrid hash join
+                    probe, build, *keys, node.kind, domain, gm)
+                vals = self.fetch_ints(node, f"jdense:{domain}", dup, oob,
+                                       out.live.sum())
+            fallback, new_cap = self.dense_verdict(node, probe.capacity,
+                                                   vals)
+            if fallback == "dup":
+                return None
+            if fallback is None:
+                if not two_phase:
+                    return out if new_cap is None else \
+                        compact_batch(out, new_cap)
+                if new_cap is not None:
+                    return dense_join_compacted(probe, src, matched, build,
+                                                *keys, new_cap, gm)
+                return join_unique_build_dense(probe, build, *keys,
+                                               node.kind, domain, gm)[0]
+        return self._try_sparse_unique_join(node, probe, build)
+
+    @staticmethod
+    def dense_two_phase(node: L.JoinNode, capacity: int) -> bool:
+        """Does the dense-LUT join probe first and gather after? An inner
+        join over a large probe: a selective one compacts its matched rows
+        before the payload gathers."""
+        return node.kind == "inner" and capacity > SORT_SMALL_ROWS
+
+    def dense_verdict(self, node: L.JoinNode, capacity: int, vals) -> tuple:
+        """The dense-LUT join's next step from its fetched counts, `vals`
+        = (dup, oob, live) of each shard (one on a single device) over a
+        probe of `capacity` rows: ("domain", None) when a key fell outside
+        the domain (counted), ("dup", None) when the build had a duplicate
+        key, else (None, the capacity to compact the output to or None)."""
+        if sum(vals[1::3]) > 0:
+            self.stats.join_domain_fallbacks += 1
+            return "domain", None
+        if sum(vals[0::3]) > 0:
+            return "dup", None
+        self._note_strategy("JoinNode", "dense-lut", "join")
+        return None, self.compact_capacity(sum(vals[2::3]), capacity)
+
+    def _try_sparse_unique_join(self, node: L.JoinNode, probe: Batch,
+                                build: Batch) -> Optional[Batch]:
+        """A unique-build join whose keys have no dense domain: the
+        hybrid hash join, else the sorted join. None = the build had
+        duplicate keys."""
         status, hout = self.try_hash_join(node, probe, build,
                                           allow_dup=False)
         if status == "ok":
@@ -1860,15 +1925,9 @@ class Executor:
             pk = probe.columns[pk_i]
             keep = pk.valid & (pk.data >= kmin) & (pk.data <= kmax)
             probe = probe.with_live(probe.live & keep)
-        if probe.capacity >= (1 << 16) and not self.chunk_mode:
-            # the chunked loop skips the row-count sync (the range mask
-            # above still applies; only compaction needs the count)
-            live = self.fetch_ints(node, "dflive", probe.live.sum())[0]
-            new_cap = bucket_capacity(live)
-            if new_cap * 4 <= probe.capacity:
-                self.stats.dynamic_filter_compactions += 1
-                probe = compact_batch(probe, new_cap)
-        return probe
+        # the chunked loop skips the row-count sync (the range mask above
+        # still applies; only compaction needs the count)
+        return self.maybe_compact(probe, node=node, shrink=4, tag="dflive")
 
     # ------------------------------------------------------------------
     # fused multiway star join (MultiJoinNode, K4)

@@ -362,7 +362,11 @@ class MemoryContext:
 
 
 def batch_bytes(batch) -> int:
-    """Device bytes of a Batch (data + validity + live mask)."""
+    """Device bytes of a Batch (data + validity + live mask); of a
+    row-sharded batch, its shards' over every card."""
+    shards = getattr(batch, "shards", None)
+    if shards is not None:
+        return sum(batch_bytes(b) for b in shards)
     # port: torch tensors count with numel()/element_size()
     total = batch.live.numel()  # bool mask
     for col in batch.columns:

@@ -492,7 +492,11 @@ class Session:
 
     def set_distributed(self, on: bool) -> None:
         """Swap the executor: the mesh over every card of the session's
-        device type (one shard on the CPU), or the single-device one."""
+        device type (one shard on the CPU; a device with an index names
+        its one card), or the single-device one. On the mesh each scan is
+        split into one block a card, the per-shard operators run on each
+        card and the rest on the first after an all-gather
+        (parallel/dist_executor.py)."""
         if on:
             from ..parallel.dist_executor import MeshExecutor
             from ..parallel.mesh import make_mesh

@@ -157,12 +157,10 @@ def _full(n: int, value, dtype, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def direct_group_aggregate(batch: Batch, key_indices: tuple,
-                           domains: tuple, aggs: tuple,
-                           shards: int = 1) -> Batch:
+                           domains: tuple, aggs: tuple) -> Batch:
     """Group by small-domain integer/dictionary keys; output has exactly
     prod(domains) rows, group g's keys decode as mixed-radix digits of g.
-    Groups with no rows are not live. ``shards``: float sums over a batch
-    row-sharded that many ways (``sum_like_reference``)."""
+    Groups with no rows are not live."""
     dev = batch.device
     out_capacity = 1
     for d in domains:
@@ -206,8 +204,7 @@ def direct_group_aggregate(batch: Batch, key_indices: tuple,
         if spec.func == "sum":
             vals = data.to(_acc_dtype(data.dtype))
             state = torch.stack([
-                sum_like_reference(torch.where(m & col.valid, vals, 0),
-                                   shards)
+                sum_like_reference(torch.where(m & col.valid, vals, 0))
                 for m in group_masks])
         else:
             ident = _identity(spec.func, data.dtype)
@@ -480,9 +477,8 @@ def packed_sort_group_aggregate(batch: Batch, kmins, key_indices: tuple,
 # global (ungrouped) aggregation
 # --------------------------------------------------------------------------
 
-def global_aggregate(batch: Batch, aggs: tuple, shards: int = 1) -> Batch:
-    """No GROUP BY: one output row, always live. ``shards``: float sums
-    over a batch row-sharded that many ways (``sum_like_reference``)."""
+def global_aggregate(batch: Batch, aggs: tuple) -> Batch:
+    """No GROUP BY: one output row, always live."""
     dev = batch.device
     out_cols = []
     one = torch.ones(1, dtype=torch.bool, device=dev)
@@ -499,8 +495,7 @@ def global_aggregate(batch: Batch, aggs: tuple, shards: int = 1) -> Batch:
             continue
         if spec.func == "sum":
             state = sum_like_reference(torch.where(
-                m, col.data.to(_acc_dtype(col.data.dtype)), 0),
-                shards)[None]
+                m, col.data.to(_acc_dtype(col.data.dtype)), 0))[None]
         else:
             ident = _identity(spec.func, col.data.dtype)
             red = torch.amin if spec.func == "min" else torch.amax

@@ -29,6 +29,7 @@ profiled dispatch is charged to that thread's ``thread_compile_seconds``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -182,11 +183,33 @@ def load_all(names: Iterable[str] = KERNEL_SOURCES) -> int:
     return len(names)
 
 
+def _card(device) -> torch.device:
+    """`device` with its index: an index-less `cuda` is the current card."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def raw_stream(device) -> int:
-    """The current CUDA stream's handle on `device`, for a launch: the
-    raw handle torch's own generated kernels launch on, without building
-    a torch.cuda.Stream object per call."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+    """The current CUDA stream's handle on `device`: the raw handle
+    torch's own generated kernels launch on, without building a
+    torch.cuda.Stream object per call."""
+    return torch._C._cuda_getCurrentRawStream(_card(device).index)
+
+
+@contextlib.contextmanager
+def launch_on(device):
+    """Make `device`'s card current for a ctypes launch and yield its
+    current stream's handle. A launch goes to a stream of the card that
+    is current, and the C entries read the current card (its
+    multiprocessor count, occupancy), so every launch enters the card
+    its tensors lie on; on leaving, the card that was current before is
+    current again. A wrapper adds to its launch count inside this block,
+    so the count can be read per card around it."""
+    dev = _card(device)
+    with torch.cuda.device(dev):
+        yield raw_stream(dev)
 
 
 def check(status: int, what: str) -> None:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..batch import Batch, Column
-from .cuda_build import check, library, raw_stream
+from .cuda_build import check, launch_on, library
 
 # the reference's gates, kept so the executor makes the same choice
 MAX_GROUPS = 16
@@ -280,10 +280,11 @@ def _launch(batch: Batch, key_indices, domains, aggs) -> Batch:
         words[w + 5] = 0 if voff is None else voff
     words[KEY_WORDS * MAX_KEYS + AGG_WORDS * MAX_AGGS] = live_off
     out = torch.empty(total, dtype=torch.uint8, device=dev)
-    stream = raw_stream(dev)
-    status = library("direct_agg").k5_direct_agg(
-        live.data_ptr(), words, n, len(key_dtypes), len(funcs), n_groups,
-        out.data_ptr(), _scratch_for(dev, stream).data_ptr(), stream)
-    check(status, "K5 direct aggregate launch")
-    direct_group_aggregate_mxu.launches += 1
+    with launch_on(dev) as stream:
+        status = library("direct_agg").k5_direct_agg(
+            live.data_ptr(), words, n, len(key_dtypes), len(funcs),
+            n_groups, out.data_ptr(), _scratch_for(dev, stream).data_ptr(),
+            stream)
+        check(status, "K5 direct aggregate launch")
+        direct_group_aggregate_mxu.launches += 1
     return batch_from_output(out, key_dtypes, layout, n_groups)

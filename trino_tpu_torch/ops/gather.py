@@ -38,7 +38,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from .cuda_build import check, library, raw_stream
+from .cuda_build import check, launch_on, library
 
 MAX_TABLES = 64             # tables per launch (csrc/gather.cu MAX_TABLES)
 # K1: a table of at most this many bytes can stay in an SM's L1 (256 KB
@@ -180,18 +180,18 @@ def _launch(tables, idx, fills) -> List[torch.Tensor]:
         raise ValueError(f"gather_columns: {w} rows exceed K1's int32 "
                          f"indices")
     tables = [t if t.is_contiguous() else t.contiguous() for t in tables]
-    stream = raw_stream(dev)
-    for plan in plan_gather([t.element_size() for t in tables], w):
-        desc = (ctypes.c_uint64 * (4 * len(plan.tables)))()
-        for k, p in enumerate(plan.tables):
-            desc[4 * k] = tables[p].data_ptr()
-            desc[4 * k + 1] = outs[p].data_ptr()
-            desc[4 * k + 2] = _fill_bits(fills[p], tables[p].dtype)
-            desc[4 * k + 3] = tables[p].element_size()
-        status = fn(idx.data_ptr(), idx.element_size(), n, w,
-                    len(plan.tables), desc, int(plan.big_tile), stream)
-        check(status, "K1 gather launch")
-        gather_columns.launches += 1
+    with launch_on(dev) as stream:
+        for plan in plan_gather([t.element_size() for t in tables], w):
+            desc = (ctypes.c_uint64 * (4 * len(plan.tables)))()
+            for k, p in enumerate(plan.tables):
+                desc[4 * k] = tables[p].data_ptr()
+                desc[4 * k + 1] = outs[p].data_ptr()
+                desc[4 * k + 2] = _fill_bits(fills[p], tables[p].dtype)
+                desc[4 * k + 3] = tables[p].element_size()
+            status = fn(idx.data_ptr(), idx.element_size(), n, w,
+                        len(plan.tables), desc, int(plan.big_tile), stream)
+            check(status, "K1 gather launch")
+            gather_columns.launches += 1
     return outs
 
 
@@ -307,9 +307,9 @@ def _launch_window(planes: torch.Tensor, idx: torch.Tensor):
         buf.zero_()
         return buf[:0], buf[0]
     ptr = buf.data_ptr()
-    status = fn(idx.data_ptr(), n, planes.data_ptr(), planes.shape[0],
-                planes.element_size(), ptr, ptr + 8 * n,
-                raw_stream(idx.device))
-    check(status, "K2 window gather launch")
-    gather_word_windowed.launches += 1
+    with launch_on(idx.device) as stream:
+        status = fn(idx.data_ptr(), n, planes.data_ptr(), planes.shape[0],
+                    planes.element_size(), ptr, ptr + 8 * n, stream)
+        check(status, "K2 window gather launch")
+        gather_word_windowed.launches += 1
     return buf[:n], buf[n]

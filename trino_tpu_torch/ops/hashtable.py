@@ -52,7 +52,7 @@ from typing import List, Tuple
 import torch
 
 from ..batch import Batch, Column
-from .cuda_build import check, library, raw_stream
+from .cuda_build import check, launch_on, library
 
 MAX_PROBES = 16              # linear-probe bound (breach = escape)
 LOAD_NUM, LOAD_DEN = 5, 8    # occupancy cap 0.625 * T keeps probes short
@@ -401,14 +401,15 @@ def _launch(key, mask, tid, planes, layout, nstates, T, G, pairs):
     buf = torch.empty(body + (2 * gt if pairs else 0), dtype=torch.int64,
                       device=dev)
     base = buf.data_ptr()
-    status = fn(key.data_ptr(), mask.data_ptr(),
-                0 if tid is None else tid.data_ptr(), key.shape[0],
-                _packed_layout(layout, nstates), _PlaneWords(*words), base,
-                T, G, T * LOAD_NUM // LOAD_DEN,
-                base + 8 * body if pairs else 0, 0 if pairs else -1,
-                raw_stream(dev))
-    check(status, "K3 hash insert launch")
-    hash_insert_multi.launches += 1
+    with launch_on(dev) as stream:
+        status = fn(key.data_ptr(), mask.data_ptr(),
+                    0 if tid is None else tid.data_ptr(), key.shape[0],
+                    _packed_layout(layout, nstates), _PlaneWords(*words),
+                    base, T, G, T * LOAD_NUM // LOAD_DEN,
+                    base + 8 * body if pairs else 0, 0 if pairs else -1,
+                    stream)
+        check(status, "K3 hash insert launch")
+        hash_insert_multi.launches += 1
     return (buf.as_strided((G, T), (T, 1), cwords),
             buf.as_strided((nstates, G, T), (gt, T, 1), cwords + gt),
             buf.view(torch.int32).as_strided((G, 2), (2, 1)),
@@ -832,8 +833,10 @@ def _launch_multiprobe(live, keys, tkey, src):
         tkey = torch.stack((tkey, src), -1)[..., 0]
     found = torch.empty((k, n), dtype=torch.int32, device=dev)
     miss = torch.empty(k, dtype=torch.int64, device=dev)
-    status = fn(live.data_ptr(), _DimWords(*words), n, k, tkey.data_ptr(),
-                T, found.data_ptr(), miss.data_ptr(), raw_stream(dev))
-    check(status, "K4 multiway probe launch")
-    multiway_probe.launches += 1
+    with launch_on(dev) as stream:
+        status = fn(live.data_ptr(), _DimWords(*words), n, k,
+                    tkey.data_ptr(), T, found.data_ptr(), miss.data_ptr(),
+                    stream)
+        check(status, "K4 multiway probe launch")
+        multiway_probe.launches += 1
     return found, miss

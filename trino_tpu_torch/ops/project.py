@@ -1189,15 +1189,17 @@ def glibc_math_kernel(op: str, x: torch.Tensor, y=None) -> torch.Tensor:
     `csrc/glibc_math.cu`; a CPU tensor takes the plain replay."""
     if x.device.type == "cpu":
         return glibc_log_plain(x) if op == "log" else glibc_pow_plain(x, y)
-    from .cuda_build import check, library, raw_stream
+    from .cuda_build import check, launch_on, library
     args = (x,) if op == "log" else torch.broadcast_tensors(x, y)
     args = [a.to(torch.float64).contiguous() for a in args]
     out = torch.empty_like(args[0])
     if out.numel():
         fn = getattr(library("glibc_math"), f"glibc_{op}")
-        check(fn(*(a.data_ptr() for a in args), out.data_ptr(), out.numel(),
-                 raw_stream(out.device)), f"glibc {op} launch")
-        glibc_math_kernel.launches += 1
+        with launch_on(out.device) as stream:
+            status = fn(*(a.data_ptr() for a in args), out.data_ptr(),
+                        out.numel(), stream)
+            check(status, f"glibc {op} launch")
+            glibc_math_kernel.launches += 1
     return out
 
 

@@ -3,13 +3,18 @@
 The reference lays a plan over a `jax.sharding.Mesh`: one process drives
 every device, a stage is a `shard_map` program (per-shard code with
 explicit collectives), and the rest runs under GSPMD. Torch has neither,
-so the port keeps the single controller and writes a `shard_map` body as
-a loop over a list of per-shard batches, one per mesh device, with the
-collectives below as functions over that list (the semantics of
-`jax.lax`'s, shard 0 first). Data moves between shards with
-`Tensor.to(device)`; no process group is involved. A mesh may name one
-device several times: `make_mesh(8, "cuda")` lays eight shards on one
-card, as the reference's tests lay eight virtual devices on one CPU.
+so the port keeps the single controller and writes both as loops over a
+list of per-shard batches, one per mesh device, with the collectives
+below as functions over that list (the semantics of `jax.lax`'s, shard 0
+first). A `ShardedBatch` is such a list as data: the scans of a
+MeshExecutor are split once into one block a shard (`split_rows`), each
+on its shard's card, and per-shard operators keep them there until an
+operator that needs every row takes them through `gather_rows`, the
+all-gather onto the first device. Data moves between shards with
+`Tensor.to(device)`, which orders the copy after the work queued on both
+cards' current streams; no process group is involved. A mesh may name
+one device several times: `make_mesh(8, "cuda")` lays eight shards on
+one card, as the reference's tests lay eight virtual devices on one CPU.
 
 Axis naming: a single "workers" axis for row-sharded execution;
 `make_mesh_2d` reshapes the device list, and rows shard over every axis.
@@ -22,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..batch import Batch, Column
+from ..exec.memory import batch_bytes
 
 AXIS = "workers"
 
@@ -116,6 +122,98 @@ def shard_rows(batch: Batch, mesh: Mesh) -> List[Batch]:
 def replicate(batch: Batch, mesh: Mesh) -> List[Batch]:
     """The whole batch on every shard (a broadcast build side)."""
     return [slice_rows(batch, 0, batch.capacity, d) for d in mesh.devices]
+
+
+def split_rows(batch: Batch, mesh: Mesh) -> "ShardedBatch":
+    """`shard_rows` as the data a scan keeps: each block a copy of its own
+    on its shard's card (a view of the global tensor would keep the whole
+    table alive on the first card)."""
+    n = mesh.size
+    if batch.capacity % n:
+        raise ValueError(f"capacity {batch.capacity} does not divide over "
+                         f"{n} shards")
+    per = batch.capacity // n
+
+    def cut(t, i, d):
+        return t[i * per:(i + 1) * per].to(d, copy=n > 1)
+    shards = [Batch(columns=tuple(Column(cut(c.data, i, d),
+                                         cut(c.valid, i, d))
+                                  for c in batch.columns),
+                    live=cut(batch.live, i, d))
+              for i, d in enumerate(mesh.devices)]
+    return ShardedBatch(shards, sum_by_shard=True)
+
+
+class ShardedBatch:
+    """A batch row-sharded over a mesh: `shards[i]` holds its rows on
+    mesh device i, every shard with the same columns and capacity, the
+    rows in shard order. `capacity` is the global batch's, the one every
+    capacity rule of the executor reads.
+
+    `sum_by_shard`: the reference holds these rows row-sharded as they
+    lie here (`P('workers')`: a scan's even blocks, kept by filters,
+    projections and the dense probe; a partitioned join's output before
+    its compaction), so GSPMD sums a float over them shard by shard. A
+    compacted batch it sums as one array.
+
+    `slots`: set when the shards were compacted each on its own card where
+    the single-device operator compacts the global batch. Slot rows are
+    the rows the global compaction keeps (the live rows then; a later
+    filter does not move them), so `gather_rows` compacts the
+    concatenation by them to `capacity` and gives the global operator's
+    layout, dead rows at their places."""
+
+    def __init__(self, shards: Sequence[Batch], sum_by_shard: bool = False,
+                 slots: Optional[List[torch.Tensor]] = None,
+                 capacity: Optional[int] = None):
+        self.shards = list(shards)
+        self.sum_by_shard = sum_by_shard
+        self.slots = slots
+        self.capacity = capacity if capacity is not None else \
+            sum(s.capacity for s in self.shards)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [s.device for s in self.shards]
+
+    @property
+    def first(self) -> Batch:
+        """Shard 0: its columns' dtypes are every shard's."""
+        return self.shards[0]
+
+    def map(self, fn) -> "ShardedBatch":
+        """`fn` on every shard, for an operator that keeps each row where
+        it is (a filter, a projection): the layout is kept."""
+        return ShardedBatch([fn(s) for s in self.shards], self.sum_by_shard,
+                            self.slots, self.capacity)
+
+    def bytes_by_device(self) -> dict:
+        """Bytes the shards hold, per device (data, validity and live)."""
+        out: dict = {}
+        for s in self.shards:
+            out[str(s.device)] = out.get(str(s.device), 0) + batch_bytes(s)
+        return out
+
+
+def gather_rows(batch: "ShardedBatch", device=None) -> Batch:
+    """The all-gather: the shards concatenated in shard order on `device`
+    (default: shard 0's), compacted by their slots where the shards were
+    compacted each on its own card."""
+    out = concat_rows(batch.shards, device)
+    if batch.slots is None:
+        return out
+    dev = out.device
+    slots = torch.cat([s.to(dev) for s in batch.slots])
+    idx = torch.sort((~slots).to(torch.uint8),
+                     stable=True).indices[:batch.capacity]
+    out = Batch(tuple(Column(c.data[idx], c.valid[idx])
+                      for c in out.columns), out.live[idx])
+    # the shards' common capacity may sum to less than the global one
+    return pad_to_multiple(out, batch.capacity)
 
 
 def concat_rows(shards: Sequence[Batch], device=None) -> Batch:

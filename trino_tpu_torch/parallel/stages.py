@@ -10,7 +10,9 @@ returns a callable over GLOBAL batches (row-sharded with
 `mesh.shard_rows`, a broadcast side replicated), with the reference's
 return tuple:
 replicated outputs come back once (shard 0's copy), row-sharded outputs
-concatenated in shard order.
+concatenated in shard order. The partitioned join, the one stage the
+MeshExecutor runs, also takes a side already sharded (a list of shard
+batches, as a `ShardedBatch` holds them) and leaves its output sharded.
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ from ..ops.project import apply_filter, project
 from .exchange import (apply_filter_bounds, join_filter_bounds,
                        merge_partial_states, psum_scalar, repartition_by_key)
 from .mesh import concat_rows, replicate, shard_rows
+
+
+def _shards(batch, mesh) -> list:
+    """A side's shard batches: a list as it is, a global batch cut into
+    `shard_rows`' blocks."""
+    return list(batch) if isinstance(batch, (list, tuple)) else \
+        shard_rows(batch, mesh)
 
 
 def sharded_agg_step(mesh, filter_expr, pre_exprs, key_indices: tuple,
@@ -113,13 +122,16 @@ def partitioned_hash_join_step(mesh, n_shards: int, probe_keys: tuple,
     -> per-shard hash build (K3, one launch a shard) + probe
        (ops/hashtable.shard_join): each shard owns 1/N of the key space.
 
-    Returns (joined row-sharded, total_dup, total_escape, total_pruned),
-    the totals as 0-d int64 tensors; the caller checks dup (expansion
-    join) and escape (a skewed partition overflowed its table)."""
+    Each side is a global batch or its shards (a list, shard i on mesh
+    device i, every shard of one capacity). Returns (the joined shards,
+    a list in shard order, each on its shard's device; total_dup,
+    total_escape, total_pruned), the totals as 0-d int64 tensors on the
+    first shard's device; the caller checks dup (expansion join) and
+    escape (a skewed partition overflowed its table)."""
     from ..ops.hashtable import shard_join
 
-    def step(probe: Batch, build: Batch):
-        probes, builds = shard_rows(probe, mesh), shard_rows(build, mesh)
+    def step(probe, build):
+        probes, builds = _shards(probe, mesh), _shards(build, mesh)
         bounds = join_filter_bounds(builds, build_keys)
         pruned = []
         if dynamic_filter:
@@ -139,6 +151,6 @@ def partitioned_hash_join_step(mesh, n_shards: int, probe_keys: tuple,
             outs.append(joined)
             dups.append(dup)
             escs.append(esc)
-        return (concat_rows(outs), psum_scalar(dups), psum_scalar(escs),
-                psum_scalar(pruned))
+        return outs, psum_scalar(dups), psum_scalar(escs), \
+            psum_scalar(pruned)
     return step
